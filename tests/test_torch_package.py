@@ -1,0 +1,149 @@
+"""Package-level contracts of the PyTorch port.
+
+* importing it pulls in no JAX (checked in a subprocess: this process has
+  JAX loaded by conftest);
+* ``from_jax_params`` yields exactly the modules' state_dict keys and
+  shapes;
+* on a CPU tensor every kernel wrapper takes its plain version and its
+  launch counter stays 0; any other non-CUDA device is refused.
+"""
+
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from cvvae_tpu.models.vae_v1 import VAE1Config as JNet
+from cvvae_tpu.models.video_vae import VideoVAE as JVAE
+from cvvae_tpu.models.video_vae import VideoVAEConfig as JConfig
+
+from cvvae_tpu_torch.models.vae_v1 import VAE1Config
+from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
+from cvvae_tpu_torch.ops.conv import Conv3DSpec
+from cvvae_tpu_torch.ops.kernels import _build, groupnorm, shuffle, stem
+from cvvae_tpu_torch.utils.convert import from_jax_params
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(ch=8, ch_mult=(1, 2, 4, 4), num_res_blocks=1, z_channels=4,
+            norm_num_groups=4)
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys\n"
+            "import cvvae_tpu_torch, cvvae_tpu_torch.serve, cvvae_tpu_torch.cli\n"
+            "import cvvae_tpu_torch.data.video_io, cvvae_tpu_torch.utils.convert\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cvvae_tpu' or "
+            "m.startswith('cvvae_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("net", [
+    TINY,
+    dict(TINY, use_3d_conv=False, attn_resolutions=(256, 128)),
+    dict(TINY, num_res_blocks=2, z_channels=8, double_z=False),
+])
+def test_from_jax_params_matches_state_dict(net):
+    jvae = JVAE.from_config(JConfig(family="v1", net=JNet(**net),
+                                    tile_spatial_size=None), seed=0)
+    state = from_jax_params(jax.tree.map(np.asarray, jvae.params))
+    module = VideoVAE(VideoVAEConfig(family="v1", net=VAE1Config(**net),
+                                     tile_spatial_size=None))
+    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in state.items()} == expected
+    module.load_state_dict(state, strict=True)
+
+
+def test_from_jax_params_layouts():
+    conv = np.arange(3 * 3 * 3 * 2 * 5, dtype=np.float32).reshape(3, 3, 3, 2, 5)
+    frame = np.arange(3 * 3 * 2 * 5, dtype=np.float32).reshape(1, 3, 3, 2, 5)
+    dense = np.arange(6, dtype=np.float32).reshape(2, 3)
+    out = from_jax_params({"a": {"kernel": conv, "bias": np.zeros(5)},
+                           "b": [{"kernel": frame}],
+                           "c": {"kernel": dense},
+                           "n": {"scale": np.ones(4), "bias": np.zeros(4)}})
+    assert torch.equal(out["a.weight"],
+                       torch.from_numpy(conv.transpose(4, 3, 0, 1, 2).copy()))
+    assert tuple(out["b.0.weight"].shape) == (5, 2, 1, 3, 3)
+    assert torch.equal(out["c.weight"], torch.from_numpy(dense.T.copy()))
+    assert set(out) == {"a.weight", "a.bias", "b.0.weight", "c.weight",
+                        "n.weight", "n.bias"}
+    with pytest.raises(ValueError, match="unexpected leaf"):
+        from_jax_params({"x": {"kernel_q": conv}})
+    with pytest.raises(ValueError, match="rank"):
+        from_jax_params({"x": {"kernel": np.zeros((2, 2, 2))}})
+
+
+def _randn(shape, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randn(*shape)
+                            .astype(np.float32))
+
+
+def _calls():
+    x = _randn((1, 3, 4, 5, 16), 0)
+    w, b = _randn((16,), 1), _randn((16,), 2)
+    phases = [_randn((1, 2, 3, 4, 16), 3 + i) for i in range(4)]
+    spec = Conv3DSpec.v1_causal()
+    pix = _randn((1, 3, 6, 7, 3), 8)
+    sw, sb = _randn((128, 3, 3, 3, 3), 9), _randn((128,), 10)
+    return [
+        (groupnorm, lambda t: groupnorm.group_norm_silu(
+            t(x), w, b, num_groups=4, eps=1e-5, silu=True),
+         lambda: groupnorm.group_norm_silu_plain(
+             x, w, b, num_groups=4, eps=1e-5, silu=True)),
+        (groupnorm, lambda t: groupnorm.group_norm_silu(
+            t(x), w, b, num_groups=4, eps=1e-5, per_frame=True),
+         lambda: groupnorm.group_norm_silu_plain(
+             x, w, b, num_groups=4, eps=1e-5, per_frame=True)),
+        (shuffle, lambda t: shuffle.subpixel_interleave(
+            [t(p) for p in phases], w, n=2),
+         lambda: shuffle.subpixel_interleave_plain(phases, w, n=2)),
+        (stem, lambda t: stem.stem_conv3d(t(pix), sw, sb, spec),
+         lambda: stem.stem_conv3d_plain(pix, sw, sb, spec)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_cpu_tensor_takes_plain_version(case):
+    mod, wrapped, plain = _calls()[case]
+    before = mod.launches
+    got = wrapped(lambda v: v)
+    assert mod.launches == before == 0
+    assert torch.equal(got, plain())
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_other_devices_are_refused(case):
+    """Neither CPU nor CUDA: the wrapper raises before any launch."""
+    mod, wrapped, _ = _calls()[case]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wrapped(lambda v: v.to("meta"))
+    assert mod.launches == 0
+
+
+def test_nothing_is_built_at_import():
+    assert _build.library.cache_info().currsize == 0
+    assert _build.BUILD_ROOT.parent.name == "build"
+    assert {p.name for p in _build._sources()} == {
+        "common.cuh", "groupnorm.cu", "shuffle.cu", "stem.cu"}
+
+
+def test_layout_check_names_the_fix():
+    x = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float16,
+                              ndim=5)
+    with pytest.raises(ValueError, match="dtype"):
+        _build.require_cuda_layout("k", x, 5)
