@@ -9,14 +9,18 @@ Phases (each prints its findings; any failure exits non-zero):
    and the card's name and power limit (nvidia-smi).
 2. build   -- build the hand-written kernels from ``cvvae_tpu_torch/csrc``.
 3. kernels -- each kernel against its plain PyTorch version on the card at
-   the shapes the 720p serving path gives it (bf16; K1/K3 also fp32), with
-   median CUDA-event times taken in turns (plain, kernel, kernel, plain).
-4. slice   -- full-width v1 in fp32 (TF32 off): ``VideoVAE.reconstruct``
-   on the card (kernels) against the CPU (plain versions).
-5. serving -- the server ``serve.main`` builds (``serve.prepare``) for
-   17x720x1280 bf16 clips on an ephemeral port; /healthz, /reconstruct,
-   /encode, /decode, /stats; shapes, finiteness, byte equality of
-   /reconstruct and /decode(/encode), and a launch of every kernel.
+   the shapes the 720p serving paths give it (bf16; K1/K3/K4 also fp32),
+   with median CUDA-event times taken in turns (plain, kernel, kernel,
+   plain).
+4. slice   -- full-width v1 and SD3 in fp32 (TF32 off): encode + decode
+   on the card (kernels) against the CPU (plain versions); the SD3 clip's
+   32x32 latent makes K4 run in both mid-blocks.
+5. serving -- for v1, then SD3: the server ``serve.main`` builds
+   (``serve.prepare``) for 17x720x1280 bf16 clips on an ephemeral port;
+   /healthz, /reconstruct, /encode, /decode, /stats; shapes, finiteness,
+   byte equality of /reconstruct and /decode(/encode), and a launch of
+   every kernel of that path (counts set to 0 just before, read just
+   after).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  It imports nothing of JAX.
@@ -24,6 +28,7 @@ the per-kernel JSON summary.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import io
 import json
@@ -52,12 +57,30 @@ TOL = {
     ("K3", torch.float32): 2e-5,
     # K3 bf16: both accumulate in fp32 and round once: 1 bf16 ulp
     ("K3", torch.bfloat16): 1e-2,
+    # K4 fp32: fp32 FMAs and an online softmax against cuBLAS (TF32 off)
+    # and a full-row softmax: sums in another order
+    ("K4", torch.float32): 2e-5,
 }
+#: K4 bf16, held by two bounds instead: max|got - ref| <= K4_BF16_MAX *
+#: max|ref| and ||got - ref|| / ||ref|| <= K4_BF16_RMS.  The two round
+#: their outputs to bf16 apart (the kernel rounds the unnormalised
+#: probabilities, the plain version the normalised weights), one ulp at
+#: most, and an ulp is <= 2^-7 of max|ref|; on an H100 they differ by at
+#: most 7.2e-3 * max|ref| and 3.6e-3 RMS at every shape checked here and
+#: in the card tests.  A missing tail mask gives 2.5e-2 and 2.8e-2 at S =
+#: 1100; a dropped key tile or a 10% scale error 0.17 * max|ref| and more.
+K4_BF16_MAX = 1.5e-2
+K4_BF16_RMS = 5e-3
 #: whole slice, card against CPU, fp32 (TF32 off): relative to max|ref|
 SLICE_TOL = 1e-3
-#: the slice's clip (B, T, H, W, 3) and the served clip (T, H, W)
-SLICE_CLIP = (1, 9, 64, 64, 3)
+#: each family's slice clip (B, T, H, W, 3): SD3's 32x32 latent is 1024
+#: tokens, the card's K4 threshold
+SLICE_CLIPS = {"v1": (1, 9, 64, 64, 3), "sd3": (1, 5, 256, 256, 3)}
+#: the served clip (T, H, W)
 SERVE_CLIP = (17, 720, 1280)
+#: latent channels and the kernels each served path must launch
+PATHS = {"v1": (4, ("K1", "K2", "K3", "K4")),
+         "sd3": (16, ("K1", "K2", "K4"))}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="cuda",
@@ -69,7 +92,15 @@ KERNELS = {
     "K3": dict(name="stem_conv3d", route="cuda",
                source="cvvae_tpu_torch/csrc/stem.cu",
                replaces="cvvae_tpu/ops/pallas/stem.py:209"),
+    "K4": dict(name="flash_attention", route="cuda",
+               source="cvvae_tpu_torch/csrc/attention.cu",
+               replaces="cvvae_tpu/ops/attention.py:60"),
 }
+
+
+def kernel_modules():
+    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
+    return {"K1": groupnorm, "K2": shuffle, "K3": stem, "K4": attention}
 
 
 def say(*parts):
@@ -90,17 +121,24 @@ def randn(shape, seed, device, dtype, scale=1.0, shift=0.0):
     return (x * scale + shift).to(dtype)
 
 
-def compare(got, ref, tol):
-    """(max |got - ref|, max of |got - ref| - tol * (1 + |ref|)), taken
-    over 2^26-element slices so no full-size fp32 temporary exists."""
+def compare(got, ref, tol=0.0):
+    """(max |got - ref|, max of |got - ref| - tol * (1 + |ref|), max |ref|,
+    ||got - ref|| / ||ref||), taken over 2^26-element slices so no
+    full-size fp32 temporary exists.  A non-finite output is an infinite
+    error."""
+    if not torch.isfinite(got).all():
+        return (float("inf"),) * 4
     g, r = got.reshape(-1), ref.reshape(-1)
-    err = excess = 0.0
+    err = excess = ref_max = d2 = r2 = 0.0
     for i in range(0, g.numel(), 1 << 26):
-        a, b = g[i:i + (1 << 26)].float(), r[i:i + (1 << 26)].float()
+        a, b = g[i:i + (1 << 26)].double(), r[i:i + (1 << 26)].double()
         d = (a - b).abs()
         err = max(err, d.max().item())
         excess = max(excess, (d - tol * (1 + b.abs())).max().item())
-    return err, excess
+        ref_max = max(ref_max, b.abs().max().item())
+        d2 += d.square().sum().item()
+        r2 += b.square().sum().item()
+    return err, excess, ref_max, (d2 / r2) ** 0.5
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -134,20 +172,19 @@ def in_turns(plain, kernel):
 
 def _check_kernels(dev):
     from cvvae_tpu_torch.ops.conv import Conv3DSpec
-    from cvvae_tpu_torch.ops.kernels import groupnorm, shuffle, stem
+    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
 
     summary = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
                for k in KERNELS}
 
-    def record(key, label, err, excess, tol, k_ms, p_ms, timed):
+    def record(key, label, err, excess, bound, k_ms, p_ms, timed):
         ok = excess <= 0.0
-        say(f"[kernels] {key} {label}: max_abs_err={err!r} "
-            f"tol={tol!r}*(1+|ref|) "
+        say(f"[kernels] {key} {label}: max_abs_err={err!r} {bound} "
             f"kernel_ms={k_ms!r} plain_ms={p_ms!r} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{key} {label}: disagrees with its plain "
-                             f"version (max_abs_err {err}, tol {tol})")
+                             f"version (max_abs_err {err}; {bound})")
         s = summary[key]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if timed:
@@ -174,7 +211,7 @@ def _check_kernels(dev):
             if got.shape != x.shape or got.dtype != dtype:
                 raise SystemExit(f"K1 output {tuple(got.shape)} {got.dtype}")
             tol = TOL[("K1", dtype)]
-            err, excess = compare(got, ref, tol)
+            err, excess = compare(got, ref, tol)[:2]
             del got, ref
             k_ms = p_ms = None
             if timed:
@@ -182,7 +219,8 @@ def _check_kernels(dev):
                     lambda: groupnorm.group_norm_silu_plain(x, w, b, **kw),
                     lambda: groupnorm.group_norm_silu(x, w, b, **kw))
             record("K1", f"{tuple(shape)} {dtype} silu={silu} "
-                   f"per_frame={per_frame}", err, excess, tol,
+                   f"per_frame={per_frame}", err, excess,
+                   f"tol={tol!r}*(1+|ref|)",
                    k_ms, p_ms, timed and dtype == torch.bfloat16)
             del x
             torch.cuda.empty_cache()
@@ -201,7 +239,7 @@ def _check_kernels(dev):
             ref = shuffle.subpixel_interleave_plain(phases, bias, n=n)
             torch.cuda.synchronize()
             exact = got.shape == ref.shape and torch.equal(got, ref)
-            err = (0.0 if exact else compare(got, ref, 0.0)[0]
+            err = (0.0 if exact else compare(got, ref)[0]
                    if got.shape == ref.shape else float("inf"))
             del got, ref
             k_ms = p_ms = None
@@ -210,7 +248,8 @@ def _check_kernels(dev):
                     lambda: shuffle.subpixel_interleave_plain(phases, bias, n=n),
                     lambda: shuffle.subpixel_interleave(phases, bias, n=n))
             record("K2", f"{tuple(shape)} n={n} {dtype} bit-exact={exact}",
-                   err, 0.0 if exact else 1.0, 0.0, k_ms, p_ms, timed)
+                   err, 0.0 if exact else 1.0, "tol=bit-exact", k_ms, p_ms,
+                   timed)
             del phases
             torch.cuda.empty_cache()
 
@@ -224,13 +263,49 @@ def _check_kernels(dev):
         ref = stem.stem_conv3d_plain(x, w, b, spec)
         torch.cuda.synchronize()
         tol = TOL[("K3", dtype)]
-        err, excess = compare(got, ref, tol)
+        err, excess = compare(got, ref, tol)[:2]
         del got, ref
         k_ms, p_ms = in_turns(lambda: stem.stem_conv3d_plain(x, w, b, spec),
                               lambda: stem.stem_conv3d(x, w, b, spec))
-        record("K3", f"(1, 17, 720, 1280, 3) {dtype}", err, excess, tol,
-               k_ms, p_ms, dtype == torch.bfloat16)
+        record("K3", f"(1, 17, 720, 1280, 3) {dtype}", err, excess,
+               f"tol={tol!r}*(1+|ref|)", k_ms, p_ms, dtype == torch.bfloat16)
         del x
+        torch.cuda.empty_cache()
+
+    # K4: the v1 encoder's untiled mid-block (the summary's time), a
+    # 720x672 tile's mid-block (v1 decoder, every SD3 tile), and a ragged
+    # S that is no multiple of any tile
+    k4_cases = [((5, 14400, 512), torch.bfloat16, True),
+                ((5, 7560, 512), torch.bfloat16, True),
+                ((5, 7560, 512), torch.float32, True),
+                ((1, 1100, 512), torch.bfloat16, False),
+                ((1, 1100, 512), torch.float32, False)]
+    for shape, dtype, timed in k4_cases:
+        q, k, v = (randn(shape, 40 + i, dev, dtype) for i in range(3))
+        scale = shape[-1] ** -0.5
+        got = attention.flash_attention(q, k, v, scale)
+        ref = attention.flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or got.dtype != dtype:
+            raise SystemExit(f"K4 output {tuple(got.shape)} {got.dtype}")
+        if dtype == torch.bfloat16:
+            err, _, ref_max, rms = compare(got, ref)
+            excess = max(err - K4_BF16_MAX * ref_max, rms - K4_BF16_RMS)
+            bound = (f"max|ref|={ref_max!r} rms={rms!r} tol={K4_BF16_MAX}"
+                     f"*max|ref| and rms {K4_BF16_RMS}")
+        else:
+            tol = TOL[("K4", dtype)]
+            err, excess = compare(got, ref, tol)[:2]
+            bound = f"tol={tol!r}*(1+|ref|)"
+        del got, ref
+        k_ms = p_ms = None
+        if timed:
+            k_ms, p_ms = in_turns(
+                lambda: attention.flash_attention_plain(q, k, v, scale),
+                lambda: attention.flash_attention(q, k, v, scale))
+        record("K4", f"{shape} {dtype}", err, excess, bound, k_ms, p_ms,
+               shape == (5, 14400, 512))
+        del q, k, v
         torch.cuda.empty_cache()
     return summary
 
@@ -239,40 +314,47 @@ def _check_kernels(dev):
 # phase 4: the whole slice, card against CPU
 # --------------------------------------------------------------------------
 
-def _check_slice(dev):
+def _check_slice(dev, family):
     from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
 
-    cfg = config_for_variant("v1")
-    x = np.random.RandomState(0).uniform(-1, 1, SLICE_CLIP)
+    k4 = kernel_modules()["K4"]
+    cfg = config_for_variant(family)
+    clip = SLICE_CLIPS[family]
+    x = np.random.RandomState(0).uniform(-1, 1, clip)
     x = torch.from_numpy(x.astype(np.float32))
     outs = {}
     for d in ("cpu", dev):
         vae = VideoVAE.from_config(cfg, seed=0, device=d)
+        k4.launches = 0
         t0 = time.perf_counter()
         z = vae.encode(x.to(d)).mode()
         rec = vae.decode(z)
         if d != "cpu":
             torch.cuda.synchronize()
-        say(f"[slice] {d}: reconstruct {tuple(x.shape)} -> latent "
+        say(f"[slice] {family} {d}: reconstruct {tuple(x.shape)} -> latent "
             f"{tuple(z.shape)}, frames {tuple(rec.shape)} in "
-            f"{time.perf_counter() - t0:.2f}s")
+            f"{time.perf_counter() - t0:.2f}s; K4 launches {k4.launches}")
         outs[str(d)] = (z.cpu(), rec.cpu())
         del vae
+    if family == "sd3" and k4.launches <= 0:
+        raise SystemExit("slice sd3: K4 was not launched on the card")
     (zc, rc), (zg, rg) = outs["cpu"], outs[str(dev)]
-    b, t, h, w, _ = SLICE_CLIP
+    b, t, h, w, _ = clip
     for name, ref, got, shape in (
-            ("latent", zc, zg, (b, (t - 1) // 4 + 1, h // 8, w // 8, 4)),
-            ("frames", rc, rg, SLICE_CLIP)):
+            ("latent", zc, zg, (b, (t - 1) // 4 + 1, h // 8, w // 8,
+                                cfg.latent_channels)),
+            ("frames", rc, rg, clip)):
         if tuple(got.shape) != shape or not torch.isfinite(got).all():
-            raise SystemExit(f"slice {name}: shape {tuple(got.shape)} or "
-                             f"non-finite values")
+            raise SystemExit(f"slice {family} {name}: shape "
+                             f"{tuple(got.shape)} or non-finite values")
         err = (got - ref).abs().max().item()
         scale = max(1.0, ref.abs().max().item())
         ok = err <= SLICE_TOL * scale
-        say(f"[slice] {name}: max_abs_err={err!r} (max|ref|={scale!r}, "
-            f"tol={SLICE_TOL}*max(1,max|ref|)) {'ok' if ok else 'FAIL'}")
+        say(f"[slice] {family} {name}: max_abs_err={err!r} "
+            f"(max|ref|={scale!r}, tol={SLICE_TOL}*max(1,max|ref|)) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"slice {name}: card and CPU disagree")
+            raise SystemExit(f"slice {family} {name}: card and CPU disagree")
 
 
 # --------------------------------------------------------------------------
@@ -297,23 +379,25 @@ def _request(port, method, path, arr=None, timeout=900):
     return data, wall
 
 
-def _serve(dev, smi):
+def _serve(dev, smi, variant):
     from cvvae_tpu_torch import serve
-    from cvvae_tpu_torch.ops.kernels import groupnorm, shuffle, stem
 
     t, h, w = SERVE_CLIP
+    z_ch, needed = PATHS[variant]
     args = serve.build_argparser().parse_args(
-        ["--variant", "v1", "--dtype", "bf16", "--height", str(h),
+        ["--variant", variant, "--dtype", "bf16", "--height", str(h),
          "--width", str(w), "--warm_frames", str(t), "--device", str(dev),
          "--port", "0"])
     t0 = time.perf_counter()
     server = serve.prepare(args)
-    say(f"[serve] prepare (build + preset + warm-up) "
-        f"{time.perf_counter() - t0:.2f}s")
+    say(f"[serve] {variant}: prepare (build + preset + warm-up) "
+        f"{time.perf_counter() - t0:.2f}s; encoder tile "
+        f"{server.worker.vae.config.encode_pixel_tile_size}, decoder tile "
+        f"{server.worker.vae.config.pixel_tile_size}")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    mods = {"K1": groupnorm, "K2": shuffle, "K3": stem}
+    mods = kernel_modules()
     try:
         clip = np.random.RandomState(0).randint(0, 256, (t, h, w, 3),
                                                 dtype=np.uint8)
@@ -335,29 +419,40 @@ def _serve(dev, smi):
         server.shutdown()
         server.server_close()
         thread.join(60)
+        # the worker thread lives on: drop its model so the next path
+        # starts from a free card
+        server.worker.vae = None
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
     rec = np.load(io.BytesIO(rec_b), allow_pickle=False)
     dec = np.load(io.BytesIO(dec_b), allow_pickle=False)
-    say(f"[serve] latent {z.shape} {z.dtype}; frames {rec.shape} {rec.dtype}")
-    if z.shape != (1, (t - 1) // 4 + 1, h // 8, w // 8, 4) \
+    say(f"[serve] {variant}: latent {z.shape} {z.dtype}; frames {rec.shape} "
+        f"{rec.dtype}")
+    if z.shape != (1, (t - 1) // 4 + 1, h // 8, w // 8, z_ch) \
             or not np.isfinite(z).all():
-        raise SystemExit(f"/encode: latent {z.shape}, finite="
+        raise SystemExit(f"{variant} /encode: latent {z.shape}, finite="
                          f"{bool(np.isfinite(z).all())}")
     if rec.shape != (t, h, w, 3) or rec.dtype != np.uint8:
-        raise SystemExit(f"/reconstruct: frames {rec.shape} {rec.dtype}")
+        raise SystemExit(f"{variant} /reconstruct: frames {rec.shape} "
+                         f"{rec.dtype}")
     same = rec_b == dec_b
-    say(f"[serve] /reconstruct bytes == /decode(/encode) bytes: {same}")
+    say(f"[serve] {variant}: /reconstruct bytes == /decode(/encode) bytes: "
+        f"{same}")
     if not same:
-        raise SystemExit("/reconstruct and /decode(/encode) differ")
-    say(f"[serve] stats {stats_b.decode()}")
-    say(f"[serve] request wall s (after warm-up): reconstruct={t_rec!r} "
-        f"encode={t_enc!r} decode={t_dec!r}; peak device memory "
-        f"{peak / 2**30:.2f} GiB; card {smi}")
-    say(f"[serve] kernel launches in the served requests: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
+        raise SystemExit(f"{variant}: /reconstruct and /decode(/encode) "
+                         f"differ")
+    say(f"[serve] {variant}: stats {stats_b.decode()}")
+    say(f"[serve] {variant}: request wall s (after warm-up): "
+        f"reconstruct={t_rec!r} encode={t_enc!r} decode={t_dec!r}; peak "
+        f"device memory {peak / 2**30:.2f} GiB; card {smi}")
+    say(f"[serve] {variant}: kernel launches in the served requests: "
+        f"{launches}")
+    missing = [k for k in needed if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"kernels not launched by the main path: {missing}")
-    return launches, {"reconstruct_s": t_rec, "encode_s": t_enc,
-                      "decode_s": t_dec, "peak_bytes": peak}
+        raise SystemExit(f"{variant}: kernels not launched by the main "
+                         f"path: {missing}")
+    return launches
 
 
 def main() -> int:
@@ -395,11 +490,15 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     summary = _check_kernels(dev)
     # phase 4: the slice, card against CPU
-    _check_slice(dev)
-    # phase 5: serving
-    launches, _ = _serve(dev, smi)
+    for family in SLICE_CLIPS:
+        _check_slice(dev, family)
+    # phase 5: serving, each path with its own counts
+    by_path = {variant: _serve(dev, smi, variant) for variant in PATHS}
 
-    kernels = [dict(KERNELS[k], launches=launches[k], **summary[k])
+    kernels = [dict(KERNELS[k],
+                    launches=sum(n[k] for n in by_path.values()),
+                    launches_by_path={p: n[k] for p, n in by_path.items()},
+                    **summary[k])
                for k in KERNELS]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     say(f"[card] {smi}")

@@ -26,7 +26,8 @@ import torch
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--variant", type=str, default="v1", help="v1 | v1-1")
+    p.add_argument("--variant", type=str, default="v1",
+                   help="v1 | v1-1 | sd3")
     p.add_argument("--video_path", type=str, required=True)
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--height", type=int, default=576)
@@ -39,8 +40,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["sample", "mode"],
                    help="posterior sampling (reference default) or mean")
     p.add_argument("--serving", action="store_true",
-                   help="serving preset: untiled full-frame encode and "
-                        "rectangular decode tiles sized to the frame")
+                   help="serving preset: rectangular decode tiles sized to "
+                        "the frame; v1 encodes the full frame untiled, SD3 "
+                        "encodes in the decode tiles")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
                    help="print PSNR + timing JSON to stdout")
@@ -77,12 +79,15 @@ def serving_decode_tiles(height: int, width: int):
 
 def apply_serving_preset(vae, height: int, width: int):
     """Install the serving preset on ``vae`` for (height, width) frames:
-    v1's zero-padded encoder runs the full frame untiled, the decoder uses
-    the rectangular tile plan."""
+    the decoder uses the rectangular tile plan.  v1's zero-padded encoder
+    runs the full frame untiled; SD3 replicate-pads space and time, and
+    its materialised edge pads make an untiled 720p encode too large, so
+    its encoder shares the decode tiles."""
     tile, ratio = serving_decode_tiles(height, width)
+    enc_tile = None if vae.config.family == "v1" else "inherit"
     vae.config = dataclasses.replace(
         vae.config, tile_spatial_size=tile, tile_overlap_ratio=ratio,
-        encode_tile_spatial_size=None)
+        encode_tile_spatial_size=enc_tile)
     return vae
 
 

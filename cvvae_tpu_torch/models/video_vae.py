@@ -1,6 +1,7 @@
 """VideoVAE — the user-facing model API (encode / decode / tiling).
 
-Port of ``cvvae_tpu/models/video_vae.py`` (the v1 family).  Capabilities:
+Port of ``cvvae_tpu/models/video_vae.py`` (the v1 and SD3 families).
+Capabilities:
 
 * temporal-chunked encode/decode: encode windows of
   ``en_de_n_frames_a_time``+1 frames with a single-frame causal overlap,
@@ -10,7 +11,8 @@ Port of ``cvvae_tpu/models/video_vae.py`` (the v1 family).  Capabilities:
   with per-axis overlap ratios, blended in the reference's in-place
   cascade (each tile against already-blended neighbours);
 * 4D/5D reshape contracts and ``channels_first`` (B, C, T, H, W) I/O;
-* DiagonalGaussian posterior and the SD2.1 scaling factor 0.18215.
+* DiagonalGaussian posterior; scaling factor 0.18215 (v1, SD 2.1) or
+  1.5305 (SD3).
 
 Native layout is channels-last (B, T, H, W, C).  Tiles run one after
 another, so peak device memory is one tile's working set.
@@ -25,14 +27,17 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from cvvae_tpu_torch.models import vae_v1
+from cvvae_tpu_torch.models import vae_sd3, vae_v1
 from cvvae_tpu_torch.ops.distributions import DiagonalGaussian
+
+#: family -> the module holding its Encoder and Decoder
+_FAMILIES = {"v1": vae_v1, "sd3": vae_sd3}
 
 
 @dataclasses.dataclass(frozen=True)
 class VideoVAEConfig:
-    family: str = "v1"
-    net: Any = None                        # VAE1Config
+    family: str = "v1"                     # "v1" | "sd3"
+    net: Any = None                        # VAE1Config | VAESD3Config
     scaling_factor: float = 0.18215
     en_de_n_frames_a_time: Optional[int] = 16
     time_n_compress: int = 4
@@ -45,12 +50,12 @@ class VideoVAEConfig:
     encode_tile_spatial_size: Any = "inherit"
 
     def __post_init__(self):
-        if self.family != "v1":
-            raise NotImplementedError(
-                f"family {self.family!r}: only v1 is ported; SD3 is "
-                f"ROADMAP queue A item 'SD3'")
+        if self.family not in _FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
         if self.net is None:
-            object.__setattr__(self, "net", vae_v1.VAE1Config())
+            net = (vae_v1.VAE1Config() if self.family == "v1"
+                   else vae_sd3.VAESD3Config())
+            object.__setattr__(self, "net", net)
         if self.en_de_n_frames_a_time is not None:
             if self.en_de_n_frames_a_time % self.time_n_compress:
                 raise ValueError("en_de_n_frames_a_time must be a multiple "
@@ -58,7 +63,8 @@ class VideoVAEConfig:
 
     @property
     def latent_channels(self) -> int:
-        return self.net.z_channels
+        return (self.net.z_channels if self.family == "v1"
+                else self.net.latent_channels)
 
     @property
     def decode_n_frames_a_time(self) -> Optional[int]:
@@ -121,16 +127,17 @@ def _pair(v):
 
 
 class VideoVAE(nn.Module):
-    """The v1 video VAE: ``encoder`` and ``decoder`` modules plus the
-    tiling/chunking config.  ``config`` may be replaced (e.g. with the
+    """The video VAE: its family's ``encoder`` and ``decoder`` modules plus
+    the tiling/chunking config.  ``config`` may be replaced (e.g. with the
     serving tile preset) without touching the weights."""
 
     def __init__(self, config: VideoVAEConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
-        self.encoder = vae_v1.Encoder(config.net, generator)
-        self.decoder = vae_v1.Decoder(config.net, generator)
+        nets = _FAMILIES[config.family]
+        self.encoder = nets.Encoder(config.net, generator)
+        self.decoder = nets.Decoder(config.net, generator)
 
     @classmethod
     def from_config(cls, config: VideoVAEConfig, seed: int = 0,
@@ -320,6 +327,5 @@ def config_for_variant(variant: str) -> VideoVAEConfig:
     if variant in ("v1", "v1-1", "vae3d", "vae3d_v1-1"):
         return VideoVAEConfig(family="v1")
     if variant in ("sd3", "vae3d_sd3"):
-        raise NotImplementedError(
-            "the SD3 family is not ported yet (ROADMAP queue A: SD3)")
+        return VideoVAEConfig(family="sd3", scaling_factor=1.5305)
     raise ValueError(f"unknown variant {variant!r}")

@@ -1,12 +1,16 @@
 """Single-head attention for the VAE mid-blocks.
 
-Port of ``cvvae_tpu/ops/attention.py`` (the exact path; the flash kernel
-is not ported yet).  Spatial attention runs over the tokens of one frame,
-temporal attention over the frames of one pixel.  Logits and softmax are
-fp32; the value product accumulates in fp32 and rounds once to the input
-dtype.  Long sequences are blocked over 512-query chunks, so the
-(S, S) logits never exist at once: at the untiled 720p encoder mid-block
-(5 frames of 14400 tokens) one block of logits is 5×512×14400 fp32.
+Port of ``cvvae_tpu/ops/attention.py``.  Spatial attention runs over the
+tokens of one frame, temporal attention over the frames of one pixel.
+
+A CUDA tensor with S >= 1024 tokens (the spatial mid-block attention at
+C = 512: 5 frames of 14400 tokens in the untiled 720p v1 encoder, 7560
+in a 720x672 tile) runs the hand-written flash kernel K4
+(``ops/kernels/attention.py``), S being the JAX package's flash
+threshold.  Everything else — the CPU, the temporal pass (S = T' <= 5),
+short sequences — takes the exact path: fp32 logits and softmax, the
+value product accumulated in fp32 and rounded once, blocked over
+512-query chunks so the (S, S) logits never exist at once.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cvvae_tpu_torch.ops.conv import uniform_
+from cvvae_tpu_torch.ops.kernels.attention import (flash_attention,
+                                                   flash_attention_plain)
 
 
 class Dense(nn.Module):
@@ -40,21 +46,8 @@ def dense(x: torch.Tensor, params) -> torch.Tensor:
     return F.linear(x, params.weight.to(x.dtype), b)
 
 
-def _attention_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float) -> torch.Tensor:
-    """Exact attention for one query block.  q_blk:(B,Sq,C) k,v:(B,S,C)."""
-    logits = torch.matmul(q_blk.float(), k.float().transpose(1, 2)) * scale
-    weights = torch.softmax(logits, dim=-1)
-    return torch.matmul(weights.to(v.dtype), v)
-
-
-def _me_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float, q_chunk: int = 512) -> torch.Tensor:
-    """Query-blocked exact attention: a full-row softmax per block of
-    ``q_chunk`` queries."""
-    k = k.float()  # once, not per block
-    return torch.cat([_attention_block(q[:, i:i + q_chunk], k, v, scale)
-                      for i in range(0, q.shape[1], q_chunk)], dim=1)
+#: sequences at least this long go to K4 on the card
+FLASH_MIN_TOKENS = 1024
 
 
 def single_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,9 +56,9 @@ def single_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-head scaled dot-product attention on (B, S, C) tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.shape[1] <= query_chunk_size:
-        return _attention_block(q, k, v, scale)
-    return _me_attention(q, k, v, scale, query_chunk_size)
+    if q.device.type == "cuda" and q.shape[1] >= FLASH_MIN_TOKENS:
+        return flash_attention(q, k, v, scale)
+    return flash_attention_plain(q, k, v, scale, query_chunk_size)
 
 
 def spatial_self_attention(x: torch.Tensor, wq, wk, wv, *,

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``cvvae_tpu_torch/csrc``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ctypes.  The build happens
+Each source is compiled by its own ``nvcc`` for ``sm_90a`` (all started
+together), and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes.  The build happens
 at first use, into ``build/kernels/<hash of the sources>/`` at the root of
 the checkout (listed in ``.gitignore``), so a changed source rebuilds and
 an unchanged one loads the existing library.  Nothing here runs at import:
@@ -42,6 +43,7 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _P],
     "cvvae_stem_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P],
+    "cvvae_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
 }
 
 
@@ -69,20 +71,46 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; (cmd, returncode, output) each."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    results = []
+    for c, p in procs:
+        text = p.communicate()[0]
+        results.append((c, p.returncode, text))
+    return results
+
+
 def _build(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     global last_build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp)] + [str(p) for p in _sources() if p.suffix == ".cu"]
+    pid = os.getpid()
+    arch = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-Xcompiler", "-fPIC"]
+    objs, compiles = [], []
+    for src in _sources():
+        if src.suffix == ".cu":
+            # nvcc tells an object by its ".o" suffix
+            objs.append(str(out.with_name(f"{src.stem}.{pid}.o")))
+            compiles.append(arch + ["-Xptxas", "-v", "-c", str(src),
+                                    "-o", objs[-1]])
+    tmp = out.with_name(f"{out.name}.{pid}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    results = _run_all(compiles)
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([arch + ["-shared", "-o", str(tmp)] + objs])
+    (out.parent / "build.log").write_text("".join(
+        " ".join(c) + "\n" + text for c, _, text in results))
+    for o in objs:
+        Path(o).unlink(missing_ok=True)
+    failed = [(c, rc, text) for c, rc, text in results if rc != 0]
+    if failed:
+        c, rc, text = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n"
+                           f"{text[-4000:]}")
     os.replace(tmp, out)
     last_build_seconds = time.perf_counter() - t0
 

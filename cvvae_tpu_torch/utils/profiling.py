@@ -1,0 +1,121 @@
+"""Where a served request's device time goes: ``torch.profiler`` over one
+``/reconstruct`` of the serving worker, on a CUDA card.
+
+    python -m cvvae_tpu_torch.utils.profiling --variant sd3 [--out FILE]
+
+The request is the served unit of work: a 17x720x1280 bf16 clip.
+Builds, presets and warms the server exactly as ``serve.main`` does
+(``serve.prepare``), runs one request unprofiled, then one inside the
+profiler, and prints the wall time, the summed kernel time (the device's
+busy share of the wall: one stream, so kernels do not overlap), the
+kernel time by group and the top kernels.  ``--out`` also writes the
+profiler's full table there.  Refuses to run without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+#: the served clip (T, H, W) and the number of top kernels printed
+CLIP = (17, 720, 1280)
+TOP = 25
+
+#: kernel-name patterns -> the group PERF.md reports them under (first
+#: match wins)
+GROUPS = [
+    ("K4 flash attention", r"flash_fwd"),
+    ("K1 GroupNorm+SiLU", r"gn_partial|gn_finalize|gn_apply"),
+    ("K2 subpixel interleave", r"subpixel|interleave"),
+    ("K3 stem conv", r"stem"),
+    ("cuDNN 3D convs", r"xmma|implicit_gemm|conv|cudnn|cutlass|fprop"),
+    ("replicate pads", r"replication_pad"),
+    ("zero pads", r"constant_pad"),
+    ("layout copies", r"copy|CatArray|cat_"),
+    ("GEMMs (dense, attention)", r"gemm|sm90_|ampere_|cublas"),
+    ("softmax", r"softmax"),
+    ("elementwise", r"elementwise|Functor|vectorized"),
+    ("host<->device copies", r"Memcpy|memcpy"),
+]
+
+
+def profile_reconstruct(variant: str, out=None) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvvae_tpu_torch import serve
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: needs a CUDA card")
+    t, h, w = CLIP
+    server = serve.prepare(serve.build_argparser().parse_args(
+        ["--variant", variant, "--dtype", "bf16", "--height", str(h),
+         "--width", str(w), "--warm_frames", str(t), "--device", "cuda",
+         "--port", "0"]))
+    worker = server.worker
+    clip = np.random.RandomState(0).randint(0, 256, (t, h, w, 3),
+                                            dtype=np.uint8)
+
+    def request():
+        out = worker._decode(worker._encode(clip, False))
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    request()
+    steady = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request()
+        wall = time.perf_counter() - t0
+    server.server_close()
+
+    # device-side events only: a CPU op's own device time repeats its
+    # kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    groups = {name: [0.0, 0] for name, _ in GROUPS}
+    groups["other"] = [0.0, 0]
+    for e in kernels:
+        name = next((g for g, pat in GROUPS if re.search(pat, e.key)), "other")
+        groups[name][0] += e.self_device_time_total
+        groups[name][1] += e.count
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"[profile] {variant} {t}x{h}x{w} bf16 /reconstruct: unprofiled "
+          f"wall {steady!r} s, "
+          f"profiled wall {wall!r} s, kernel time {total / 1e6!r} s "
+          f"(busy {100 * total / 1e6 / wall:.1f}%); card {card}")
+    for name, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        if us:
+            print(f"[profile] {name:28s} {us / 1e3:10.2f} ms "
+                  f"{100 * us / total:5.1f}%  {n} calls")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:TOP]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:10.2f} ms "
+              f"{e.count:5d}x {e.key[:110]}")
+    if out:
+        with open(out, "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=200))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variant", default="sd3", choices=["v1", "sd3"])
+    ap.add_argument("--out", default=None,
+                    help="also write the profiler's full table here")
+    args = ap.parse_args(argv)
+    profile_reconstruct(args.variant, args.out)
+
+
+if __name__ == "__main__":
+    main()

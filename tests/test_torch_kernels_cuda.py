@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from cvvae_tpu_torch.ops.conv import Conv3DSpec
-from cvvae_tpu_torch.ops.kernels import groupnorm, shuffle, stem
+from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +94,52 @@ def test_stem_kernel(dev, dtype, tol, cin, spec):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# fp32: fp32 FMAs in another order than cuBLAS (TF32 off): elementwise
+# 2e-5 * (1 + |ref|).  bf16: the bounds of chip_smoke.py (K4_BF16_MAX,
+# K4_BF16_RMS), where their reasons are: the two round their outputs to
+# bf16 apart, one ulp at most; a missing tail mask fails both at S = 1100.
+K4_BF16_MAX = 1.5e-2
+K4_BF16_RMS = 5e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("s", [64, 1100, 2048])
+@pytest.mark.parametrize("b", [1, 5])
+def test_flash_attention_kernel(dev, dtype, c, s, b):
+    q, k, v = (_randn((b, s, c), i, dev, dtype) for i in range(3))
+    scale = c ** -0.5
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    ref = attention.flash_attention_plain(q, k, v, scale)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+        return
+    assert torch.isfinite(got).all()
+    d, r = got.double() - ref.double(), ref.double()
+    assert d.abs().max() <= K4_BF16_MAX * r.abs().max()
+    assert d.norm() <= K4_BF16_RMS * r.norm()
+
+
+def test_flash_attention_refuses_bad_layout(dev):
+    before = attention.launches
+    q = torch.zeros((1, 1100, 512), device=dev)
+    qt = torch.zeros((1, 512, 1100), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention(qt, qt, qt, 0.1)
+    q96 = torch.zeros((1, 1100, 96), device=dev)
+    with pytest.raises(ValueError, match="C=96"):
+        attention.flash_attention(q96, q96, q96, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        attention.flash_attention(q.half(), q.half(), q.half(), 0.1)
+    with pytest.raises(ValueError, match="differ"):
+        attention.flash_attention(q, q[:, :64], q, 0.1)
+    assert attention.launches == before
 
 
 def test_wrappers_raise_on_bad_layout(dev):

@@ -4,8 +4,9 @@ Inputs and weights are made with numpy from a seed and fed to both
 packages; where the JAX function is a Pallas kernel it runs in interpret
 mode.  On a CPU tensor each of the port's kernel wrappers takes its plain
 PyTorch version, so these tests hold the plain versions of K1 (GroupNorm
-+SiLU), K2 (subpixel interleave) and K3 (stem conv) against the JAX
-package.  fp32 throughout; tolerances are stated per test.
++SiLU), K2 (subpixel interleave), K3 (stem conv) and K4 (flash
+attention) against the JAX package.  fp32 unless a test says otherwise;
+tolerances are stated per test.
 """
 
 import types
@@ -33,6 +34,7 @@ from cvvae_tpu_torch.ops import distributions as tdist
 from cvvae_tpu_torch.ops import norm as tnorm
 from cvvae_tpu_torch.ops import resample as tresample
 from cvvae_tpu_torch.ops import upsample_conv as tup
+from cvvae_tpu_torch.ops.kernels import attention as k4
 from cvvae_tpu_torch.ops.kernels import groupnorm as k1
 from cvvae_tpu_torch.ops.kernels import shuffle as k2
 from cvvae_tpu_torch.ops.kernels import stem as k3
@@ -294,6 +296,38 @@ def test_single_head_attention_matches_jax(s):
                                       jnp.asarray(v))
     got = tattn.single_head_attention(_t(q), _t(k), _t(v))
     _close(got, ref)
+
+
+def test_single_head_attention_at_flash_length_matches_jax():
+    """S = 1100: past the card's K4 threshold and not a 512-multiple; on
+    the CPU the port runs the plain version, JAX its exact path."""
+    q, k, v = (_np((1, 1100, 32), 65 + i) for i in range(3))
+    ref = jattn.single_head_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v))
+    got = tattn.single_head_attention(_t(q), _t(k), _t(v))
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 600, 64), (1, 1100, 128)])
+def test_flash_plain_matches_pallas_flash_kernel(shape):
+    """K4's plain version in bf16 against the JAX package's
+    ``_flash_attention`` (the stock Pallas TPU flash kernel) in the TPU
+    interpreter; neither S is a 512-multiple, so JAX's segment-id padding
+    runs.  Tolerance of tests/test_pallas_kernels.py: the two round bf16
+    at different places."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    q, k, v = (0.5 * _np(shape, 85 + i) for i in range(3))
+    scale = shape[-1] ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        ref = jattn._flash_attention(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), scale)
+    got = k4.flash_attention_plain(
+        *(_t(a).to(torch.bfloat16) for a in (q, k, v)), scale)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=5e-3, rtol=5e-2)
 
 
 @pytest.mark.parametrize("kind", ["spatial", "temporal"])

@@ -26,7 +26,8 @@ from cvvae_tpu.models.video_vae import VideoVAEConfig as JConfig
 from cvvae_tpu_torch.models.vae_v1 import VAE1Config
 from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
 from cvvae_tpu_torch.ops.conv import Conv3DSpec
-from cvvae_tpu_torch.ops.kernels import _build, groupnorm, shuffle, stem
+from cvvae_tpu_torch.ops.kernels import (_build, attention, groupnorm,
+                                         shuffle, stem)
 from cvvae_tpu_torch.utils.convert import from_jax_params
 
 torch.set_num_threads(2)
@@ -40,6 +41,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "import cvvae_tpu_torch, cvvae_tpu_torch.serve, cvvae_tpu_torch.cli\n"
             "import cvvae_tpu_torch.data.video_io, cvvae_tpu_torch.utils.convert\n"
+            "import cvvae_tpu_torch.models.video_vae, "
+            "cvvae_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cvvae_tpu' or "
             "m.startswith('cvvae_tpu.'))\n"
@@ -100,6 +103,7 @@ def _calls():
     spec = Conv3DSpec.v1_causal()
     pix = _randn((1, 3, 6, 7, 3), 8)
     sw, sb = _randn((128, 3, 3, 3, 3), 9), _randn((128,), 10)
+    q, k, v = (_randn((2, 1100, 64), 11 + i) for i in range(3))
     return [
         (groupnorm, lambda t: groupnorm.group_norm_silu(
             t(x), w, b, num_groups=4, eps=1e-5, silu=True),
@@ -114,10 +118,13 @@ def _calls():
          lambda: shuffle.subpixel_interleave_plain(phases, w, n=2)),
         (stem, lambda t: stem.stem_conv3d(t(pix), sw, sb, spec),
          lambda: stem.stem_conv3d_plain(pix, sw, sb, spec)),
+        (attention, lambda t: attention.flash_attention(t(q), t(k), t(v),
+                                                        0.125),
+         lambda: attention.flash_attention_plain(q, k, v, 0.125)),
     ]
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(5))
 def test_cpu_tensor_takes_plain_version(case):
     mod, wrapped, plain = _calls()[case]
     before = mod.launches
@@ -126,7 +133,7 @@ def test_cpu_tensor_takes_plain_version(case):
     assert torch.equal(got, plain())
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(5))
 def test_other_devices_are_refused(case):
     """Neither CPU nor CUDA: the wrapper raises before any launch."""
     mod, wrapped, _ = _calls()[case]
@@ -139,7 +146,10 @@ def test_nothing_is_built_at_import():
     assert _build.library.cache_info().currsize == 0
     assert _build.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in _build._sources()} == {
-        "common.cuh", "groupnorm.cu", "shuffle.cu", "stem.cu"}
+        "attention.cu", "common.cuh", "groupnorm.cu", "shuffle.cu", "stem.cu"}
+    assert set(_build._SIGNATURES) == {
+        "cvvae_group_norm", "cvvae_subpixel_interleave", "cvvae_stem_conv3d",
+        "cvvae_flash_attention"}
 
 
 def test_layout_check_names_the_fix():

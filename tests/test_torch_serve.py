@@ -1,11 +1,13 @@
 """The port's serving daemon (cvvae_tpu_torch.serve) over real sockets.
 
-Mirrors tests/test_serve.py where it applies: a tiny v1 config behind
-``build_server`` on an ephemeral port, on the CPU.  The port's server and
-the JAX package's serve the same converted weights; their uint8 frames
-agree within +-1 count (fp32 sums in another order can flip a rounding).
+Mirrors tests/test_serve.py where it applies: tiny v1 and SD3 configs
+behind ``build_server`` on an ephemeral port, on the CPU.  The port's
+server and the JAX package's serve the same converted weights; their
+uint8 frames agree within +-1 count (fp32 sums in another order can flip
+a rounding).
 """
 
+import dataclasses
 import http.client
 import io
 import json
@@ -20,11 +22,13 @@ import jax
 
 from cvvae_tpu import cli as jcli
 from cvvae_tpu import serve as jserve
+from cvvae_tpu.models.vae_sd3 import VAESD3Config as JSD3
 from cvvae_tpu.models.vae_v1 import VAE1Config as JNet
 from cvvae_tpu.models.video_vae import VideoVAE as JVAE
 from cvvae_tpu.models.video_vae import VideoVAEConfig as JConfig
 
 from cvvae_tpu_torch import cli, serve
+from cvvae_tpu_torch.models.vae_sd3 import VAESD3Config
 from cvvae_tpu_torch.models.vae_v1 import VAE1Config
 from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
 from cvvae_tpu_torch.utils.convert import from_jax_params
@@ -33,7 +37,18 @@ torch.set_num_threads(2)
 
 NET = dict(ch=8, ch_mult=(1, 2, 4, 4), num_res_blocks=1, z_channels=4,
            norm_num_groups=4)
+SD3_NET = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1,
+               latent_channels=16, norm_num_groups=4)
 BASE = dict(en_de_n_frames_a_time=None, tile_spatial_size=None)
+NETS = {"v1": (NET, JNet, VAE1Config), "sd3": (SD3_NET, JSD3, VAESD3Config)}
+
+
+def _configs(family, **overrides):
+    """The (JAX, port) VideoVAEConfig pair of a tiny ``family`` net."""
+    kw, jnet, tnet = NETS[family]
+    cfg = dict(BASE, **overrides)
+    return (JConfig(family=family, net=jnet(**kw), **cfg),
+            VideoVAEConfig(family=family, net=tnet(**kw), **cfg))
 
 
 def _start(server):
@@ -42,12 +57,10 @@ def _start(server):
     return server.server_address[1]
 
 
-@pytest.fixture(scope="module")
-def served():
-    jvae = JVAE.from_config(JConfig(family="v1", net=JNet(**NET), **BASE),
-                            seed=0)
-    tvae = VideoVAE(VideoVAEConfig(family="v1", net=VAE1Config(**NET),
-                                   **BASE)).eval()
+def _served(family):
+    jcfg, tcfg = _configs(family)
+    jvae = JVAE.from_config(jcfg, seed=0)
+    tvae = VideoVAE(tcfg).eval()
     tvae.load_state_dict(from_jax_params(jax.tree.map(np.asarray,
                                                       jvae.params)),
                          strict=True)
@@ -58,6 +71,16 @@ def served():
     for s in (tserver, jserver):
         s.shutdown()
         s.server_close()
+
+
+@pytest.fixture(scope="module")
+def served():
+    yield from _served("v1")
+
+
+@pytest.fixture(scope="module")
+def served_sd3():
+    yield from _served("sd3")
 
 
 def _post(port, path, arr):
@@ -123,6 +146,29 @@ def test_served_frames_match_jax_server(served):
     assert status == 200
     status, rj = _post(jport, "/reconstruct", frames)
     assert status == 200
+    a, b = _load(rt).astype(int), _load(rj).astype(int)
+    assert a.shape == b.shape == (5, 32, 32, 3)
+    assert np.abs(a - b).max() <= 1
+
+
+def test_sd3_server_matches_jax_server(served_sd3):
+    """The SD3 family behind the port's server: latents and frames against
+    the JAX package's SD3 server on the same weights."""
+    _, port, jport = served_sd3
+    frames = np.random.RandomState(3).randint(0, 255, (5, 32, 32, 3),
+                                              np.uint8)
+    status, zt = _post(port, "/encode", frames)
+    assert status == 200
+    status, zj = _post(jport, "/encode", frames)
+    assert status == 200
+    assert _load(zt).shape == (1, 2, 4, 4, 16)
+    np.testing.assert_allclose(_load(zt), _load(zj), atol=3e-4, rtol=0)
+    status, rt = _post(port, "/reconstruct", frames)
+    assert status == 200
+    status, rj = _post(jport, "/reconstruct", frames)
+    assert status == 200
+    status, dt = _post(port, "/decode", _load(zt))
+    assert status == 200 and dt == rt
     a, b = _load(rt).astype(int), _load(rj).astype(int)
     assert a.shape == b.shape == (5, 32, 32, 3)
     assert np.abs(a - b).max() <= 1
@@ -232,6 +278,55 @@ def test_serving_preset():
     assert vae.config.tile_spatial_size == (720, 672)
     assert vae.config.encode_pixel_tile_size is None
     assert vae.config.latent_tile_size == (90, 84)
+
+
+@pytest.mark.parametrize("family", ["v1", "sd3"])
+@pytest.mark.parametrize("height,width", [(720, 1280), (576, 1024),
+                                          (720, 720)])
+def test_serving_preset_matches_jax(family, height, width):
+    """v1 encodes the full frame untiled, SD3 in the decode tiles, as the
+    JAX server's preset (cvvae_tpu/serve.py) sets them."""
+    jcfg, tcfg = _configs(family)
+    tile, ratio = jcli.serving_decode_tiles(height, width)
+    enc_tile = None if jcfg.family == "v1" else "inherit"
+    jcfg = dataclasses.replace(jcfg, tile_spatial_size=tile,
+                               tile_overlap_ratio=ratio,
+                               encode_tile_spatial_size=enc_tile)
+    vae = cli.apply_serving_preset(VideoVAE(tcfg), height, width)
+    assert vae.config.encode_tile_spatial_size == enc_tile
+    for prop in ("pixel_tile_size", "latent_tile_size",
+                 "encode_pixel_tile_size", "encode_latent_tile_size",
+                 "tile_overlap_ratio"):
+        assert getattr(vae.config, prop) == getattr(jcfg, prop), prop
+
+
+def test_prepare_builds_an_sd3_server(monkeypatch):
+    """``serve.prepare`` (what ``main`` runs) with ``--variant sd3``: the
+    SD3 family, its preset, and a warm-up through it (tiny net in place
+    of the full-width one)."""
+    from cvvae_tpu_torch.models import video_vae
+
+    variants = []
+
+    def tiny(variant):
+        variants.append(variant)
+        return _configs("sd3", scaling_factor=1.5305)[1]
+
+    monkeypatch.setattr(video_vae, "config_for_variant", tiny)
+    args = serve.build_argparser().parse_args(
+        ["--variant", "sd3", "--device", "cpu", "--dtype", "fp32",
+         "--height", "32", "--width", "48", "--warm_frames", "5",
+         "--port", "0"])
+    server = serve.prepare(args)
+    try:
+        cfg = server.worker.vae.config
+        assert variants == ["sd3"]
+        assert (cfg.family, cfg.latent_channels) == ("sd3", 16)
+        assert cfg.encode_tile_spatial_size == "inherit"
+        assert cfg.tile_spatial_size is None      # 32x48 runs untiled
+        assert server.worker.stats["errors"] == 0
+    finally:
+        server.server_close()
 
 
 @pytest.mark.parametrize("flags,match", [

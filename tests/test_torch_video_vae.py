@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from cvvae_tpu.models.vae_v1 import VAE1Config as JNet
 from cvvae_tpu.models.video_vae import VideoVAE as JVAE
 from cvvae_tpu.models.video_vae import VideoVAEConfig as JConfig
+from cvvae_tpu.models.video_vae import config_for_variant as jconfig_for_variant
 
 from cvvae_tpu_torch.models.vae_v1 import VAE1Config
 from cvvae_tpu_torch.models.video_vae import (VideoVAE, VideoVAEConfig,
@@ -150,12 +151,13 @@ def test_sample_posterior_needs_generator(weights):
     assert torch.equal(a, b)
 
 
-def test_config_matches_jax_properties():
+@pytest.mark.parametrize("family", ["v1", "sd3"])
+def test_config_matches_jax_properties(family):
     for kw in (dict(tile_spatial_size=(720, 672), tile_overlap_ratio=(0.1, 0.1),
                     encode_tile_spatial_size=None),
                dict(tile_spatial_size=576, num_video_frames=17),
                dict(en_de_n_frames_a_time=None, tile_spatial_size=None)):
-        j, t = JConfig(family="v1", **kw), VideoVAEConfig(family="v1", **kw)
+        j, t = JConfig(family=family, **kw), VideoVAEConfig(family=family, **kw)
         for prop in ("latent_channels", "decode_n_frames_a_time",
                      "pixel_tile_size", "latent_tile_size",
                      "encode_pixel_tile_size", "encode_latent_tile_size",
@@ -164,16 +166,28 @@ def test_config_matches_jax_properties():
         assert dataclasses.asdict(t.net) == dataclasses.asdict(j.net)
 
 
-def test_unported_features_raise():
+def test_sd3_variants_build():
     assert config_for_variant("v1-1").family == "v1"
-    with pytest.raises(NotImplementedError, match="SD3"):
-        config_for_variant("sd3")
-    with pytest.raises(NotImplementedError, match="SD3"):
-        VideoVAEConfig(family="sd3")
+    for name in ("sd3", "vae3d_sd3"):
+        t, j = config_for_variant(name), jconfig_for_variant(name)
+        assert (t.family, t.scaling_factor, t.latent_channels) == \
+            (j.family, j.scaling_factor, j.latent_channels) == \
+            ("sd3", 1.5305, 16)
+
+
+def test_unknown_variant_raises():
     with pytest.raises(ValueError):
         config_for_variant("nope")
+
+
+def test_unknown_family_raises():
+    with pytest.raises(ValueError, match="family"):
+        VideoVAEConfig(family="nope")
+
+
+@pytest.mark.parametrize("method,args,match", [
+    ("quantize", (), "int8"), ("with_mesh", (None,), "multi-device")])
+def test_unported_features_raise(method, args, match):
     vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE))
-    with pytest.raises(NotImplementedError, match="int8"):
-        vae.quantize()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        vae.with_mesh(None)
+    with pytest.raises(NotImplementedError, match=match):
+        getattr(vae, method)(*args)
