@@ -142,10 +142,17 @@ class VideoVAE(nn.Module):
     @classmethod
     def from_config(cls, config: VideoVAEConfig, seed: int = 0,
                     dtype: torch.dtype = torch.float32,
-                    device: Any = "cpu") -> "VideoVAE":
+                    device: Any = "cuda") -> "VideoVAE":
         """Random weights with torch's default init, drawn on the CPU from
         a ``torch.Generator`` seeded with ``seed`` (so every device gets
-        the same weights), then moved to ``device`` in ``dtype``."""
+        the same weights), then moved to ``device`` in ``dtype``.
+
+        The model runs on the card unless the caller asks for the CPU
+        (``device="cpu"``); without a card the default raises."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VideoVAE.from_config: no CUDA device; pass "
+                               "device='cpu' to build the model on the CPU")
         g = torch.Generator().manual_seed(seed)
         vae = cls(config, g).to(device=device, dtype=dtype)
         return vae.eval().requires_grad_(False)

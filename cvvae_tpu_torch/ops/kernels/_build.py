@@ -37,8 +37,8 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _I,
-                         _L, _I, _I, _P],
+    "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _I,
+                         _I, _I, _I, _L, _I, _I, _P],
     "cvvae_subpixel_interleave": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P],
     "cvvae_stem_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -83,15 +83,17 @@ def _run_all(cmds):
     return results
 
 
-def _build(out: Path) -> None:
-    """One nvcc per source, all started together, then one link."""
+def build(out: Path, sources=None) -> None:
+    """Build ``sources`` (default: every file of ``csrc/``) into the
+    library ``out``: one nvcc per source, all started together, then one
+    link."""
     global last_build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
     arch = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-Xcompiler", "-fPIC"]
     objs, compiles = [], []
-    for src in _sources():
+    for src in sources or _sources():
         if src.suffix == ".cu":
             # nvcc tells an object by its ".o" suffix
             objs.append(str(out.with_name(f"{src.stem}.{pid}.o")))
@@ -115,12 +117,29 @@ def _build(out: Path) -> None:
     last_build_seconds = time.perf_counter() - t0
 
 
+#: the library the wrappers launch; set at the first ``library`` call
+_current: Path | None = None
+
+
+def library(path: Path | None = None) -> ctypes.CDLL:
+    """The loaded kernel library that every wrapper launches: by default
+    the one built from ``csrc/`` (built first if needed).  ``path`` names
+    another library made by ``build`` (a copy of the sources built
+    elsewhere); it serves this and every later call until another is
+    named."""
+    global _current
+    if path is not None:
+        _current = Path(path)
+    elif _current is None:
+        _current = build_dir() / LIB_NAME
+        if not _current.exists():
+            build(_current)
+    return _load(_current)
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    path = build_dir() / LIB_NAME
-    if not path.exists():
-        _build(path)
+def _load(path: Path) -> ctypes.CDLL:
+    """A built library, its functions typed."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

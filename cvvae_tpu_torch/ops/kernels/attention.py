@@ -3,17 +3,20 @@ plain PyTorch version.
 
 Replaces ``cvvae_tpu/ops/attention.py:60`` ``_flash_attention`` (the
 stock Pallas TPU flash attention, which pads S to a multiple of 512
-behind segment ids).  What bounds it on an H100: each 32-query tile
-re-reads all of K and V from L2 (29.5 MB a frame at S = 14400, C = 512
-bf16), so the tile does 32 FLOP per byte it loads, against 4·B·S²·C FLOP
-in all (2.12 TFLOP at the v1 encoder's (5, 14400, 512)).  The design
-(``csrc/attention.cu``): one block per (query tile, batch row) loops over
-key/value tiles with an online softmax (fp32 row max and sum), keeps the
-32×C fp32 output in registers split by columns over 8 warps (C = 512 does
-not fit one warp's registers), reuses one shared K/V buffer, and
-normalises once at the end; the ragged tail is masked in the kernel.
-bf16 runs on the tensor cores (mma.sync, fp32 accumulation); fp32 runs
-fp32 FMAs (no TF32).
+behind segment ids).  What bounds it on an H100: 4·B·S²·C FLOP (2.12
+TFLOP at the v1 encoder's (5, 14400, 512), 2.15 ms at 989 TFLOP/s bf16);
+q, k, v and out are 0.3 GB.  The design (``csrc/attention.cu``), bf16: a
+block of two warpgroups per 64-query tile, each owning half of C (the
+64×512 fp32 output does not fit one warpgroup's registers).  Each
+computes its half of the logits with wgmma (Q's fragments in registers,
+K from shared memory), the halves are summed through shared memory, both
+run the same online softmax (fp32 row max and sum), and P stays in
+registers as the A operand of the P·V wgmma, which runs while the next
+tile's logits are turned into probabilities.  Two threads issue TMA loads
+of 32-key K and V tiles into two-stage rings; blocks of neighbouring query
+tiles pair up in a cluster and multicast each tile to both.  The ragged
+tail is masked in the kernel (TMA zero-fills rows ≥ S; keys ≥ S get
+logit −inf).  fp32 keeps 32-query tiles of fp32 FMAs (no TF32).
 
 The plain version is the port's exact attention: fp32 logits and
 softmax, weights cast to v's dtype, the value product accumulated in

@@ -31,7 +31,7 @@ TOP = 25
 #: match wins)
 GROUPS = [
     ("K4 flash attention", r"flash_fwd"),
-    ("K1 GroupNorm+SiLU", r"gn_partial|gn_finalize|gn_apply"),
+    ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
     ("K2 subpixel interleave", r"subpixel|interleave"),
     ("K3 stem conv", r"stem"),
     ("cuDNN 3D convs", r"xmma|implicit_gemm|conv|cudnn|cutlass|fprop"),

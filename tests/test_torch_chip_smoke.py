@@ -1,0 +1,68 @@
+"""``chip_smoke.py``'s byte and FLOP counts: the least time the card could
+take for each kernel at its largest main-path shape (H100: 3.35 TB/s,
+989 TFLOP/s bf16), against the counts worked out by hand; and its checks'
+inputs and bounds, on the CPU."""
+
+import pytest
+import torch
+
+import chip_smoke
+from cvvae_tpu_torch.ops.kernels.groupnorm import group_norm_silu_plain
+
+CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("rising,least,most", [(False, 0.0, 0.0),
+                                               (True, 1.0, None)])
+def test_k4_inputs_rescale_the_kernels_softmax(rising, least, most):
+    """N(0, 1) logits never raise a row's max past the kernel's slack
+    after the first tile; the rising inputs do, more than once a row."""
+    q, k, _ = chip_smoke.k4_inputs((1, 1100, 64), CPU, torch.bfloat16,
+                                   rising)
+    raises = chip_smoke.k4_max_raises(q, k, 64 ** -0.5)
+    assert raises >= least
+    assert most is None or raises <= most
+
+
+@pytest.mark.parametrize("offset", [chip_smoke.K1_OFFSET,
+                                    chip_smoke.K1_WIDE_OFFSET])
+@pytest.mark.parametrize("silu,per_frame", [(True, False), (False, True)])
+def test_k1_check_takes_one_rounding_of_fp32(offset, silu, per_frame):
+    """One bf16 rounding of the plain version's fp32 arithmetic (what the
+    kernel computes) passes ``k1_check``; the plain version's bf16
+    arithmetic does not pass its fp32 bound, nor does a channel shift."""
+    x, w, b = chip_smoke.k1_inputs((1, 5, 6, 7, 128), CPU, torch.bfloat16,
+                                   offset)
+    kw = dict(num_groups=32, eps=1e-5, silu=silu, per_frame=per_frame)
+    hold = offset == chip_smoke.K1_OFFSET
+    one_rounding = group_norm_silu_plain(x.float(), w, b, **kw).bfloat16()
+    assert chip_smoke.k1_check(one_rounding, x, w, b, hold, **kw)[1] <= 0.0
+    plain_bf16 = group_norm_silu_plain(x, w, b, **kw)
+    assert chip_smoke.k1_check(plain_bf16, x, w, b, hold, **kw)[1] > 0.0
+    shifted = group_norm_silu_plain(x.roll(1, -1).float(), w, b, **kw)
+    assert chip_smoke.k1_check(shifted.bfloat16(), x, w, b, hold,
+                               **kw)[1] > 0.0
+
+
+@pytest.mark.parametrize("key,shape,kw,gb,tflop,ms,by", [
+    ("K1", (1, 17, 720, 1280, 128), {}, 8.02, None, 2.39, "bytes"),
+    ("K2", (1, 9, 360, 336, 512), dict(n=2), 8.67, None, 2.59, "bytes"),
+    ("K3", (1, 17, 720, 1280, 3), {}, 4.10, None, 1.23, "bytes"),
+    ("K4", (5, 14400, 512), {}, None, 2.12, 2.15, "operations"),
+    ("K4", (5, 7560, 512), {}, None, 0.585, 0.59, "operations"),
+])
+def test_bounds_of_the_main_path_shapes(key, shape, kw, gb, tflop, ms, by):
+    nbytes, flop = chip_smoke.work(key, shape, torch.bfloat16, **kw)
+    if gb is not None:
+        assert round(nbytes / 1e9, 2) == gb
+    if tflop is not None:
+        assert round(flop / 1e12, 3) == pytest.approx(tflop, abs=6e-3)
+    got_ms, got_by = chip_smoke.bound(key, shape, torch.bfloat16, **kw)
+    assert (round(got_ms, 2), got_by) == (ms, by)
+
+
+def test_fp32_bound_uses_the_fp32_peak():
+    """fp32 K4 runs FMAs, not tensor cores: 67 TFLOP/s."""
+    ms, by = chip_smoke.bound("K4", (5, 7560, 512), torch.float32)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 5 * 7560 ** 2 * 512 / 67e12 * 1e3)

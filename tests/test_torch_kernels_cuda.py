@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cvvae_tpu_torch.ops.conv import Conv3DSpec
 from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
 
@@ -32,31 +33,48 @@ def _randn(shape, seed, dev, dtype, scale=1.0):
     return torch.from_numpy(a).to(dev, dtype)
 
 
-# fp32: the kernel's Chan merge vs the plain E[x^2]-mean^2 reorder the
-# statistics' last bits.  bf16: the kernel rounds once, the plain version
-# (JAX numerics) rounds the folded affine and each op: a few bf16 ulps.
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape,groups,silu,per_frame", [
-    ((2, 3, 10, 14, 64), 32, True, False),
-    ((1, 5, 9, 7, 128), 32, False, True),
-    ((1, 2, 4, 4, 8), 4, True, False),
-    ((1, 3, 33, 35, 512), 32, True, False),
-])
-def test_group_norm_kernel(dev, dtype, tol, shape, groups, silu, per_frame):
-    x = _randn(shape, 0, dev, dtype, 2.0) + 0.5
-    w = _randn(shape[-1:], 1, dev, torch.float32)
-    b = _randn(shape[-1:], 2, dev, torch.float32)
+# K1 is held by chip_smoke.py's bounds (chip_smoke.k1_check), on inputs
+# made as it makes them (whose channel means and scales set the groups'
+# statistics apart): fp32 elementwise; bf16 elementwise and by ||d|| /
+# ||ref|| <= K1_BF16_RMS against the plain version, and within one
+# rounding of its fp32 arithmetic.  planted_faults.py shows what they
+# catch.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,silu,per_frame",
+                         chip_smoke.K1_CHECK_SHAPES)
+def test_group_norm_kernel(dev, dtype, shape, groups, silu, per_frame):
+    x, w, b = chip_smoke.k1_inputs(shape, dev, dtype)
+    kw = dict(num_groups=groups, eps=1e-5, silu=silu, per_frame=per_frame)
     before = groupnorm.launches
-    got = groupnorm.group_norm_silu(x, w, b, num_groups=groups, eps=1e-5,
-                                    silu=silu, per_frame=per_frame)
+    got = groupnorm.group_norm_silu(x, w, b, **kw)
     torch.cuda.synchronize()
     assert groupnorm.launches == before + 1
-    ref = groupnorm.group_norm_silu_plain(x, w, b, num_groups=groups,
-                                          eps=1e-5, silu=silu,
-                                          per_frame=per_frame)
     assert got.dtype == dtype and got.shape == x.shape
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    _, excess, text = chip_smoke.k1_check(got, x, w, b, **kw)
+    assert excess <= 0.0, text
+
+
+def test_group_norm_kernel_wide_channel_means(dev):
+    """Channel means of +-K1_WIDE_OFFSET: one rounding of fp32 arithmetic
+    (the plain version's bf16 arithmetic is further off there)."""
+    x, w, b = chip_smoke.k1_inputs((1, 5, 10, 14, 512), dev, torch.bfloat16,
+                                   chip_smoke.K1_WIDE_OFFSET)
+    kw = dict(num_groups=32, eps=1e-5, silu=False, per_frame=True)
+    got = groupnorm.group_norm_silu(x, w, b, **kw)
+    _, excess, text = chip_smoke.k1_check(got, x, w, b, hold_plain=False,
+                                          **kw)
+    assert excess <= 0.0, text
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_is_deterministic(dev, dtype):
+    """A fixed plan and a fixed merge order: two calls, the same bits."""
+    x = _randn((1, 9, 45, 80, 128), 3, dev, dtype, 3.0) + 1.0
+    w = _randn((128,), 4, dev, torch.float32)
+    b = _randn((128,), 5, dev, torch.float32)
+    kw = dict(num_groups=32, eps=1e-6, silu=True)
+    first = groupnorm.group_norm_silu(x, w, b, **kw)
+    assert torch.equal(first, groupnorm.group_norm_silu(x, w, b, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -100,13 +118,15 @@ def test_stem_kernel(dev, dtype, tol, cin, spec):
 # 2e-5 * (1 + |ref|).  bf16: the bounds of chip_smoke.py (K4_BF16_MAX,
 # K4_BF16_RMS), where their reasons are: the two round their outputs to
 # bf16 apart, one ulp at most; a missing tail mask fails both at S = 1100.
-K4_BF16_MAX = 1.5e-2
-K4_BF16_RMS = 5e-3
+K4_BF16_MAX = chip_smoke.K4_BF16_MAX
+K4_BF16_RMS = chip_smoke.K4_BF16_RMS
 
 
+# S: whole and ragged 64-row query tiles and 32-key tiles (65, 127, 1100,
+# 7560), and tails that are whole (64, 2048)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [64, 512])
-@pytest.mark.parametrize("s", [64, 1100, 2048])
+@pytest.mark.parametrize("s", [64, 65, 127, 1100, 2048, 7560])
 @pytest.mark.parametrize("b", [1, 5])
 def test_flash_attention_kernel(dev, dtype, c, s, b):
     q, k, v = (_randn((b, s, c), i, dev, dtype) for i in range(3))
@@ -120,6 +140,41 @@ def test_flash_attention_kernel(dev, dtype, c, s, b):
     if dtype == torch.float32:
         torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
         return
+    assert torch.isfinite(got).all()
+    d, r = got.double() - ref.double(), ref.double()
+    assert d.abs().max() <= K4_BF16_MAX * r.abs().max()
+    assert d.norm() <= K4_BF16_RMS * r.norm()
+
+
+# keys growing along S (chip_smoke.k4_inputs): each row's max rises past
+# the bf16 kernel's slack on later tiles, so its output and running sum
+# are rescaled; on N(0, 1) inputs that never happens (chip_smoke.K4_RAMP
+# says why fp32 is not checked so)
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("b,s", [(2, 127), (1, 1100), (5, 7560)])
+def test_flash_attention_kernel_rising_logits(dev, c, b, s):
+    q, k, v = chip_smoke.k4_inputs((b, s, c), dev, torch.bfloat16,
+                                   rising=True)
+    scale = c ** -0.5
+    if s > 127:
+        assert chip_smoke.k4_max_raises(q, k, scale) >= 1.0
+    got = attention.flash_attention(q, k, v, scale)
+    ref = attention.flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _, excess, text = chip_smoke.k4_check(got, ref)
+    assert excess <= 0.0, text
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_flash_attention_kernel_other_widths(dev, c):
+    """The two widths between the main ones: each consumer warpgroup's
+    half of C is another wgmma width (64, 128)."""
+    q, k, v = (_randn((2, 1100, c), 7 + i, dev, torch.bfloat16)
+               for i in range(3))
+    got = attention.flash_attention(q, k, v, c ** -0.5)
+    ref = attention.flash_attention_plain(q, k, v, c ** -0.5)
+    torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     d, r = got.double() - ref.double(), ref.double()
     assert d.abs().max() <= K4_BF16_MAX * r.abs().max()

@@ -120,6 +120,40 @@ def test_group_norm_plain_matches_pallas_kernel(silu, per_frame):
     _close(got, np.asarray(ref).reshape(x.shape))
 
 
+@pytest.mark.parametrize("b,s,c,g,elem", [
+    (1, 17 * 720 * 1280, 128, 32, 2),   # encoder level 0, bf16
+    (5, 90 * 160, 512, 32, 2),          # per-frame mid-block norm
+    (1, 17 * 720 * 672, 256, 32, 4),    # decoder tile, fp32
+    (1, 1001, 512, 32, 2),              # ragged S, a few blocks
+    (3, 7, 128, 32, 2),                 # S below one block's rows
+    (1, 33 * 35 * 3, 512, 32, 4),
+    (2, 4 * 4 * 2, 8, 4, 2),            # C / G = 2 < the vector
+    (1, 999, 64, 32, 4),
+    (1, 50, 96, 32, 2),                 # C / G = 3: 2-byte loads
+    (1, 50, 384, 32, 2),                # C / G = 12: 4-byte loads
+    (1, 10, 999, 1, 2),                 # C / V > 256: 1024 threads
+])
+def test_group_norm_launch_plan_covers_every_row_once(b, s, c, g, elem):
+    """The K1 plan: a load width and group span the kernel is built for,
+    a legal block, and blocks whose threads read each row exactly once."""
+    p = k1.launch_plan(b, s, c, g, elem)
+    v, ns, cg = p["v"], p["ns"], c // g
+    assert v * elem <= 16 and c % v == 0
+    assert (ns == v // cg and v % cg == 0) if ns > 1 else cg % v == 0
+    assert p["threads"] % 32 == 0 and c // v <= p["threads"]
+    assert p["threads"] <= (256 if v > 2 else 1024)
+    assert p["rows_per_iter"] == p["threads"] // (c // v) >= 1
+    assert b * p["n_blocks"] <= 2 * k1.TARGET_BLOCKS + b
+    rpb, rpi = p["rows_per_block"], p["rows_per_iter"]
+    assert (p["n_blocks"] - 1) * rpb < s <= p["n_blocks"] * rpb
+    seen = np.zeros(s, np.int64)
+    for blk in range(p["n_blocks"]):
+        r0, r1 = blk * rpb, min(s, (blk + 1) * rpb)
+        for ty in range(rpi):   # thread row ty reads r0 + ty + i * rpi
+            np.add.at(seen, np.arange(r0 + ty, r1, rpi), 1)
+    assert (seen == 1).all()
+
+
 def test_layer_norm_matches_jax():
     x = _np((2, 3, 4, 5, 16), 9, 3.0, 1.0)
     scale, bias = _np((16,), 10), _np((16,), 11)

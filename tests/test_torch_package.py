@@ -143,7 +143,8 @@ def test_other_devices_are_refused(case):
 
 
 def test_nothing_is_built_at_import():
-    assert _build.library.cache_info().currsize == 0
+    assert _build._current is None
+    assert _build._load.cache_info().currsize == 0
     assert _build.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in _build._sources()} == {
         "attention.cu", "common.cuh", "groupnorm.cu", "shuffle.cu", "stem.cu"}

@@ -193,7 +193,8 @@ def test_bad_requests(served):
 
 
 def test_oversized_body_is_413():
-    vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE))
+    vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE),
+                               device="cpu")
     server = serve.build_server(vae, port=0, max_body_bytes=1024)
     port = _start(server)
     try:
@@ -273,7 +274,8 @@ def test_serving_tile_plan_matches_jax(height, width):
 
 
 def test_serving_preset():
-    vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET)))
+    vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET)),
+                               device="cpu")
     cli.apply_serving_preset(vae, 720, 1280)
     assert vae.config.tile_spatial_size == (720, 672)
     assert vae.config.encode_pixel_tile_size is None

@@ -188,6 +188,19 @@ def test_unknown_family_raises():
 @pytest.mark.parametrize("method,args,match", [
     ("quantize", (), "int8"), ("with_mesh", (None,), "multi-device")])
 def test_unported_features_raise(method, args, match):
-    vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE))
+    vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE),
+                               device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         getattr(vae, method)(*args)
+
+
+def test_from_config_defaults_to_the_card(monkeypatch):
+    """Without a device the model goes to the card: where there is none it
+    raises, never returning a CPU model."""
+    cfg = VideoVAEConfig(net=VAE1Config(**NET), **BASE)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VideoVAE.from_config(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VideoVAE.from_config(cfg, device="cuda:0")
+    assert VideoVAE.from_config(cfg, device="cpu").device.type == "cpu"
