@@ -12,12 +12,14 @@ Phases (each prints its findings; any failure exits non-zero):
    the shapes the 720p serving paths give it (bf16; K1/K3/K4 also fp32),
    with median CUDA-event times taken in turns (plain, kernel, kernel,
    plain, then library, library where one PyTorch call computes the same
-   function: SDPA for K4, ``F.group_norm`` for K1's per-frame shape),
-   each beside its bound (``bound``: bytes over the HBM rate or FLOP over
-   the peak, the larger) and its share of it; K1 is also run twice at its
-   largest shape and must be bit-identical, and in bf16 is also held to
-   one rounding of fp32 arithmetic (``k1_check``); K4 is also checked on
-   logits that rise along S, so that its online softmax rescales.
+   function: SDPA for K4 in bf16 and fp32, ``F.group_norm`` for K1's
+   per-frame shape), each beside its bound (``bound``: bytes over the HBM
+   rate or FLOP over the peak, the larger) and its share of it.  K1 is
+   also run twice at its largest shape and must be bit-identical; K1 and
+   K3 in bf16 are also held to one rounding of fp32 arithmetic
+   (``k1_check``, ``k3_check``); K2 is timed at its three shapes; K4 is
+   also checked on logits that rise along S, so that its online softmax
+   rescales.
 4. slice   -- full-width v1 and SD3 in fp32 (TF32 off): encode + decode
    on the card (kernels) against the CPU (plain versions); the SD3 clip's
    32x32 latent makes K4 run in both mid-blocks.
@@ -31,8 +33,8 @@ Phases (each prints its findings; any failure exits non-zero):
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served paths, and at each
 timed shape ms, plain_ms, bound_ms, bound_by, share and library_ms; the
-top-level numbers are those of the first, largest timed shape).  It
-imports nothing of JAX.
+top-level numbers are those of the bf16 shape with the largest bound).
+It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -106,6 +108,11 @@ K1_BF16_RMS = 6e-3
 #: |ref32|) (its fp32 arithmetic against the plain version's, as in fp32)
 K1_BF16_ROUNDING = 2.0 ** -8
 K1_F32_SLACK = 2e-5
+#: K3 bf16 is held the same way to the plain version run in fp32 on the
+#: same bf16-valued inputs, weights and bias: the kernel accumulates in
+#: fp32 and rounds once, so |got - ref32| <= 2^-8 |ref32| + K3_F32_SLACK *
+#: (1 + |ref32|) (its fp32 sums in another order than cuDNN's)
+K3_F32_SLACK = 1e-5
 #: the card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 #: and FLOP/s by the inputs' type (bf16 tensor cores, fp32 without TF32)
 HBM_BYTES_PER_S = 3.35e12
@@ -161,6 +168,31 @@ K4_CASES = [
     ((5, 7560, 512), torch.bfloat16, False, True),
     ((1, 1100, 512), torch.bfloat16, False, True),
 ]
+#: K2's shapes on the 720p decode path, one 720x672 tile's three upsample
+#: tails (phase shape, n); the last is the largest
+K2_CASES = [((1, 5, 90, 84, 1024), 2), ((1, 9, 180, 168, 512), 1),
+            ((1, 9, 360, 336, 512), 2)]
+#: K3's shape on the v1 path: the encoder's conv_in on the served clip
+K3_SHAPE = (1, 17, 720, 1280, 3)
+#: K2's small check cases (B, n, drop_first, c, bias), held bit-exact by
+#: the card tests and by planted_faults.py: the scalar path (c of 4 and 20
+#: bf16, 20 fp32 is vectors) and the vector path (16-byte units)
+K2_CHECK_SHAPES = [
+    (1, 2, True, 16, True), (2, 2, False, 24, True), (1, 1, False, 8, False),
+    (1, 2, True, 256, False), (1, 2, True, 4, True), (2, 1, False, 20, True),
+    (1, 2, True, 20, False), (1, 1, False, 256, True), (1, 2, True, 512, True),
+    (2, 2, False, 512, False)]
+#: K3's time padding kinds: (pads, modes) of a 3x3x3 conv
+K3_PADS = {"edge": (((2, 0), (1, 1), (1, 1)), ("edge", "zero", "zero")),
+           "zero": (((1, 1), (1, 1), (1, 1)), ("zero", "zero", "zero")),
+           "none": (((0, 0), (0, 0), (0, 0)), ("zero", "zero", "zero"))}
+#: K3's small check cases (padding, (B, T, H, W)), each for Cin 1-4 in the
+#: card tests: W ragged against the 64-pixel tile (37, 130 = two tiles + 2,
+#: 257 = 129 + a 128-pixel tile), H and T of 1, B = 2
+K3_CHECK_SHAPES = [(pad, (2, t, h, w)) for pad in K3_PADS
+                   for t, h, w in ((5, 19, 37), (1, 1, 130), (5, 1, 257),
+                                   (1, 19, 130), (5, 19, 257))
+                   if pad != "none" or min(t, h) >= 3]
 #: latent channels and the kernels each served path must launch
 PATHS = {"v1": (4, ("K1", "K2", "K3", "K4")),
          "sd3": (16, ("K1", "K2", "K4"))}
@@ -215,6 +247,36 @@ def k1_inputs(shape, dev, dtype, offset=K1_OFFSET):
     x = (randn(shape, 1, dev, torch.float32) * scale + shift).to(dtype)
     return (x, randn((c,), 2, dev, torch.float32, 0.5, 1.0),
             randn((c,), 3, dev, torch.float32, 0.5))
+
+
+def k2_inputs(b, n, c, with_bias, dev, dtype):
+    """Four (B, 3, 5, 7, n*c) phases and an (n*c,) bias (or None), N(0, 1),
+    with one -0 in the first phase (a pure copy keeps it)."""
+    phases = [randn((b, 3, 5, 7, n * c), 50 + i, dev, dtype) for i in range(4)]
+    phases[0].view(-1)[0] = -0.0
+    return phases, (randn((n * c,), 59, dev, dtype) if with_bias else None)
+
+
+def k2_exact(got, ref):
+    """Bit-identical, -0 and NaN payloads included."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return False
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got.view(view), ref.view(view))
+
+
+def k3_spec(pad):
+    from cvvae_tpu_torch.ops.conv import Conv3DSpec
+
+    pads, modes = K3_PADS[pad]
+    return Conv3DSpec((3, 3, 3), (1, 1, 1), pads, modes)
+
+
+def k3_inputs(shape, cin, dev, dtype):
+    """x in [-1, 1] (pixels), weights of scale 1/9 and a bias of 0.1."""
+    x = randn(tuple(shape) + (cin,), 30, dev, dtype).clamp(-1, 1)
+    return (x, randn((128, cin, 3, 3, 3), 31, dev, dtype, 1 / 9),
+            randn((128,), 32, dev, dtype, 0.1))
 
 
 def k4_inputs(shape, dev, dtype, rising=False):
@@ -283,6 +345,32 @@ def k1_check(got, x, w, b, hold_plain=True, **kw):
              f"it: excess over {tol}*(1+|ref32|) {p_excess!r}, "
              f"rms={p_rms!r}")
     return (err if hold_plain else err32), max(excess, excess32), text
+
+
+def k3_check(got, x, w, b, spec):
+    """(max |got - ref|, excess, text) of K3's output for (x, w, b, spec);
+    the check fails where excess > 0.  Against the plain version in the
+    same dtype, |d| <= TOL[K3] * (1 + |ref|); in bf16 also within one
+    rounding of the plain version's fp32 arithmetic on the same values,
+    |got - ref32| <= 2^-8 |ref32| + K3_F32_SLACK * (1 + |ref32|)."""
+    from cvvae_tpu_torch.ops.kernels.stem import stem_conv3d_plain
+
+    tol = TOL[("K3", x.dtype)]
+    ref = stem_conv3d_plain(x, w, b, spec)
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return math.inf, math.inf, f"output {tuple(got.shape)} {got.dtype}"
+    err, excess = compare(got, ref, tol)[:2]
+    del ref
+    text = f"excess over {tol!r}*(1+|ref|) {excess!r}"
+    if x.dtype == torch.float32:
+        return err, excess, text
+    ref32 = stem_conv3d_plain(x.float(), w.float(),
+                              None if b is None else b.float(), spec)
+    err32, excess32 = compare(got, ref32, K3_F32_SLACK,
+                              K1_BF16_ROUNDING + K3_F32_SLACK)[:2]
+    text += (f"; against fp32 arithmetic: max_abs_err={err32!r}, excess "
+             f"over 2^-8*|ref32|+{K3_F32_SLACK}*(1+|ref32|) {excess32!r}")
+    return err, max(excess, excess32), text
 
 
 def k4_check(got, ref):
@@ -358,8 +446,8 @@ def work(key, shape, dtype, n=2, silu=True, cout=128):
 
     K1 shape (B, T, H, W, C): x in, y out, fp32 weight and bias; 3 FLOP an
     element for the moments, 2 for the affine, 4 more with SiLU.  K2
-    shape: one of the four phases (B, T, H, W, n*c); the output drops the
-    first of its n*T frames; one add an output element.  K3 shape (B, T,
+    shape: one of the four phases (B, T, H, W, n*c); where n > 1 the
+    output drops the first of its n*T frames; one add an output element.  K3 shape (B, T,
     H, W, Cin) -> ``cout`` channels at the same extent; 2*27*Cin FLOP an
     output element.  K4 shape (B, S, D): q, k, v in, out out; 4*B*S^2*D
     FLOP."""
@@ -367,8 +455,8 @@ def work(key, shape, dtype, n=2, silu=True, cout=128):
     numel = math.prod(shape)
     if key == "K1":
         return 2 * numel * e + 2 * shape[-1] * 4, numel * (5 + 4 * silu)
-    if key == "K2":
-        out = 4 * numel * (shape[1] * n - 1) // (shape[1] * n)
+    if key == "K2":  # the first frame is dropped where n > 1
+        out = 4 * numel * (shape[1] * n - (n > 1)) // (shape[1] * n)
         return (4 * numel + out) * e + shape[-1] * e, out
     if key == "K3":
         out = numel // shape[-1] * cout
@@ -469,26 +557,24 @@ def _check_kernels(dev):
     del x, got
     torch.cuda.empty_cache()
 
-    # K2: the three upsample tails of one 720x672 decoder tile; no one
-    # PyTorch call computes it (a permutation plus a bias add)
-    k2_cases = [((1, 5, 90, 84, 1024), 2, False),
-                ((1, 9, 180, 168, 512), 1, False),
-                ((1, 9, 360, 336, 512), 2, True)]
+    # K2: the three upsample tails of one 720x672 decoder tile, each timed
+    # in bf16; no one PyTorch call computes it (a permutation plus a bias
+    # add)
     for dtype in (torch.bfloat16, torch.float32):
-        for shape, n, timed in k2_cases:
-            if dtype == torch.float32 and timed:
+        for shape, n in K2_CASES:
+            if dtype == torch.float32 and shape == K2_CASES[-1][0]:
                 continue  # the path runs bf16; fp32 is checked smaller
             phases = [randn(shape, 10 + j, dev, dtype) for j in range(4)]
             bias = randn(shape[-1:], 20, dev, dtype)
             got = shuffle.subpixel_interleave(phases, bias, n=n)
             ref = shuffle.subpixel_interleave_plain(phases, bias, n=n)
             torch.cuda.synchronize()
-            exact = got.shape == ref.shape and torch.equal(got, ref)
+            exact = k2_exact(got, ref)
             err = (0.0 if exact else compare(got, ref)[0]
                    if got.shape == ref.shape else float("inf"))
             del got, ref
             timing = None
-            if timed:
+            if dtype == torch.bfloat16:
                 k_ms, p_ms, _ = in_turns(
                     lambda: shuffle.subpixel_interleave_plain(phases, bias, n=n),
                     lambda: shuffle.subpixel_interleave(phases, bias, n=n))
@@ -498,32 +584,26 @@ def _check_kernels(dev):
             del phases
             torch.cuda.empty_cache()
 
-    # K3: the encoder's conv_in on a 17-frame 720p clip; no one PyTorch
-    # call computes it (conv3d's padding cannot repeat the first frame)
+    # K3: the encoder's conv_in on a 17-frame 720p clip, timed in bf16 and
+    # fp32; no one PyTorch call computes it (conv3d's padding cannot repeat
+    # the first frame)
     spec = Conv3DSpec.v1_causal()
-    shape = (1, 17, 720, 1280, 3)
+    shape = K3_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
-        x = randn(shape, 30, dev, dtype).clamp(-1, 1)
-        w = randn((128, 3, 3, 3, 3), 31, dev, dtype, 1 / 9)
-        b = randn((128,), 32, dev, dtype, 0.1)
+        x, w, b = k3_inputs(shape[:-1], shape[-1], dev, dtype)
         got = stem.stem_conv3d(x, w, b, spec)
-        ref = stem.stem_conv3d_plain(x, w, b, spec)
         torch.cuda.synchronize()
-        tol = TOL[("K3", dtype)]
-        err, excess = compare(got, ref, tol)[:2]
-        del got, ref
-        timing = None
-        if dtype == torch.bfloat16:
-            k_ms, p_ms, _ = in_turns(
-                lambda: stem.stem_conv3d_plain(x, w, b, spec),
-                lambda: stem.stem_conv3d(x, w, b, spec))
-            timing = (shape, dtype, k_ms, p_ms, None, {})
-        record("K3", f"{shape} {dtype}", err, excess,
-               f"tol={tol!r}*(1+|ref|)", timing)
+        err, excess, tol_text = k3_check(got, x, w, b, spec)
+        del got
+        k_ms, p_ms, _ = in_turns(
+            lambda: stem.stem_conv3d_plain(x, w, b, spec),
+            lambda: stem.stem_conv3d(x, w, b, spec))
+        record("K3", f"{shape} {dtype}", err, excess, tol_text,
+               (shape, dtype, k_ms, p_ms, None, {}))
         del x
         torch.cuda.empty_cache()
 
-    # K4 at K4_CASES; bf16 is also timed against SDPA
+    # K4 at K4_CASES; the timed ones also against SDPA
     for shape, dtype, timed, rising in K4_CASES:
         q, k, v = k4_inputs(shape, dev, dtype, rising)
         scale = shape[-1] ** -0.5
@@ -541,12 +621,10 @@ def _check_kernels(dev):
                 excess = math.inf
         del got, ref
         timing = None
-        if timed:
-            lib = None
-            if dtype == torch.bfloat16:  # as (B, 1 head, S, C)
-                lib = functools.partial(
-                    torch.nn.functional.scaled_dot_product_attention,
-                    q[:, None], k[:, None], v[:, None], scale=scale)
+        if timed:  # SDPA as (B, 1 head, S, C); fp32 with TF32 off
+            lib = functools.partial(
+                torch.nn.functional.scaled_dot_product_attention,
+                q[:, None], k[:, None], v[:, None], scale=scale)
             k_ms, p_ms, l_ms = in_turns(
                 lambda: attention.flash_attention_plain(q, k, v, scale),
                 lambda: attention.flash_attention(q, k, v, scale), lib)
@@ -747,8 +825,11 @@ def main() -> int:
 
     kernels = []
     for k in KERNELS:
-        # the top-level numbers are those of the kernel's largest shape
-        main_shape = summary[k]["timed"][0]
+        # the top-level numbers are those of the kernel's bf16 shape with
+        # the largest bound (its largest shape on the serving path)
+        main_shape = max((e for e in summary[k]["timed"]
+                          if e["dtype"] == "bfloat16"),
+                         key=lambda e: e["bound_ms"])
         kernels.append(dict(
             KERNELS[k],
             launches=sum(n[k] for n, _ in by_path.values()),

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,15 +41,30 @@ _SIGNATURES = {
     "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _I,
                          _I, _I, _I, _L, _I, _I, _P],
     "cvvae_subpixel_interleave": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cvvae_stem_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _P],
     "cvvae_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
 }
 
 
 def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def constants(source: str, *names: str) -> tuple:
+    """The values of ``constexpr int <name> = <integer>;`` in
+    ``csrc/<source>``: a kernel's compile-time schedule, read from its
+    source so that the wrapper planning its launches (and the CPU tests of
+    that plan) use the kernel's own numbers."""
+    text = (CSRC / source).read_text()
+    values = []
+    for name in names:
+        found = re.findall(rf"^constexpr int {name} = (\d+);", text, re.M)
+        if len(found) != 1:
+            raise RuntimeError(f"{source}: no single 'constexpr int {name}'")
+        values.append(int(found[0]))
+    return tuple(values)
 
 
 def _nvcc() -> str:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1 and K4: do the bounds that
+"""Planted faults against the checks of K1-K4: do the bounds that
 ``chip_smoke.py`` and the card tests hold the kernels to catch a broken
 kernel?
 
@@ -15,7 +15,12 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   ``chip_smoke.k1_check``;
 - K4, bf16, at the bf16 shapes of ``chip_smoke.K4_CASES`` on
   ``chip_smoke.k4_inputs`` (N(0, 1) and rising logits), held by
-  ``chip_smoke.k4_check``.
+  ``chip_smoke.k4_check``;
+- K3, bf16 and fp32, at ``chip_smoke.K3_SHAPE`` and
+  ``chip_smoke.K3_CHECK_SHAPES`` (Cin 3) on ``chip_smoke.k3_inputs``, held
+  by ``chip_smoke.k3_check``;
+- K2, bf16 and fp32, at ``chip_smoke.K2_CASES`` and
+  ``chip_smoke.K2_CHECK_SHAPES``, held bit-exact (``chip_smoke.k2_exact``).
 
 Prints one line per build, kernel and case, with the check's reading and
 whether it fails.  Exits non-zero if the kernel as it is fails a case or a
@@ -38,7 +43,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from cvvae_tpu_torch.ops.kernels import _build, attention, groupnorm  # noqa: E402
+from cvvae_tpu_torch.ops.kernels import (  # noqa: E402
+    _build, attention, groupnorm, shuffle, stem)
 
 #: fault -> (kernel, source file, its text, the replacement)
 FAULTS = {
@@ -69,6 +75,26 @@ FAULTS = {
         "    o[4 * j + 2] *= alpha[1];\n    o[4 * j + 3] *= alpha[1];",
         "o[4 * j] *= alpha[1];\n    o[4 * j + 1] *= alpha[1];\n"
         "    o[4 * j + 2] *= alpha[0];\n    o[4 * j + 3] *= alpha[0];"),
+    "time's edge clamp dropped (edge frames read as zero)": (
+        "K3", "stem.cu",
+        "    ti = min(max(ti, 0), g.T_in - 1);",
+        "    ok = ok && ti >= 0 && ti < g.T_in;"),
+    "the last k-step skipped (taps 24-26 and the bias)": (
+        "K3", "stem.cu",
+        "for (int s = 1; s < kKSteps; ++s)",
+        "for (int s = 1; s < kKSteps - 1; ++s)"),
+    "the W padding mask dropped": (
+        "K3", "stem.cu",
+        "const bool ok = b0 >= 0 && wi >= 0 && wi < g.W;",
+        "const bool ok = b0 >= 0;"),
+    "the last vector of each pixel not written": (
+        "K2", "shuffle.cu",
+        "for (int ci = threadIdx.x; ci < cv; ci += blockDim.x) {",
+        "for (int ci = threadIdx.x; ci < cv - 1; ci += blockDim.x) {"),
+    "the other channel group's bias": (
+        "K2", "shuffle.cu",
+        "reinterpret_cast<const V*>(bias)[j * cv + ci];",
+        "reinterpret_cast<const V*>(bias)[((j + 1) % n) * cv + ci];"),
 }
 
 
@@ -83,10 +109,11 @@ def _k1_cases():
                       per_frame=per_frame)
             got = groupnorm.group_norm_silu(x, w, b, **kw)
             torch.cuda.synchronize()
-            _, excess, text = chip_smoke.k1_check(got, x, w, b, **kw)
+            err, excess, text = chip_smoke.k1_check(got, x, w, b, **kw)
             del x, got
             torch.cuda.empty_cache()
-            yield f"K1 {shape} G={groups} {dtype}: {text}", excess > 0.0
+            yield (f"K1 {shape} G={groups} {dtype}: max_abs_err={err!r} "
+                   f"{text}", excess > 0.0)
 
 
 def _k4_cases():
@@ -100,11 +127,59 @@ def _k4_cases():
         got = attention.flash_attention(q, k, v, scale)
         ref = attention.flash_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
-        _, excess, text = chip_smoke.k4_check(got, ref)
+        err, excess, text = chip_smoke.k4_check(got, ref)
         del q, k, v, got, ref
         torch.cuda.empty_cache()
-        yield (f"K4 {shape}{' rising logits' if rising else ''}: {text}",
-               excess > 0.0)
+        yield (f"K4 {shape}{' rising logits' if rising else ''}: "
+               f"max_abs_err={err!r} {text}", excess > 0.0)
+
+
+def _k3_cases():
+    """(label, fails) of every K3 case on the library now loaded."""
+    dev = torch.device("cuda", 0)
+    cases = [("edge", chip_smoke.K3_SHAPE[:-1])] + chip_smoke.K3_CHECK_SHAPES
+    for dtype in (torch.bfloat16, torch.float32):
+        for pad, shape in cases:
+            spec = chip_smoke.k3_spec(pad)
+            x, w, b = chip_smoke.k3_inputs(shape, 3, dev, dtype)
+            got = stem.stem_conv3d(x, w, b, spec)
+            torch.cuda.synchronize()
+            err, excess, text = chip_smoke.k3_check(got, x, w, b, spec)
+            del x, got
+            torch.cuda.empty_cache()
+            yield (f"K3 {shape} {pad} {dtype}: max_abs_err={err!r} {text}",
+                   excess > 0.0)
+
+
+def _k2_cases():
+    """(label, fails) of every K2 case on the library now loaded."""
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, n in chip_smoke.K2_CASES:
+            if dtype == torch.float32 and shape == chip_smoke.K2_CASES[-1][0]:
+                continue  # as in chip_smoke.py: fp32 is checked smaller
+            phases = [chip_smoke.randn(shape, 10 + j, dev, dtype)
+                      for j in range(4)]
+            bias = chip_smoke.randn(shape[-1:], 20, dev, dtype)
+            exact = chip_smoke.k2_exact(
+                shuffle.subpixel_interleave(phases, bias, n=n),
+                shuffle.subpixel_interleave_plain(phases, bias, n=n))
+            del phases
+            torch.cuda.empty_cache()
+            yield f"K2 {shape} n={n} {dtype}: bit-exact={exact}", not exact
+        for b, n, drop, c, with_bias in chip_smoke.K2_CHECK_SHAPES:
+            phases, bias = chip_smoke.k2_inputs(b, n, c, with_bias, dev, dtype)
+            exact = chip_smoke.k2_exact(
+                shuffle.subpixel_interleave(phases, bias, n=n,
+                                            drop_first=drop),
+                shuffle.subpixel_interleave_plain(phases, bias, n=n,
+                                                  drop_first=drop))
+            yield (f"K2 {(b, 3, 5, 7, n * c)} n={n} drop={drop} "
+                   f"bias={with_bias} {dtype}: bit-exact={exact}", not exact)
+
+
+#: each kernel's cases
+CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:
@@ -127,6 +202,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("planted_faults: needs a CUDA device")
         return 1
+    # fp32 references in full fp32: cuDNN convs default to TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[card] {chip_smoke.nvidia_smi_line()}")
     builds = {"as committed": None, **FAULTS}
     not_told_apart = []
@@ -137,11 +215,10 @@ def main() -> int:
                 enumerate(builds.values()))))
         for name, fault in builds.items():
             _build.library(libs[name])
-            kernels = ("K1", "K4") if fault is None else (fault[0],)
+            kernels = tuple(CASES) if fault is None else (fault[0],)
             caught = False
             for kernel in kernels:
-                cases = _k1_cases() if kernel == "K1" else _k4_cases()
-                for label, fails in cases:
+                for label, fails in CASES[kernel]():
                     caught |= fails
                     print(f"[{name}] {label}: "
                           f"{'FAILS' if fails else 'passes'}", flush=True)

@@ -47,6 +47,8 @@ def test_k1_check_takes_one_rounding_of_fp32(offset, silu, per_frame):
 @pytest.mark.parametrize("key,shape,kw,gb,tflop,ms,by", [
     ("K1", (1, 17, 720, 1280, 128), {}, 8.02, None, 2.39, "bytes"),
     ("K2", (1, 9, 360, 336, 512), dict(n=2), 8.67, None, 2.59, "bytes"),
+    ("K2", (1, 5, 90, 84, 1024), dict(n=2), 0.59, None, 0.18, "bytes"),
+    ("K2", (1, 9, 180, 168, 512), dict(n=1), 2.23, None, 0.67, "bytes"),
     ("K3", (1, 17, 720, 1280, 3), {}, 4.10, None, 1.23, "bytes"),
     ("K4", (5, 14400, 512), {}, None, 2.12, 2.15, "operations"),
     ("K4", (5, 7560, 512), {}, None, 0.585, 0.59, "operations"),
@@ -59,6 +61,45 @@ def test_bounds_of_the_main_path_shapes(key, shape, kw, gb, tflop, ms, by):
         assert round(flop / 1e12, 3) == pytest.approx(tflop, abs=6e-3)
     got_ms, got_by = chip_smoke.bound(key, shape, torch.bfloat16, **kw)
     assert (round(got_ms, 2), got_by) == (ms, by)
+
+
+def test_k3_fp32_is_bound_by_its_fmas():
+    """fp32 K3 on FMAs: 2 * 81 FLOP an output element over 67 TFLOP/s,
+    above its 8.2 GB of traffic over 3.35 TB/s."""
+    shape = (1, 17, 720, 1280, 3)
+    ms, by = chip_smoke.bound("K3", shape, torch.float32)
+    assert by == "operations"
+    assert ms == pytest.approx(17 * 720 * 1280 * 128 * 2 * 81 / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("pad", ["edge", "zero"])
+@pytest.mark.parametrize("cin", [3, 4])
+def test_k3_check_takes_one_rounding_of_fp32(pad, cin):
+    """One bf16 rounding of the plain version's fp32 arithmetic (what the
+    kernel computes) passes ``k3_check``; the other time padding (the
+    edge clamp dropped, or added), or a dropped bias, does not."""
+    from cvvae_tpu_torch.ops.kernels.stem import stem_conv3d_plain
+
+    spec = chip_smoke.k3_spec(pad)
+    x, w, b = chip_smoke.k3_inputs((2, 3, 5, 9), cin, CPU, torch.bfloat16)
+    one_rounding = stem_conv3d_plain(x.float(), w.float(), b.float(), spec)
+    assert chip_smoke.k3_check(one_rounding.bfloat16(), x, w, b,
+                               spec)[1] <= 0.0
+    other = chip_smoke.k3_spec("zero" if pad == "edge" else "edge")
+    wrong = stem_conv3d_plain(x.float(), w.float(), b.float(), other)
+    assert chip_smoke.k3_check(wrong.bfloat16(), x, w, b, spec)[1] > 0.0
+    no_bias = stem_conv3d_plain(x.float(), w.float(), None, spec)
+    assert chip_smoke.k3_check(no_bias.bfloat16(), x, w, b, spec)[1] > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_exact_tells_minus_zero_apart(dtype):
+    phases, _ = chip_smoke.k2_inputs(1, 2, 4, False, CPU, dtype)
+    flipped = phases[0].clone()
+    flipped.view(-1)[0] = 0.0
+    assert torch.equal(flipped, phases[0])           # == says they agree
+    assert chip_smoke.k2_exact(phases[0], phases[0].clone())
+    assert not chip_smoke.k2_exact(flipped, phases[0])
 
 
 def test_fp32_bound_uses_the_fp32_peak():

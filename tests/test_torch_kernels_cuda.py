@@ -77,41 +77,82 @@ def test_group_norm_kernel_is_deterministic(dev, dtype):
     assert torch.equal(first, groupnorm.group_norm_silu(x, w, b, **kw))
 
 
+# K2 is bit-exact (chip_smoke.k2_exact) at chip_smoke.K2_CHECK_SHAPES: the
+# scalar path (c of 4 and 20 bf16) and the 16-byte vector path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,drop,c,with_bias", [
-    (1, 2, True, 16, True), (2, 2, False, 24, True), (1, 1, False, 8, False),
-    (1, 2, True, 256, False)])
+@pytest.mark.parametrize("b,n,drop,c,with_bias", chip_smoke.K2_CHECK_SHAPES)
 def test_subpixel_interleave_kernel_bit_exact(dev, dtype, b, n, drop, c,
                                               with_bias):
-    phases = [_randn((b, 3, 5, 7, n * c), i, dev, dtype) for i in range(4)]
-    bias = _randn((n * c,), 9, dev, dtype) if with_bias else None
+    phases, bias = chip_smoke.k2_inputs(b, n, c, with_bias, dev, dtype)
+    before = shuffle.launches
     got = shuffle.subpixel_interleave(phases, bias, n=n, drop_first=drop)
     ref = shuffle.subpixel_interleave_plain(phases, bias, n=n,
                                             drop_first=drop)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape
-    assert torch.equal(got, ref)
+    assert shuffle.launches == before + 1
+    assert chip_smoke.k2_exact(got, ref)
 
 
-# both accumulate in fp32 and round once; only the summation order
-# differs (cuDNN with TF32 off vs 27*Cin sequential FMAs): 1 bf16 ulp
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("cin,spec", [
-    (3, Conv3DSpec.v1_causal()),
-    (4, Conv3DSpec.v1_plain()),
-    (3, Conv3DSpec((3, 3, 3), (1, 1, 1), ((0, 0), (0, 0), (0, 0)),
-                   ("zero", "zero", "zero"))),
-])
-def test_stem_kernel(dev, dtype, tol, cin, spec):
-    x = _randn((2, 5, 19, 37, cin), 0, dev, dtype)
-    w = _randn((128, cin, 3, 3, 3), 1, dev, dtype, 0.1)
-    bias = _randn((128,), 2, dev, dtype)
-    got = stem.stem_conv3d(x, w, bias, spec)
-    ref = stem.stem_conv3d_plain(x, w, bias, spec)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["phase", "bias"])
+def test_subpixel_interleave_kernel_misaligned_view(dev, dtype, which):
+    """A phase or the bias as a view one element past an aligned start:
+    the wrapper plans the scalar path, which stays bit-exact."""
+    n, c = 2, 256
+    phases, bias = chip_smoke.k2_inputs(1, n, c, True, dev, dtype)
+    if which == "phase":
+        flat = torch.empty(phases[2].numel() + 1, device=dev, dtype=dtype)
+        flat[1:] = phases[2].reshape(-1)
+        phases[2] = flat[1:].view(phases[0].shape)
+    else:
+        flat = torch.empty(bias.numel() + 1, device=dev, dtype=dtype)
+        flat[1:] = bias
+        bias = flat[1:]
+    assert shuffle.launch_plan(phases, bias, c, 10, 132)["vec"] == 1
+    got = shuffle.subpixel_interleave(phases, bias, n=n)
+    ref = shuffle.subpixel_interleave_plain(phases, bias, n=n)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape and got.dtype == dtype
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    assert chip_smoke.k2_exact(got, ref)
+
+
+# K3 is held by chip_smoke.k3_check: against the plain version (fp32 2e-5,
+# bf16 1e-2, elementwise on 1 + |ref|) and, in bf16, within one rounding
+# of the plain version's fp32 arithmetic; at chip_smoke.K3_CHECK_SHAPES
+# (W ragged against the tile, H and T of 1, B = 2; edge, zero and no time
+# padding) for every Cin.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [1, 2, 3, 4])
+@pytest.mark.parametrize("pad,shape", chip_smoke.K3_CHECK_SHAPES)
+def test_stem_kernel(dev, dtype, cin, pad, shape):
+    spec = chip_smoke.k3_spec(pad)
+    x, wt, bias = chip_smoke.k3_inputs(shape, cin, dev, dtype)
+    before = stem.launches
+    got = stem.stem_conv3d(x, wt, bias, spec)
+    torch.cuda.synchronize()
+    assert stem.launches == before + 1
+    _, excess, text = chip_smoke.k3_check(got, x, wt, bias, spec)
+    assert excess <= 0.0, text
+
+
+def test_stem_kernel_without_bias(dev):
+    spec = Conv3DSpec.v1_causal()
+    x, wt, _ = chip_smoke.k3_inputs((1, 3, 4, 300), 3, dev, torch.bfloat16)
+    got = stem.stem_conv3d(x, wt, None, spec)
+    _, excess, text = chip_smoke.k3_check(got, x, wt, None, spec)
+    assert excess <= 0.0, text
+
+
+def test_stem_kernel_misaligned_input(dev):
+    """An input view that starts mid-granule: the granules the kernel
+    copies are aligned, and the row offsets carry the start."""
+    spec = Conv3DSpec.v1_causal()
+    x, wt, bias = chip_smoke.k3_inputs((1, 3, 5, 70), 3, dev, torch.bfloat16)
+    flat = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+    flat[1:] = x.reshape(-1)
+    xv = flat[1:].view(x.shape)
+    got = stem.stem_conv3d(xv, wt, bias, spec)
+    _, excess, text = chip_smoke.k3_check(got, x, wt, bias, spec)
+    assert excess <= 0.0, text
 
 
 # fp32: fp32 FMAs in another order than cuBLAS (TF32 off): elementwise
