@@ -9,26 +9,31 @@ Phases (each prints its findings; any failure exits non-zero):
    and the card's name and power limit (nvidia-smi).
 2. build   -- build the hand-written kernels from ``cvvae_tpu_torch/csrc``.
 3. kernels -- each kernel against its plain PyTorch version on the card at
-   the shapes the 720p serving paths give it (bf16; K1/K3/K4 also fp32),
+   the shapes the 720p serving paths give it (bf16; K1-K3 also fp32),
    with median CUDA-event times taken in turns (plain, kernel, kernel,
    plain, then library, library where one PyTorch call computes the same
-   function: SDPA for K4 in bf16 and fp32, ``F.group_norm`` for K1's
-   per-frame shape), each beside its bound (``bound``: bytes over the HBM
-   rate or FLOP over the peak, the larger) and its share of it.  K1 is
-   also run twice at its largest shape and must be bit-identical; K1 and
-   K3 in bf16 are also held to one rounding of fp32 arithmetic
-   (``k1_check``, ``k3_check``); K2 is timed at its three shapes; K4 is
-   also checked on logits that rise along S, so that its online softmax
-   rescales.
+   function: SDPA for K4, ``F.group_norm`` for K1's per-frame shape),
+   each beside its bound (``bound``: bytes over the HBM rate or FLOP over
+   the peak, the larger) and its share of it.  K1 is also run twice at its
+   largest shape and must be bit-identical; K1 and K3 in bf16 are also
+   held to one rounding of fp32 arithmetic (``k1_check``, ``k3_check``);
+   K2 is timed at its three shapes; K4 (bf16 only) is also checked on
+   logits that rise along S, so that its online softmax rescales, and
+   fp32 attention's exact path is timed beside SDPA fp32 as a record.
+   Then the edge-pad convs: at the v1 720p level-0 shape, a 720x672
+   SD3 tile and v1's two small-Cout heads, the reference's
+   decompositions (``_conv3d_edge_time_fast``, ``_conv3d_edge_fast``)
+   against the materialised pad, in fp32 and bf16 (``edge_check``), and
+   the three timed in turns.
 4. slice   -- full-width v1 and SD3 in fp32 (TF32 off): encode + decode
-   on the card (kernels) against the CPU (plain versions); the SD3 clip's
-   32x32 latent makes K4 run in both mid-blocks.
+   on the card (kernels) against the CPU (plain versions); fp32 attention
+   takes the exact path, so K4 must launch no time here.
 5. serving -- for v1, then SD3: the server ``serve.main`` builds
    (``serve.prepare``) for 17x720x1280 bf16 clips on an ephemeral port;
    /healthz, /reconstruct, /encode, /decode, /stats; shapes, finiteness,
    byte equality of /reconstruct and /decode(/encode), and a launch of
    every kernel of that path (counts set to 0 just before, read just
-   after).
+   after), and the latencies.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served paths, and at each
@@ -71,9 +76,6 @@ TOL = {
     ("K3", torch.float32): 2e-5,
     # K3 bf16: both accumulate in fp32 and round once: 1 bf16 ulp
     ("K3", torch.bfloat16): 1e-2,
-    # K4 fp32: fp32 FMAs and an online softmax against cuBLAS (TF32 off)
-    # and a full-row softmax: sums in another order
-    ("K4", torch.float32): 2e-5,
 }
 #: K4 bf16, held by two bounds instead: max|got - ref| <= K4_BF16_MAX *
 #: max|ref| and ||got - ref|| / ||ref|| <= K4_BF16_RMS.  The two round
@@ -90,11 +92,9 @@ K4_BF16_RMS = 5e-3
 K4_SLACK_LOG2 = 8.0
 #: K4 checks with rising logits scale k by 1 at key 0 to K4_RAMP at key
 #: S - 1: each row's max then rises past the slack on later tiles, and the
-#: bf16 kernel's rescale of its output and sum runs (on N(0, 1) inputs the
-#: max over all keys is within the slack of the first tile's, so it never
-#: does).  They are bf16 only: the fp32 kernel raises its max on every
-#: rise, which N(0, 1) inputs already exercise, and its error grows with
-#: the logits' size, which fp32's elementwise bound does not scale for.
+#: kernel's rescale of its output and sum runs (on N(0, 1) inputs the max
+#: over all keys is within the slack of the first tile's, so it never
+#: does)
 K4_RAMP = 8.0
 #: K1 bf16, beside its elementwise bound: ||got - ref|| / ||ref|| <=
 #: K1_BF16_RMS.  The plain version rounds the folded affine, the product,
@@ -120,7 +120,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: whole slice, card against CPU, fp32 (TF32 off): relative to max|ref|
 SLICE_TOL = 1e-3
 #: each family's slice clip (B, T, H, W, 3): SD3's 32x32 latent is 1024
-#: tokens, the card's K4 threshold
+#: tokens, the K4 threshold, which fp32 must not cross into K4
 SLICE_CLIPS = {"v1": (1, 9, 64, 64, 3), "sd3": (1, 5, 256, 256, 3)}
 #: the served clip (T, H, W)
 SERVE_CLIP = (17, 720, 1280)
@@ -156,18 +156,53 @@ K1_OFFSET = 0.75
 #: further from fp32 arithmetic than the elementwise bound: there the
 #: kernel is held to fp32 arithmetic alone
 K1_WIDE_OFFSET = 8.0
-#: K4's checks in phase 3 (shape, dtype, timed, rising logits): the v1
+#: K4's checks in phase 3, bf16 (shape, timed, rising logits): the v1
 #: encoder's untiled mid-block, a 720x672 tile's mid-block (v1 decoder,
-#: every SD3 tile), and a ragged S that is no multiple of any tile
+#: every SD3 tile), and a ragged S that is no multiple of any tile.  K4 is
+#: bf16 only, as the reference's flash is (``ops/attention.flash_usable``)
 K4_CASES = [
-    ((5, 14400, 512), torch.bfloat16, True, False),
-    ((5, 7560, 512), torch.bfloat16, True, False),
-    ((5, 7560, 512), torch.float32, True, False),
-    ((1, 1100, 512), torch.bfloat16, False, False),
-    ((1, 1100, 512), torch.float32, False, False),
-    ((5, 7560, 512), torch.bfloat16, False, True),
-    ((1, 1100, 512), torch.bfloat16, False, True),
+    ((5, 14400, 512), True, False),
+    ((5, 7560, 512), True, False),
+    ((1, 1100, 512), False, False),
+    ((5, 7560, 512), False, True),
+    ((1, 1100, 512), False, True),
 ]
+#: fp32 attention takes the exact path; it is timed at the two mid-block
+#: shapes beside SDPA fp32 (TF32 off), as a record
+ATTN_FP32_SHAPES = [(5, 7560, 512), (5, 14400, 512)]
+#: the edge-pad convs' checks in phase 3: (name, input (B, T, H, W, C),
+#: spec constructor, output channels) -- a v1 causal conv at the 720p
+#: encoder's level 0, an SD3 causal conv at a 720x672 level-0 tile, and
+#: v1's two heads, which the reference gives a lowering of their own
+#: (``_conv3d_small_cout``): the decoder's RGB conv_out on that tile and
+#: the untiled encoder's conv_out to 2 x 4 latent channels
+EDGE_CASES = [("v1_causal", (1, 17, 720, 1280, 128), "v1_causal", 128),
+              ("sd3_causal", (1, 17, 720, 672, 128), "sd3_causal", 128),
+              ("v1_decoder_conv_out", (1, 17, 720, 672, 128), "v1_causal", 3),
+              ("v1_encoder_conv_out", (1, 5, 90, 160, 512), "v1_causal", 8)]
+#: fp32 (TF32 off): the decomposition against the materialised pad,
+#: |d| <= EDGE_F32_TOL * (1 + |ref|); the two sum the same terms in another
+#: order (the fixes' taps summed first)
+EDGE_F32_TOL = 2e-5
+#: bf16, the decomposition against the materialised pad, both in bf16:
+#: elementwise |d| <= EDGE_BF16_ULP * |ref| + EDGE_BF16_MAG * mag, mag =
+#: sum |w| |x| + |bias| over the value's terms (the materialised conv of
+#: |x|, |w|, |bias|).  Away from the boundary slices both round one fp32
+#: sum of the same terms once, at most one ulp (2^-7 |ref|) apart.  At the
+#: boundary the decomposition also rounds the main conv, the fix's summed
+#: taps, the fix and the add, each within 2^-8 of what it rounds; the mag
+#: term covers these.  With the inputs of edge_inputs 2^-8 * mag is 0.15
+#: of the outputs' standard deviation at Cin = 128, 0.29 at 512.  On an
+#: H100 at EDGE_CASES, (|d| - 2^-7 |ref|) / mag reads at most 6.9e-4; the
+#: faults of planted_faults.EDGE_FAULTS read 0.053 to 0.127
+EDGE_BF16_ULP = 2.0 ** -7
+EDGE_BF16_MAG = 2.0 ** -8
+#: ... and ||d|| / ||ref|| <= EDGE_BF16_RMS: a few roundings in the
+#: boundary slices only.  On an H100 at EDGE_CASES it reads 1.2e-3 (2 of
+#: 17 frames on the boundary) to 2.3e-3 (2 of 5); on the CPU 3.5e-3 on a
+#: 1x4x5 SD3 conv, where every value is on the boundary.  The faults read
+#: 0.0106 (corners uncounted) to 0.36
+EDGE_BF16_RMS = 5e-3
 #: K2's shapes on the 720p decode path, one 720x672 tile's three upsample
 #: tails (phase shape, n); the last is the largest
 K2_CASES = [((1, 5, 90, 84, 1024), 2), ((1, 9, 180, 168, 512), 1),
@@ -375,17 +410,74 @@ def k3_check(got, x, w, b, spec):
 
 def k4_check(got, ref):
     """(max |got - ref|, excess, text) of K4's output against its plain
-    version; the check fails where excess > 0.  fp32: |d| <= 2e-5 * (1 +
-    |ref|).  bf16: max |d| <= K4_BF16_MAX * max |ref| and ||d|| / ||ref||
-    <= K4_BF16_RMS."""
-    if got.dtype == torch.float32:
-        tol = TOL[("K4", torch.float32)]
-        err, excess = compare(got, ref, tol)[:2]
-        return err, excess, f"tol={tol!r}*(1+|ref|)"
+    version; the check fails where excess > 0: max |d| <= K4_BF16_MAX *
+    max |ref| and ||d|| / ||ref|| <= K4_BF16_RMS."""
     err, _, ref_max, rms = compare(got, ref)
     return (err, max(err - K4_BF16_MAX * ref_max, rms - K4_BF16_RMS),
             f"max|ref|={ref_max!r} rms={rms!r} tol={K4_BF16_MAX}*max|ref| "
             f"and rms {K4_BF16_RMS}")
+
+
+def edge_check(got, ref, mag):
+    """(max |got - ref|, excess, text) of an edge-pad decomposition's
+    output ``got`` against the materialised pad's ``ref``; the check fails
+    where excess > 0.  fp32: |d| <= EDGE_F32_TOL * (1 + |ref|).  bf16: |d|
+    <= EDGE_BF16_ULP * |ref| + EDGE_BF16_MAG * ``mag``, ``mag`` the
+    magnitude of each value's terms (sum |w| |x| + |bias|), and ||d|| /
+    ||ref|| <= EDGE_BF16_RMS.  Taken over 2^26-element slices."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return math.inf, math.inf, f"output {tuple(got.shape)} {got.dtype}"
+    if got.dtype == torch.float32:
+        err, excess = compare(got, ref, EDGE_F32_TOL)[:2]
+        return err, excess, f"tol={EDGE_F32_TOL!r}*(1+|ref|)"
+    if not torch.isfinite(got).all():
+        return math.inf, math.inf, "non-finite output"
+    g, r, m = got.reshape(-1), ref.reshape(-1), mag.reshape(-1)
+    err = excess = worst = d2 = r2 = 0.0
+    for i in range(0, g.numel(), 1 << 26):
+        a, b, c = (t[i:i + (1 << 26)].double() for t in (g, r, m))
+        d = (a - b).abs()
+        over = d - EDGE_BF16_ULP * b.abs()
+        err = max(err, d.max().item())
+        excess = max(excess, (over - EDGE_BF16_MAG * c).max().item())
+        worst = max(worst, (over / c).max().item())
+        d2 += d.square().sum().item()
+        r2 += b.square().sum().item()
+    rms = (d2 / r2) ** 0.5
+    return err, max(excess, rms - EDGE_BF16_RMS), (
+        f"tol=2^-7*|ref|+2^-8*(sum|w||x|+|bias|): largest (|d|-2^-7*|ref|)"
+        f"/(sum|w||x|+|bias|) {worst!r}; rms={rms!r} (<= {EDGE_BF16_RMS})")
+
+
+def edge_inputs(shape, cout, dev, dtype):
+    """x, weight, bias of an edge-conv check: x ~ N(0, 1), a 3x3x3 weight
+    (cout, C, 3, 3, 3) ~ N(0, 1/(81 C)) (outputs of variance 1/3) and a
+    bias of scale 0.1."""
+    c = shape[-1]
+    return (randn(shape, 70, dev, dtype),
+            randn((cout, c, 3, 3, 3), 71, dev, dtype, (3 * 27 * c) ** -0.5),
+            randn((cout,), 72, dev, dtype, 0.1))
+
+
+def edge_paths(spec, conv=None):
+    """{path: fn(x, weight, bias)} of the conv ``spec`` (B,T,H,W,C) ->
+    contiguous (B,T',H',W',O): the materialised pad, the time-axis
+    decomposition where the reference takes it (edge time, zero space) and
+    the all-axes one; ``conv`` is the module that holds them (by default
+    ``cvvae_tpu_torch.ops.conv``)."""
+    if conv is None:
+        from cvvae_tpu_torch.ops import conv
+
+    zero = [p if m == "zero" else (0, 0) for p, m in zip(spec.pads, spec.modes)]
+    paths = {"materialised": lambda x, w, b: conv._window_conv(
+        conv._edge_pad(x, spec.pads, spec.modes), w, zero, spec.stride,
+        b).contiguous()}
+    if spec.modes == ("edge", "zero", "zero"):
+        paths["time_fast"] = lambda x, w, b: conv._conv3d_edge_time_fast(
+            x, w, spec, bias=b).contiguous()
+    paths["edge_fast"] = lambda x, w, b: conv._conv3d_edge_fast(
+        x, w, spec, bias=b).contiguous()
+    return paths
 
 
 def k4_max_raises(q, k, scale, block=512):
@@ -427,16 +519,23 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def turns(fns):
+    """{name: median ms} of ``fns`` timed in turns, forward then back
+    (a, b, c, c, b, a)."""
+    names = list(fns) + list(fns)[::-1]
+    times = {n: [] for n in fns}
+    for n in names:
+        times[n].append(time_ms(fns[n]))
+    return {n: statistics.median(t) for n, t in times.items()}
+
+
 def in_turns(plain, kernel, library=None):
     """plain, kernel, kernel, plain[, library, library] -> (kernel ms,
     plain ms, library ms or None)."""
-    p1 = time_ms(plain)
-    k1 = time_ms(kernel)
-    k2 = time_ms(kernel)
-    p2 = time_ms(plain)
+    ms = turns({"plain": plain, "kernel": kernel})
     lib = (statistics.median([time_ms(library), time_ms(library)])
            if library else None)
-    return statistics.median([k1, k2]), statistics.median([p1, p2]), lib
+    return ms["kernel"], ms["plain"], lib
 
 
 def work(key, shape, dtype, n=2, silu=True, cout=128):
@@ -604,7 +703,8 @@ def _check_kernels(dev):
         torch.cuda.empty_cache()
 
     # K4 at K4_CASES; the timed ones also against SDPA
-    for shape, dtype, timed, rising in K4_CASES:
+    dtype = torch.bfloat16
+    for shape, timed, rising in K4_CASES:
         q, k, v = k4_inputs(shape, dev, dtype, rising)
         scale = shape[-1] ** -0.5
         got = attention.flash_attention(q, k, v, scale)
@@ -613,15 +713,14 @@ def _check_kernels(dev):
         if got.shape != q.shape or got.dtype != dtype:
             raise SystemExit(f"K4 output {tuple(got.shape)} {got.dtype}")
         err, excess, tol_text = k4_check(got, ref)
-        if dtype == torch.bfloat16:
-            # the rising inputs must make the kernel rescale its output
-            raises = k4_max_raises(q, k, scale)
-            tol_text += f"; max raised {raises!r} times a row after tile 0"
-            if rising and raises < 1.0:
-                excess = math.inf
+        # the rising inputs must make the kernel rescale its output
+        raises = k4_max_raises(q, k, scale)
+        tol_text += f"; max raised {raises!r} times a row after tile 0"
+        if rising and raises < 1.0:
+            excess = math.inf
         del got, ref
         timing = None
-        if timed:  # SDPA as (B, 1 head, S, C); fp32 with TF32 off
+        if timed:  # SDPA as (B, 1 head, S, C)
             lib = functools.partial(
                 torch.nn.functional.scaled_dot_product_attention,
                 q[:, None], k[:, None], v[:, None], scale=scale)
@@ -635,6 +734,88 @@ def _check_kernels(dev):
         del q, k, v
         torch.cuda.empty_cache()
     return summary
+
+
+def _attention_fp32(dev, smi):
+    """fp32 attention at the mid-block shapes: the exact path
+    (``single_head_attention`` routes it there, launching K4 no time)
+    timed in turns beside SDPA fp32 (TF32 off), as a record; bound: the
+    FLOP over the fp32 FMA peak."""
+    import torch.nn.functional as F
+
+    from cvvae_tpu_torch.ops.attention import single_head_attention
+
+    k4 = kernel_modules()["K4"]
+    for shape in ATTN_FP32_SHAPES:
+        q, k, v = k4_inputs(shape, dev, torch.float32)
+        scale = shape[-1] ** -0.5
+        before = k4.launches
+        got = single_head_attention(q, k, v, scale=scale)
+        sdpa = functools.partial(F.scaled_dot_product_attention, q[:, None],
+                                 k[:, None], v[:, None], scale=scale)
+        ref = sdpa()[:, 0]
+        torch.cuda.synchronize()
+        if k4.launches != before:
+            raise SystemExit(f"fp32 attention {shape} launched K4")
+        err = compare(got, ref)[0]
+        if got.shape != q.shape or not math.isfinite(err):
+            raise SystemExit(f"fp32 attention {shape}: output "
+                             f"{tuple(got.shape)}, max|d| {err}")
+        del got, ref
+        ms = turns({"exact": lambda: single_head_attention(q, k, v,
+                                                           scale=scale),
+                    "sdpa": sdpa})
+        b_ms, by = bound("K4", shape, torch.float32)
+        say(f"[attention] fp32 {shape}: exact path ms={ms['exact']!r} "
+            f"SDPA fp32 ms={ms['sdpa']!r} (TF32 off) bound_ms={b_ms!r} "
+            f"({by}); max|exact - SDPA|={err!r}; K4 launches 0; card {smi}")
+        del q, k, v, sdpa
+        torch.cuda.empty_cache()
+
+
+def _check_edge_convs(dev, smi):
+    """The edge-pad decompositions against the materialised pad at
+    EDGE_CASES (``edge_inputs``): fp32 (TF32 off) and bf16, held by
+    ``edge_check``; each path timed in bf16, in turns."""
+    from cvvae_tpu_torch.ops import conv
+
+    for name, shape, ctor, cout in EDGE_CASES:
+        spec = getattr(conv.Conv3DSpec, ctor)()
+        paths = edge_paths(spec)
+        for dtype in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            x, w, b = edge_inputs(shape, cout, dev, dtype)
+            ref = paths["materialised"](x, w, b)
+            mag = (paths["materialised"](x.abs(), w.abs(), b.abs())
+                   if dtype == torch.bfloat16 else None)
+            for path, fn in paths.items():
+                if path == "materialised":
+                    continue
+                got = fn(x, w, b)
+                torch.cuda.synchronize()
+                err, excess, text = edge_check(got, ref, mag)
+                ok = excess <= 0.0
+                say(f"[edge] {name} {shape}->{cout} {dtype} {path} against "
+                    f"the materialised pad: max_abs_err={err!r} excess="
+                    f"{excess!r} {text} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"edge conv {name} {path} {dtype}: "
+                                     f"disagrees with the materialised pad")
+                del got
+            del ref, mag
+            torch.cuda.empty_cache()
+            say(f"[edge] {name} {dtype} checked in "
+                f"{time.perf_counter() - t0:.1f}s")
+            if dtype == torch.bfloat16:
+                ms = turns({p: functools.partial(fn, x, w, b)
+                            for p, fn in paths.items()})
+                # a 3x3x3 conv to cout channels at the same extent, as K3's
+                b_ms, by = bound("K3", shape, dtype, cout=cout)
+                say(f"[edge] {name} {shape}->{cout} bf16 ms, in turns: "
+                    + " ".join(f"{p}={t!r}" for p, t in ms.items())
+                    + f"; bound_ms={b_ms!r} ({by}); card {smi}")
+            del x, w, b
+            torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -663,8 +844,9 @@ def _check_slice(dev, family):
             f"{time.perf_counter() - t0:.2f}s; K4 launches {k4.launches}")
         outs[str(d)] = (z.cpu(), rec.cpu())
         del vae
-    if family == "sd3" and k4.launches <= 0:
-        raise SystemExit("slice sd3: K4 was not launched on the card")
+    if k4.launches != 0:  # fp32 attention takes the exact path
+        raise SystemExit(f"slice {family}: fp32 attention launched K4 "
+                         f"{k4.launches} times on the card")
     (zc, rc), (zg, rg) = outs["cpu"], outs[str(dev)]
     b, t, h, w, _ = clip
     for name, ref, got, shape in (
@@ -772,8 +954,9 @@ def _serve(dev, smi, variant):
                          f"differ")
     say(f"[serve] {variant}: stats {stats_b.decode()}")
     say(f"[serve] {variant}: request wall s (after warm-up): "
-        f"reconstruct={t_rec!r} encode={t_enc!r} decode={t_dec!r}; peak "
-        f"device memory {peak / 2**30:.2f} GiB; card {smi}")
+        f"reconstruct={t_rec!r} "
+        f"encode={t_enc!r} decode={t_dec!r}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; card {smi}")
     say(f"[serve] {variant}: kernel launches in the served requests: "
         f"{launches}; in the /reconstruct alone: {per_rec}")
     missing = [k for k in needed if launches[k] <= 0]
@@ -815,8 +998,11 @@ def main() -> int:
             if "Used" in line or "Compiling entry" in line:
                 say(f"[build] {line.strip()}")
 
-    # phase 3: kernels against their plain versions
+    # phase 3: kernels against their plain versions, fp32 attention's exact
+    # path, the edge-pad convs
     summary = _check_kernels(dev)
+    _attention_fp32(dev, smi)
+    _check_edge_convs(dev, smi)
     # phase 4: the slice, card against CPU
     for family in SLICE_CLIPS:
         _check_slice(dev, family)

@@ -45,8 +45,8 @@
 //     logit -inf; query rows >= S are computed on zeros and not stored.
 //   Shared memory at D = 512: Q 64 KB + K 2 x 32 KB + V 2 x 32 KB + the
 //   logit exchange 32 KB (two tiles in flight) = 224 KB.
-// fp32: 32-query tiles of 8 warps with fp32 FMAs (wgmma has no fp32, and
-// TF32 would not hold the fp32 slice check); one cp.async K/V buffer.
+// bf16 only, as the reference's flash is: fp32 attention takes the
+// exact path (cvvae_tpu_torch/ops/attention.py).
 #include "common.cuh"
 
 #include <cuda.h>
@@ -54,252 +54,7 @@
 
 namespace {
 
-// ------------------------------------------------------- fp32: FMA tiles --
-
-constexpr int kBQ = 32;  // query rows per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <typename T>
-struct TileCfg;
-template <>
-struct TileCfg<float> {
-  static constexpr int kBK = 32;
-  static constexpr int kPad = 4;
-};
-
-// Shared memory layout (bytes); every region starts 16-byte aligned.
-template <typename T, int D>
-struct Smem {
-  static constexpr int BK = TileCfg<T>::kBK;
-  static constexpr int LDQ = D + TileCfg<T>::kPad;   // Q and K/V rows
-  static constexpr int LDS = BK + 8;                 // fp32 logits rows
-  static constexpr int LDP = BK + TileCfg<T>::kPad;  // P rows
-  static constexpr size_t q_off = 0;
-  static constexpr size_t kv_off = q_off + sizeof(T) * kBQ * LDQ;
-  static constexpr size_t s_off = kv_off + sizeof(T) * BK * LDQ;
-  static constexpr size_t p_off = s_off + sizeof(float) * kBQ * LDS;
-  static constexpr size_t stat_off = p_off + sizeof(T) * kBQ * LDP;
-  static constexpr size_t bytes = stat_off + sizeof(float) * 3 * kBQ;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: no read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [row0, row0 + ROWS) of a (S, D) matrix into shared rows of stride
-// ld; rows >= S become zeros
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* s, int ld, const T* g, int row0,
-                                          int S) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
-    const bool valid = row0 + r < S;
-    const T* src = valid ? g + (int64_t)(row0 + r) * D + c : g;
-    cp_async16(s + r * ld + c, src, valid);
-  }
-}
-
-// Online softmax over one logits tile (already scaled to log2 units):
-// 8 threads a row.  Writes P = exp2(s - m_new) (unnormalised) and the
-// row's correction alpha = exp2(m_old - m_new); updates m and l.
-template <typename T, int BK>
-__device__ __forceinline__ void online_softmax(const float* sS, int lds,
-                                               T* sP, int ldp, float* sM,
-                                               float* sL, float* sAlpha) {
-  constexpr int kPer = BK / 8;
-  const int r = threadIdx.x >> 3, j = threadIdx.x & 7;
-  float v[kPer];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    v[i] = sS[r * lds + j + 8 * i];
-    mx = fmaxf(mx, v[i]);
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  const float m_old = sM[r];
-  const float m_new = fmaxf(m_old, mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const float p = exp2f(v[i] - m_new);
-    sum += p;
-    sP[r * ldp + j + 8 * i] = from_f32<T>(p);
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  __syncwarp();
-  if (j == 0) {
-    const float alpha = exp2f(m_old - m_new);
-    sAlpha[r] = alpha;
-    sM[r] = m_new;
-    sL[r] = sL[r] * alpha + sum;
-  }
-}
-
-// Thread t owns query row t/8.  Logits: keys t%8 + 8i.  Output: columns
-// 4*(t%8) + 32*j .. +3.
-template <int D>
-struct AccF32 {
-  using T = float;
-  using L = Smem<T, D>;
-  static constexpr int kNJ = D / 32;
-  float4 o[kNJ];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) o[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  static __device__ __forceinline__ void logits(const T* sQ, const T* sK,
-                                                float* sS, int k0, int S,
-                                                float scale_log2) {
-    constexpr int kPer = L::BK / 8;
-    const int r = threadIdx.x >> 3, j = threadIdx.x & 7;
-    float acc[kPer] = {};
-    const float* qr = sQ + r * L::LDQ;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + d);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(sK + (j + 8 * i) * L::LDQ + d);
-        acc[i] = fmaf(qv.x, kv.x, acc[i]);
-        acc[i] = fmaf(qv.y, kv.y, acc[i]);
-        acc[i] = fmaf(qv.z, kv.z, acc[i]);
-        acc[i] = fmaf(qv.w, kv.w, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int kc = j + 8 * i;
-      sS[r * L::LDS + kc] = k0 + kc < S ? acc[i] * scale_log2 : -INFINITY;
-    }
-  }
-
-  __device__ __forceinline__ void update(const T* sP, const T* sV,
-                                         const float* sAlpha) {
-    const int r = threadIdx.x >> 3, c = 4 * (threadIdx.x & 7);
-    const float alpha = sAlpha[r];
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      o[j].x *= alpha;
-      o[j].y *= alpha;
-      o[j].z *= alpha;
-      o[j].w *= alpha;
-    }
-#pragma unroll 4
-    for (int k = 0; k < L::BK; ++k) {
-      const float p = sP[r * L::LDP + k];
-      const float* vr = sV + k * L::LDQ + c;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + 32 * j);
-        o[j].x = fmaf(p, vv.x, o[j].x);
-        o[j].y = fmaf(p, vv.y, o[j].y);
-        o[j].z = fmaf(p, vv.z, o[j].z);
-        o[j].w = fmaf(p, vv.w, o[j].w);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(T* out, const float* sL, int q0,
-                                        int S) const {
-    const int r = threadIdx.x >> 3, c = 4 * (threadIdx.x & 7);
-    if (q0 + r >= S) return;
-    const float l = sL[r];
-    float* orow = out + (int64_t)(q0 + r) * D + c;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-      *reinterpret_cast<float4*>(orow + 32 * j) =
-          make_float4(o[j].x / l, o[j].y / l, o[j].z / l, o[j].w / l);
-  }
-};
-
-// ---------------------------------------------------------------- kernel --
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int S,
-              float scale_log2) {
-  using L = Smem<T, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
-  T* sKV = reinterpret_cast<T*>(smem + L::kv_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  T* sP = reinterpret_cast<T*>(smem + L::p_off);
-  float* sM = reinterpret_cast<float*>(smem + L::stat_off);
-  float* sL = sM + kBQ;
-  float* sAlpha = sL + kBQ;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int64_t base = (int64_t)blockIdx.y * S * D;
-  q += base;
-  k += base;
-  v += base;
-  out += base;
-
-  load_tile<T, D, kBQ>(sQ, L::LDQ, q, q0, S);
-  cp_async_commit();
-  if (threadIdx.x < kBQ) {
-    sM[threadIdx.x] = -INFINITY;
-    sL[threadIdx.x] = 0.f;
-  }
-  AccF32<D> acc;
-  acc.zero();
-
-  const int n_tiles = (S + L::BK - 1) / L::BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * L::BK;
-    __syncthreads();  // the previous tile's P·V is done with sKV and sP
-    load_tile<T, D, L::BK>(sKV, L::LDQ, k, k0, S);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    AccF32<D>::logits(sQ, sKV, sS, k0, S, scale_log2);
-    __syncthreads();  // K is read: refill the buffer with V
-    load_tile<T, D, L::BK>(sKV, L::LDQ, v, k0, S);
-    cp_async_commit();
-    online_softmax<T, L::BK>(sS, L::LDS, sP, L::LDP, sM, sL, sAlpha);
-    cp_async_wait_all();
-    __syncthreads();
-    acc.update(sP, sKV, sAlpha);
-  }
-  acc.store(out, sL, q0, S);
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, float scale_log2, cudaStream_t stream) {
-  using L = Smem<T, D>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kBQ - 1) / kBQ, B);
-  flash_fwd<T, D><<<grid, kThreads, L::bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, scale_log2);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------ bf16: wgmma and TMA --
 
@@ -1013,23 +768,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace wg
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int S, int D, float scale_log2, cudaStream_t s) {
-  constexpr bool bf16 = sizeof(T) == 2;
   switch (D) {
     case 64:
-      return bf16 ? wg::launch<64>(q, k, v, out, B, S, scale_log2, s)
-                  : launch<float, 64>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<64>(q, k, v, out, B, S, scale_log2, s);
     case 128:
-      return bf16 ? wg::launch<128>(q, k, v, out, B, S, scale_log2, s)
-                  : launch<float, 128>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<128>(q, k, v, out, B, S, scale_log2, s);
     case 256:
-      return bf16 ? wg::launch<256>(q, k, v, out, B, S, scale_log2, s)
-                  : launch<float, 256>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<256>(q, k, v, out, B, S, scale_log2, s);
     case 512:
-      return bf16 ? wg::launch<512>(q, k, v, out, B, S, scale_log2, s)
-                  : launch<float, 512>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<512>(q, k, v, out, B, S, scale_log2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1037,7 +786,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// q, k, v, out: (B, S, D) contiguous, 16-byte aligned, dtype f32 or bf16.
+// q, k, v, out: (B, S, D) contiguous, 16-byte aligned, dtype bf16.
 CVVAE_EXPORT int cvvae_flash_attention(const void* q, const void* k,
                                        const void* v, void* out, int B, int S,
                                        int D, float scale, int dtype,
@@ -1046,9 +795,6 @@ CVVAE_EXPORT int cvvae_flash_attention(const void* q, const void* k,
   cudaSetDevice(device);
   cudaStream_t s = (cudaStream_t)stream;
   const float scale_log2 = scale * kLog2e;
-  if (dtype == CVVAE_BF16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, S, D, scale_log2, s);
-  if (dtype == CVVAE_F32)
-    return dispatch<float>(q, k, v, out, B, S, D, scale_log2, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != CVVAE_BF16) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, out, B, S, D, scale_log2, s);
 }

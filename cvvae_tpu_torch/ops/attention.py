@@ -3,14 +3,14 @@
 Port of ``cvvae_tpu/ops/attention.py``.  Spatial attention runs over the
 tokens of one frame, temporal attention over the frames of one pixel.
 
-A CUDA tensor with S >= 1024 tokens (the spatial mid-block attention at
-C = 512: 5 frames of 14400 tokens in the untiled 720p v1 encoder, 7560
-in a 720x672 tile) runs the hand-written flash kernel K4
-(``ops/kernels/attention.py``), S being the JAX package's flash
-threshold.  Everything else — the CPU, the temporal pass (S = T' <= 5),
-short sequences — takes the exact path: fp32 logits and softmax, the
-value product accumulated in fp32 and rounded once, blocked over
-512-query chunks so the (S, S) logits never exist at once.
+The reference's dispatch (``_flash_usable``): a bf16 CUDA tensor with S
+>= 1024 tokens (the spatial mid-block attention at C = 512: 5 frames of
+14400 tokens in the untiled 720p v1 encoder, 7560 in a 720x672 tile)
+runs the hand-written flash kernel K4 (``ops/kernels/attention.py``).
+Everything else -- fp32 on the card too, the CPU, the temporal pass (S =
+T' <= 5), short sequences -- takes the exact path, the counterpart of the
+reference's ``_attention_block`` / ``_me_attention``
+(``ops/exact_attention.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cvvae_tpu_torch.ops.conv import uniform_
-from cvvae_tpu_torch.ops.kernels.attention import (flash_attention,
-                                                   flash_attention_plain)
+from cvvae_tpu_torch.ops.exact_attention import exact_attention
+from cvvae_tpu_torch.ops.kernels.attention import flash_attention
 
 
 class Dense(nn.Module):
@@ -46,8 +46,16 @@ def dense(x: torch.Tensor, params) -> torch.Tensor:
     return F.linear(x, params.weight.to(x.dtype), b)
 
 
-#: sequences at least this long go to K4 on the card
+#: bf16 sequences at least this long go to K4 on the card
 FLASH_MIN_TOKENS = 1024
+
+
+def flash_usable(device_type: str, dtype: torch.dtype, s: int) -> bool:
+    """Whether (B, S, C) attention on ``device_type`` in ``dtype`` runs K4:
+    the reference's ``_flash_usable``, a bf16 tensor on the card with S >=
+    FLASH_MIN_TOKENS."""
+    return (device_type == "cuda" and dtype == torch.bfloat16
+            and s >= FLASH_MIN_TOKENS)
 
 
 def single_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,9 +64,9 @@ def single_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-head scaled dot-product attention on (B, S, C) tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda" and q.shape[1] >= FLASH_MIN_TOKENS:
+    if flash_usable(q.device.type, q.dtype, q.shape[1]):
         return flash_attention(q, k, v, scale)
-    return flash_attention_plain(q, k, v, scale, query_chunk_size)
+    return exact_attention(q, k, v, scale, query_chunk_size)
 
 
 def spatial_self_attention(x: torch.Tensor, wq, wk, wv, *,

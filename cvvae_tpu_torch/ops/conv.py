@@ -3,13 +3,40 @@
 Port of ``cvvae_tpu/ops/conv.py``.  Public tensors are channels-last
 (B, T, H, W, C); weights are torch's (O, I, kT, kH, kW).  A conv sees the
 same bytes as a logical NCDHW tensor in ``torch.channels_last_3d``
-memory, so the permutes around ``F.conv3d`` are free.
-
-Edge ("replicate") padding is materialised with ``F.pad``; zero padding
-goes to ``F.conv3d`` when it is symmetric and to ``F.pad`` (which also
-takes negative pads, as crops) when it is not.  On a CUDA tensor a
+memory, so the permutes around ``F.conv3d`` are free.  On a CUDA tensor a
 3×3×3 stride-1 conv from 3 channels (the encoder's ``conv_in``) runs the
 hand-written kernel K3 (``ops/kernels/stem.py``).
+
+Edge ("replicate") pads are never materialised on the input.  A causal
+conv (edge time, zero space, T > 1) runs a zero time window plus
+per-frame boundary fixes (``_conv3d_edge_time_fast``), as the reference
+dispatches it; every other edge pad runs zero windows plus thin-slab
+fixes on all its edge axes (``_conv3d_edge_fast``).  Zero pads go to
+cuDNN's window (``_window_conv``).  ``_edge_pad``, the materialised pad,
+pads only the thin slabs, and is the reference ``chip_smoke.py`` holds
+the decompositions against.
+
+The reference gates the all-axes decomposition behind ``CVVAE_EDGE_FAST``
+(off) because on a TPU v5e XLA overlapped the pad copy with neighbouring
+work and the decomposition lost in-chain.  Eager PyTorch on the H100
+overlaps nothing: a materialised pad is a replicate-pad kernel that
+returns NCDHW and a layout copy of the whole tensor back, one after the
+other.  On an H100 (700 W) one served 17x720x1280 bf16 SD3
+``/reconstruct`` took 1.61 s of device time with the pads materialised
+and 0.92 s with the decomposition (PERF.md §5), so the port has no
+switch.  The reference's other two lowerings, ``_conv3d_stacked_stem``
+(Cin <= 8) and ``_conv3d_small_cout`` (Cout <= 8 heads), work around
+the TPU MXU's 128 lanes and are not ported: those convs take cuDNN
+through the dispatch above.
+
+The decompositions add their fixes in place into the output's boundary
+slices.  In fp32 they equal the materialised pad up to the order of the
+sums.  In bf16 the main conv, each fix's summed taps, the fix and each
+add are rounded, where the materialised pad rounds once, so they are not
+bit-equal: each rounding moves a value by at most 2^-8 (half a bf16 ulp)
+of what it rounds.  Away from the boundary slices a value is rounded
+once in both, so the two differ by at most one ulp
+(``chip_smoke.edge_check`` holds this on the card).
 """
 
 from __future__ import annotations
@@ -113,24 +140,26 @@ class Conv(nn.Module):
 def conv3d(x: torch.Tensor, params, spec: Conv3DSpec) -> torch.Tensor:
     """Run the conv described by ``spec`` on ``x`` (B,T,H,W,C); ``params``
     has ``weight`` (O,I,kT,kH,kW) and ``bias`` (O,) or None.  Returns a
-    contiguous (B,T',H',W',O) tensor."""
+    contiguous (B,T',H',W',O) tensor.
+
+    K3 first, as in ``cvvae_tpu/ops/conv.py::conv3d``; then the causal
+    convs (edge time, zero space, T > 1) to the time-axis decomposition,
+    every other edge pad to the all-axes one, and zero pads to the
+    window."""
     weight, bias = params.weight, params.bias
     if stem.stem_usable(weight, spec):
         return stem.stem_conv3d(x, weight, bias, spec)
-    xn = x.permute(0, 4, 1, 2, 3)
-    edge = [p if m == "edge" else (0, 0) for p, m in zip(spec.pads, spec.modes)]
-    zero = [p if m == "zero" else (0, 0) for p, m in zip(spec.pads, spec.modes)]
-    if any(p != (0, 0) for p in edge):
-        xn = F.pad(xn, _torch_pad(edge), mode="replicate")
-    if all(lo == hi and lo >= 0 for lo, hi in zero):
-        padding = tuple(lo for lo, _ in zero)
-    else:
-        xn = F.pad(xn, _torch_pad(zero))
-        padding = 0
-    xn = xn.contiguous(memory_format=torch.channels_last_3d)
-    b = None if bias is None else bias.to(x.dtype)
-    y = F.conv3d(xn, weight.to(x.dtype), b, stride=spec.stride, padding=padding)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    weight = weight.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    edge = [m == "edge" and (p[0] or p[1])
+            for m, p in zip(spec.modes, spec.pads)]
+    if edge[0] and spec.modes[1] == spec.modes[2] == "zero" and x.shape[1] > 1:
+        y = _conv3d_edge_time_fast(x, weight, spec, bias=bias)
+    elif any(edge):
+        y = _conv3d_edge_fast(x, weight, spec, bias=bias)
+    else:  # an edge-mode axis here pads (0, 0)
+        y = _window_conv(x, weight, spec.pads, spec.stride, bias)
+    return y.contiguous()
 
 
 def _torch_pad(pads) -> Tuple[int, ...]:
@@ -138,3 +167,140 @@ def _torch_pad(pads) -> Tuple[int, ...]:
     first)."""
     (t0, t1), (h0, h1), (w0, w1) = pads
     return (w0, w1, h0, h1, t0, t1)
+
+
+def _edge_pad(x: torch.Tensor, pads, modes) -> torch.Tensor:
+    """Materialise the edge-mode pads of (B,T,H,W,C) ``x``: a replicate
+    ``F.pad``, which returns NCDHW, then a copy back to (B,T,H,W,C)."""
+    edge = [p if m == "edge" else (0, 0) for p, m in zip(pads, modes)]
+    if not any(lo or hi for lo, hi in edge):
+        return x
+    xn = F.pad(x.permute(0, 4, 1, 2, 3), _torch_pad(edge), mode="replicate")
+    return xn.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _window_conv(x: torch.Tensor, weight: torch.Tensor, pads, strides,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conv of (B,T,H,W,C) ``x`` with zero window pads ``pads`` (per axis
+    (lo, hi), the two ends may differ) -> a (B,T',H',W',O) view.
+
+    cuDNN pads both ends of an axis alike.  Where lo >= hi the conv pads
+    lo at both ends and the trailing outputs past the true extent are
+    dropped: the windows start where the asymmetric pad starts them, at
+    any stride, and nothing is copied (the view of a causal conv's first
+    T' frames is already contiguous for B = 1).  Where hi > lo (the v1
+    downsample's (0, 1) at stride 2, which no symmetric pad and slice
+    reproduces) the missing hi - lo zeros are materialised with ``F.pad``
+    on the (B,T,H,W,C) tensor, one copy of it."""
+    keep = [(n + lo + hi - k) // s + 1 for n, (lo, hi), k, s in
+            zip(x.shape[1:4], pads, weight.shape[2:], strides)]
+    extra = [(0, max(hi - lo, 0)) for lo, hi in pads]
+    if any(hi for _, hi in extra):
+        x = F.pad(x, (0, 0) + _torch_pad(extra))
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias, stride=tuple(strides),
+                 padding=tuple(lo for lo, _ in pads))
+    return y[:, :, :keep[0], :keep[1], :keep[2]].permute(0, 2, 3, 4, 1)
+
+
+def _axis(t: torch.Tensor, axis: int, sl: slice) -> torch.Tensor:
+    """The view of (B,T,H,W,C) ``t`` at ``sl`` along T (0), H (1) or W
+    (2)."""
+    idx = [slice(None)] * 5
+    idx[1 + axis] = sl
+    return t[tuple(idx)]
+
+
+def _missing_taps(lo: int, k: int, stride: int, size: int, out_size: int):
+    """(output index, first tap, last tap + 1, side) of each output of an
+    axis whose window reaches past the input: on the lo side its first
+    taps read the first slice's replicas, on the hi side its last taps the
+    last slice's."""
+    o = 0
+    while o * stride < lo and o < out_size:
+        yield o, 0, lo - o * stride, "lo"
+        o += 1
+    o = out_size - 1
+    while o >= 0 and o * stride - lo + k - 1 > size - 1:
+        yield o, k - (o * stride - lo + k - size), k, "hi"
+        o -= 1
+
+
+def _conv3d_edge_time_fast(x: torch.Tensor, weight: torch.Tensor,
+                           spec: Conv3DSpec,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Edge ("replicate") time padding without copying the whole tensor.
+
+    Port of ``cvvae_tpu/ops/conv.py::_conv3d_edge_time_fast``.  A
+    replicate-padded T then a conv equals the conv with a zero time window
+    plus a boundary fix: for the few output frames whose window reaches
+    past the clip, the missing taps all read the first (or last) frame, so
+    the fix is a per-frame 2D conv of ``x[:, :1]`` (``x[:, -1:]``) with
+    those taps summed.  The fixes are added in place into their frames of
+    the output.  Space stays zero-padded in the conv's window.  Returns a
+    (B,T',H',W',O) view; ``bias`` goes into the main conv only."""
+    y = _window_conv(x, weight, spec.pads, spec.stride, bias)
+    space = ((0, 0),) + tuple(spec.pads[1:])
+    frame_stride = (1,) + tuple(spec.stride[1:])
+    for o, a, b, side in _missing_taps(spec.pads[0][0], spec.kernel[0],
+                                       spec.stride[0], x.shape[1], y.shape[1]):
+        frame = x[:, :1] if side == "lo" else x[:, -1:]
+        taps = weight[:, :, a:b].sum(2, keepdim=True)
+        y[:, o:o + 1].add_(_window_conv(frame, taps, space, frame_stride))
+    return y
+
+
+def _conv3d_edge_fast(x: torch.Tensor, weight: torch.Tensor,
+                      spec: Conv3DSpec, raw_conv=None,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Edge ("replicate") padding on any axes without copying the tensor.
+
+    Port of ``cvvae_tpu/ops/conv.py::_conv3d_edge_fast``: the conv with
+    zero windows on every axis, then per edge axis a boundary fix, a conv
+    of the 1-wide slab ``x[.., :1, ..]`` (or ``x[.., -1:, ..]``) with the
+    missing kernel taps summed along that axis, added in place into the
+    output's boundary slice.  The edge axes are fixed in order T, H, W
+    (inclusion-exclusion): a slab conv pads later edge axes by repeating
+    the edge (materialised on the thin slab) and earlier edge axes and
+    zero-mode axes with zeros (their off-tensor terms are already
+    counted), so each tap term that reads off the tensor is counted once,
+    by its first out-of-range axis.
+
+    ``raw_conv(x, weight, window_pads, strides)`` is the conv every step
+    runs, (B,T,H,W,C) -> (B,T',H',W',O) with zero window pads, so another
+    arithmetic (int8) can reuse the decomposition; by default
+    ``_window_conv``, with ``bias`` in the main conv only (a ``raw_conv``
+    passed in adds its own).
+
+    The slabs along W are strided views in (B,T,H,W,C) memory, which
+    ``F.conv3d`` copies (1/W of the tensor).  Returns a (B,T',H',W',O)
+    view."""
+    if raw_conv is None:
+        def raw_conv(v, k, pads, strides):
+            return _window_conv(v, k, pads, strides,
+                                bias if k is weight else None)
+
+    y = raw_conv(x, weight, spec.pads, spec.stride)
+    edge_axes = [a for a in range(3) if spec.modes[a] == "edge"
+                 and (spec.pads[a][0] or spec.pads[a][1])]
+    for pos, axis in enumerate(edge_axes):
+        later = edge_axes[pos + 1:]
+        slab_edge = [spec.pads[a] if a in later else (0, 0) for a in range(3)]
+        slab_zero = [(0, 0) if a == axis or a in later else spec.pads[a]
+                     for a in range(3)]
+        strides = list(spec.stride)
+        strides[axis] = 1
+        size = x.shape[1 + axis]
+        slabs = {}
+        for o, a, b, side in _missing_taps(
+                spec.pads[axis][0], spec.kernel[axis], spec.stride[axis],
+                size, y.shape[1 + axis]):
+            if side not in slabs:
+                sl = slice(0, 1) if side == "lo" else slice(size - 1, size)
+                slabs[side] = _edge_pad(_axis(x, axis, sl), slab_edge,
+                                        ("edge",) * 3)
+            idx = [slice(None)] * 5
+            idx[2 + axis] = slice(a, b)
+            taps = weight[tuple(idx)].sum(2 + axis, keepdim=True)
+            _axis(y, axis, slice(o, o + 1)).add_(
+                raw_conv(slabs[side], taps, slab_zero, strides))
+    return y

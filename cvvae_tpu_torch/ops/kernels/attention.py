@@ -16,20 +16,21 @@ tile's logits are turned into probabilities.  Two threads issue TMA loads
 of 32-key K and V tiles into two-stage rings; blocks of neighbouring query
 tiles pair up in a cluster and multicast each tile to both.  The ragged
 tail is masked in the kernel (TMA zero-fills rows ≥ S; keys ≥ S get
-logit −inf).  fp32 keeps 32-query tiles of fp32 FMAs (no TF32).
+logit −inf).  The kernel is bf16 only, as the reference's flash is
+(``_flash_usable``): fp32 attention takes the exact path.
 
-The plain version is the port's exact attention: fp32 logits and
-softmax, weights cast to v's dtype, the value product accumulated in
-fp32 and rounded once, blocked over 512-query chunks so the (S, S)
-logits never exist at once.  In fp32 the two agree to about 1e-6; in
-bf16 the kernel rounds the unnormalised probabilities and the plain
-version the normalised weights, a few bf16 ulps apart.
+The plain version is the port's exact attention
+(``ops/exact_attention.py``): fp32 logits and softmax, weights
+cast to v's dtype, the value product accumulated in fp32 and rounded
+once.  The kernel rounds the unnormalised probabilities to bf16 and the
+plain version the normalised weights, a few bf16 ulps apart.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cvvae_tpu_torch.ops.exact_attention import exact_attention
 from cvvae_tpu_torch.ops.kernels import _build
 
 #: head widths the kernel is instantiated for
@@ -39,37 +40,27 @@ WIDTHS = (64, 128, 256, 512)
 launches = 0
 
 
-def _attention_block(q_blk: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Exact attention for one query block.  q_blk:(B,Sq,C) k,v:(B,S,C)."""
-    logits = torch.matmul(q_blk.float(), k.float().transpose(1, 2)) * scale
-    weights = torch.softmax(logits, dim=-1)
-    return torch.matmul(weights.to(v.dtype), v)
-
-
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float, q_chunk: int = 512) -> torch.Tensor:
-    """Exact single-head attention on (B, S, C): one block up to
-    ``q_chunk`` queries, else a full-row softmax per block of
-    ``q_chunk`` queries."""
-    if q.shape[1] <= q_chunk:
-        return _attention_block(q, k, v, scale)
-    k = k.float()  # once, not per block
-    return torch.cat([_attention_block(q[:, i:i + q_chunk], k, v, scale)
-                      for i in range(0, q.shape[1], q_chunk)], dim=1)
+                          scale: float) -> torch.Tensor:
+    """K4's plain version: the port's exact attention."""
+    return exact_attention(q, k, v, scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """softmax(q·kᵀ·scale)·v of contiguous (B, S, C) tensors.
+    """softmax(q·kᵀ·scale)·v of contiguous (B, S, C) bf16 tensors.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel or raises (fp32 too: it takes the exact path, not this one)."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require_cuda_layout(f"flash_attention {name}", t, 3)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
+                         f"(bfloat16; fp32 takes ops/attention.py's exact "
+                         f"path)")
     layouts = [(tuple(t.shape), t.dtype, t.device) for t in (q, k, v)]
     if layouts[1] != layouts[0] or layouts[2] != layouts[0]:
         raise ValueError(f"flash_attention: q, k, v differ: {layouts}")

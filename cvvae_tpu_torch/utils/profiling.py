@@ -8,13 +8,16 @@ Builds, presets and warms the server exactly as ``serve.main`` does
 (``serve.prepare``), runs one request unprofiled, then one inside the
 profiler, and prints the wall time, the summed kernel time (the device's
 busy share of the wall: one stream, so kernels do not overlap), the
-kernel time by group and the top kernels.  ``--out`` also writes the
+kernel time by group, the top kernels, and for the top kernels the ops
+that launched them with their input shapes (which convs run a cuDNN
+kernel).  ``--out`` also writes the
 profiler's full table there.  Refuses to run without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import re
 import subprocess
 import time
@@ -26,6 +29,8 @@ from torch.autograd import DeviceType
 #: the served clip (T, H, W) and the number of top kernels printed
 CLIP = (17, 720, 1280)
 TOP = 25
+#: (kernel, launching op, input shapes) rows printed, by device time
+TOP_SHAPES = 15
 
 #: kernel-name patterns -> the group PERF.md reports them under (first
 #: match wins)
@@ -69,8 +74,8 @@ def profile_reconstruct(variant: str, out=None) -> None:
     t0 = time.perf_counter()
     request()
     steady = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         request()
         wall = time.perf_counter() - t0
@@ -102,6 +107,17 @@ def profile_reconstruct(variant: str, out=None) -> None:
                     reverse=True)[:TOP]:
         print(f"[profile]   {e.self_device_time_total / 1e3:10.2f} ms "
               f"{e.count:5d}x {e.key[:110]}")
+    # each kernel is attached to the op that launched it
+    by_op = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        for k in e.kernels:
+            row = by_op[(k.name, e.name, str(e.input_shapes))]
+            row[0] += k.duration
+            row[1] += 1
+    for (kernel, op, shapes), (us, n) in sorted(
+            by_op.items(), key=lambda kv: -kv[1][0])[:TOP_SHAPES]:
+        print(f"[profile] shapes {us / 1e3:10.2f} ms {n:4d}x {kernel[:70]} "
+              f"<- {op} {shapes[:160]}")
     if out:
         with open(out, "w") as f:
             f.write(prof.key_averages().table(

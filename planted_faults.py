@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K4: do the bounds that
-``chip_smoke.py`` and the card tests hold the kernels to catch a broken
-kernel?
+"""Planted faults against the checks of K1-K4 and of the edge-pad convs:
+do the bounds that ``chip_smoke.py`` and the card tests hold them to
+catch a broken kernel or decomposition?
 
     python3 planted_faults.py
 
@@ -13,7 +13,7 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
 - K1, bf16 and fp32, at the shapes of ``chip_smoke.K1_CASES`` and
   ``chip_smoke.K1_CHECK_SHAPES`` on ``chip_smoke.k1_inputs``, held by
   ``chip_smoke.k1_check``;
-- K4, bf16, at the bf16 shapes of ``chip_smoke.K4_CASES`` on
+- K4 (bf16 only) at the shapes of ``chip_smoke.K4_CASES`` on
   ``chip_smoke.k4_inputs`` (N(0, 1) and rising logits), held by
   ``chip_smoke.k4_check``;
 - K3, bf16 and fp32, at ``chip_smoke.K3_SHAPE`` and
@@ -21,6 +21,12 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   by ``chip_smoke.k3_check``;
 - K2, bf16 and fp32, at ``chip_smoke.K2_CASES`` and
   ``chip_smoke.K2_CHECK_SHAPES``, held bit-exact (``chip_smoke.k2_exact``).
+
+The edge-pad decompositions of ``cvvae_tpu_torch/ops/conv.py`` are held
+the same way: the faults of EDGE_FAULTS are planted in copies of that
+file, each loaded as a module of its own, and its decompositions are run
+in bf16 at the 720p shapes of ``chip_smoke.EDGE_CASES`` against the
+committed materialised pad, held by ``chip_smoke.edge_check``.
 
 Prints one line per build, kernel and case, with the check's reading and
 whether it fails.  Exits non-zero if the kernel as it is fails a case or a
@@ -31,6 +37,7 @@ of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import importlib.util
 import os
 import shutil
 import sys
@@ -43,6 +50,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from cvvae_tpu_torch.ops import conv  # noqa: E402
 from cvvae_tpu_torch.ops.kernels import (  # noqa: E402
     _build, attention, groupnorm, shuffle, stem)
 
@@ -98,6 +106,24 @@ FAULTS = {
 }
 
 
+#: faults planted in a copy of ops/conv.py: fault -> [(its text, the
+#: replacement), ...]
+EDGE_FAULTS = {
+    "the first output's fix dropped on each edge axis": [
+        ("    o = 0\n    while o * stride < lo",
+         "    o = 1\n    while o * stride < lo")],
+    "the hi side's fix made from the lo side's slab": [
+        ('sl = slice(0, 1) if side == "lo" else slice(size - 1, size)',
+         "sl = slice(0, 1)")],
+    "a slab's later edge axes zero-padded (its corners counted by no axis)": [
+        ("slabs[side] = _edge_pad(_axis(x, axis, sl), slab_edge,\n"
+         '                                        ("edge",) * 3)',
+         "slabs[side] = _axis(x, axis, sl)"),
+        ("slab_zero = [(0, 0) if a == axis or a in later else spec.pads[a]",
+         "slab_zero = [(0, 0) if a == axis else spec.pads[a]")],
+}
+
+
 def _k1_cases():
     """(label, fails) of every K1 case on the library now loaded."""
     dev = torch.device("cuda", 0)
@@ -117,12 +143,10 @@ def _k1_cases():
 
 
 def _k4_cases():
-    """(label, fails) of every bf16 K4 case on the library now loaded."""
+    """(label, fails) of every K4 case on the library now loaded."""
     dev = torch.device("cuda", 0)
-    for shape, dtype, _, rising in chip_smoke.K4_CASES:
-        if dtype != torch.bfloat16:
-            continue  # the faults are planted in the bf16 kernel
-        q, k, v = chip_smoke.k4_inputs(shape, dev, dtype, rising)
+    for shape, _, rising in chip_smoke.K4_CASES:
+        q, k, v = chip_smoke.k4_inputs(shape, dev, torch.bfloat16, rising)
         scale = shape[-1] ** -0.5
         got = attention.flash_attention(q, k, v, scale)
         ref = attention.flash_attention_plain(q, k, v, scale)
@@ -178,8 +202,54 @@ def _k2_cases():
                    f"bias={with_bias} {dtype}: bit-exact={exact}", not exact)
 
 
-#: each kernel's cases
-CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases}
+def edge_cases(module=None, dev=None, cases=None,
+               dtypes=(torch.bfloat16,)):
+    """(label, fails) of every edge-conv case (by default
+    ``chip_smoke.EDGE_CASES`` in bf16 on the card): the decompositions of
+    ``module`` (by default the committed ops/conv.py) against the
+    committed materialised pad."""
+    dev = dev or torch.device("cuda", 0)
+    for name, shape, ctor, cout in cases or chip_smoke.EDGE_CASES:
+        spec = getattr(conv.Conv3DSpec, ctor)()
+        materialised = chip_smoke.edge_paths(spec)["materialised"]
+        paths = chip_smoke.edge_paths(spec, module)
+        del paths["materialised"]
+        for dtype in dtypes:
+            x, w, b = chip_smoke.edge_inputs(shape, cout, dev, dtype)
+            ref = materialised(x, w, b)
+            mag = (materialised(x.abs(), w.abs(), b.abs())
+                   if dtype == torch.bfloat16 else None)
+            for path, fn in paths.items():
+                err, excess, text = chip_smoke.edge_check(fn(x, w, b), ref,
+                                                          mag)
+                yield (f"edge {name} {shape}->{cout} {dtype} {path}: "
+                       f"max_abs_err={err!r} excess={excess!r} {text}",
+                       excess > 0.0)
+            del x, ref, mag
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+
+def planted_conv(tmp: Path, i: int, replacements):
+    """ops/conv.py copied into tmp with ``replacements`` made, loaded as a
+    module of its own."""
+    text = Path(conv.__file__).read_text()
+    for old, new in replacements:
+        if text.count(old) != 1:
+            raise SystemExit(f"{old!r} is not in conv.py once")
+        text = text.replace(old, new)
+    path = tmp / f"conv{i}.py"
+    path.write_text(text)
+    spec = importlib.util.spec_from_file_location(f"planted_conv{i}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclass looks itself up there
+    spec.loader.exec_module(module)
+    return module
+
+
+#: each kernel's cases, and the edge convs'
+CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
+         "edge": edge_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:
@@ -208,6 +278,18 @@ def main() -> int:
     print(f"[card] {chip_smoke.nvidia_smi_line()}")
     builds = {"as committed": None, **FAULTS}
     not_told_apart = []
+
+    def run(name, cases, planted):
+        caught = False
+        for label, fails in cases:
+            caught |= fails
+            print(f"[{name}] {label}: {'FAILS' if fails else 'passes'}",
+                  flush=True)
+            if fails and not planted:
+                not_told_apart.append(f"{name}: {label}")
+        if planted and not caught:
+            not_told_apart.append(name)
+
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
             libs = dict(zip(builds, pool.map(
@@ -216,21 +298,16 @@ def main() -> int:
         for name, fault in builds.items():
             _build.library(libs[name])
             kernels = tuple(CASES) if fault is None else (fault[0],)
-            caught = False
-            for kernel in kernels:
-                for label, fails in CASES[kernel]():
-                    caught |= fails
-                    print(f"[{name}] {label}: "
-                          f"{'FAILS' if fails else 'passes'}", flush=True)
-                    if fails and fault is None:
-                        not_told_apart.append(f"{name}: {label}")
-            if fault is not None and not caught:
-                not_told_apart.append(name)
+            run(name, (case for k in kernels for case in CASES[k]()),
+                fault is not None)
+        for i, (name, replacements) in enumerate(EDGE_FAULTS.items()):
+            run(name, edge_cases(planted_conv(Path(tmp), i, replacements)),
+                True)
     if not_told_apart:
         print(f"planted_faults: not told apart: {not_told_apart}")
         return 1
-    print("planted_faults: the kernels pass every case; every fault fails "
-          "one")
+    print("planted_faults: the kernels and the edge convs pass every case; "
+          "every fault fails one")
     return 0
 
 

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import chip_smoke
+import planted_faults
 from cvvae_tpu_torch.ops.kernels.groupnorm import group_norm_silu_plain
 
 CPU = torch.device("cpu")
@@ -102,8 +103,61 @@ def test_k2_exact_tells_minus_zero_apart(dtype):
     assert not chip_smoke.k2_exact(flipped, phases[0])
 
 
-def test_fp32_bound_uses_the_fp32_peak():
-    """fp32 K4 runs FMAs, not tensor cores: 67 TFLOP/s."""
-    ms, by = chip_smoke.bound("K4", (5, 7560, 512), torch.float32)
-    assert by == "operations"
-    assert ms == pytest.approx(4 * 5 * 7560 ** 2 * 512 / 67e12 * 1e3)
+@pytest.mark.parametrize("device,dtype,s,k4", [
+    ("cuda", torch.bfloat16, 1024, True),
+    ("cuda", torch.bfloat16, 14400, True),
+    ("cuda", torch.float32, 7560, False),
+    ("cpu", torch.bfloat16, 7560, False),
+    ("cuda", torch.bfloat16, 1023, False),
+])
+def test_flash_usable_routes_only_bf16_on_the_card(device, dtype, s, k4):
+    """K4 takes only what the reference's ``_flash_usable`` sends to flash:
+    bf16 on the card at S >= 1024.  fp32 on the card, the CPU and shorter
+    sequences take the exact path, so no fp32 attention is held to an
+    fp32 bound of K4."""
+    from cvvae_tpu_torch.ops.attention import flash_usable
+
+    assert flash_usable(device, dtype, s) is k4
+
+
+EDGE_SMALL = [("v1_causal", (1, 5, 6, 7, 16), "v1_causal", 16),
+              ("sd3_causal", (1, 5, 6, 7, 16), "sd3_causal", 16),
+              ("sd3_causal", (1, 1, 4, 5, 16), "sd3_causal", 16),
+              ("head", (1, 5, 6, 7, 32), "v1_causal", 3)]
+
+
+@pytest.mark.parametrize("case", EDGE_SMALL, ids=lambda c: f"{c[0]}{c[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_check_holds_the_decompositions(case, dtype):
+    """``edge_check`` passes each decomposition of ``edge_paths`` against
+    the materialised pad, and fails the conv with the time pad zeroed
+    instead of repeated."""
+    from cvvae_tpu_torch.ops import conv
+
+    name, shape, ctor, cout = case
+    spec = getattr(conv.Conv3DSpec, ctor)()
+    x, w, b = chip_smoke.edge_inputs(shape, cout, CPU, dtype)
+    paths = chip_smoke.edge_paths(spec)
+    assert ("time_fast" in paths) == (ctor == "v1_causal")
+    ref = paths["materialised"](x, w, b)
+    mag = paths["materialised"](x.abs(), w.abs(), b.abs())
+    for path, fn in paths.items():
+        assert chip_smoke.edge_check(fn(x, w, b), ref, mag)[1] <= 0.0, path
+    zero_time = conv.Conv3DSpec(spec.kernel, spec.stride, spec.pads,
+                                ("zero",) + spec.modes[1:])
+    wrong = chip_smoke.edge_paths(zero_time)["materialised"](x, w, b)
+    assert chip_smoke.edge_check(wrong, ref, mag)[1] > 0.0
+
+
+@pytest.mark.parametrize("fault", [None] + sorted(planted_faults.EDGE_FAULTS))
+def test_planted_edge_faults_fail_the_edge_check(tmp_path, fault):
+    """Each of ``planted_faults.EDGE_FAULTS`` loads, runs and fails
+    ``edge_check`` on an SD3 causal conv in fp32 and bf16; the committed
+    decompositions pass every case."""
+    module = (None if fault is None else planted_faults.planted_conv(
+        tmp_path, 0, planted_faults.EDGE_FAULTS[fault]))
+    cases = EDGE_SMALL[1:2] + [("sd3", (1, 5, 9, 11, 16), "sd3_causal", 16)]
+    fails = [f for _, f in planted_faults.edge_cases(
+        module, CPU, cases, (torch.float32, torch.bfloat16))]
+    assert len(fails) == 4
+    assert all(fails) if fault else not any(fails)

@@ -155,32 +155,28 @@ def test_stem_kernel_misaligned_input(dev):
     assert excess <= 0.0, text
 
 
-# fp32: fp32 FMAs in another order than cuBLAS (TF32 off): elementwise
-# 2e-5 * (1 + |ref|).  bf16: the bounds of chip_smoke.py (K4_BF16_MAX,
-# K4_BF16_RMS), where their reasons are: the two round their outputs to
-# bf16 apart, one ulp at most; a missing tail mask fails both at S = 1100.
+# K4 is bf16 only (fp32 attention takes the exact path), held by the
+# bounds of chip_smoke.py (K4_BF16_MAX, K4_BF16_RMS), where their reasons
+# are: the two round their outputs to bf16 apart, one ulp at most; a
+# missing tail mask fails both at S = 1100.
 K4_BF16_MAX = chip_smoke.K4_BF16_MAX
 K4_BF16_RMS = chip_smoke.K4_BF16_RMS
 
 
 # S: whole and ragged 64-row query tiles and 32-key tiles (65, 127, 1100,
 # 7560), and tails that are whole (64, 2048)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [64, 512])
 @pytest.mark.parametrize("s", [64, 65, 127, 1100, 2048, 7560])
 @pytest.mark.parametrize("b", [1, 5])
-def test_flash_attention_kernel(dev, dtype, c, s, b):
-    q, k, v = (_randn((b, s, c), i, dev, dtype) for i in range(3))
+def test_flash_attention_kernel(dev, c, s, b):
+    q, k, v = (_randn((b, s, c), i, dev, torch.bfloat16) for i in range(3))
     scale = c ** -0.5
     before = attention.launches
     got = attention.flash_attention(q, k, v, scale)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
     ref = attention.flash_attention_plain(q, k, v, scale)
-    assert got.dtype == dtype and got.shape == q.shape
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
-        return
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert torch.isfinite(got).all()
     d, r = got.double() - ref.double(), ref.double()
     assert d.abs().max() <= K4_BF16_MAX * r.abs().max()
@@ -188,9 +184,8 @@ def test_flash_attention_kernel(dev, dtype, c, s, b):
 
 
 # keys growing along S (chip_smoke.k4_inputs): each row's max rises past
-# the bf16 kernel's slack on later tiles, so its output and running sum
-# are rescaled; on N(0, 1) inputs that never happens (chip_smoke.K4_RAMP
-# says why fp32 is not checked so)
+# the kernel's slack on later tiles, so its output and running sum are
+# rescaled; on N(0, 1) inputs that never happens
 @pytest.mark.parametrize("c", [64, 512])
 @pytest.mark.parametrize("b,s", [(2, 127), (1, 1100), (5, 7560)])
 def test_flash_attention_kernel_rising_logits(dev, c, b, s):
@@ -228,14 +223,31 @@ def test_flash_attention_refuses_bad_layout(dev):
     qt = torch.zeros((1, 512, 1100), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         attention.flash_attention(qt, qt, qt, 0.1)
-    q96 = torch.zeros((1, 1100, 96), device=dev)
+    q96 = torch.zeros((1, 1100, 96), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C=96"):
         attention.flash_attention(q96, q96, q96, 0.1)
     with pytest.raises(ValueError, match="dtype"):
         attention.flash_attention(q.half(), q.half(), q.half(), 0.1)
     with pytest.raises(ValueError, match="differ"):
-        attention.flash_attention(q, q[:, :64], q, 0.1)
+        attention.flash_attention(q.bfloat16(), q[:, :64].bfloat16(),
+                                  q.bfloat16(), 0.1)
     assert attention.launches == before
+
+
+def test_flash_attention_refuses_fp32(dev):
+    """fp32 takes the exact path: K4 raises on it, with no fallback, and
+    ``single_head_attention`` does not send it there."""
+    from cvvae_tpu_torch.ops.attention import single_head_attention
+
+    q = _randn((1, 1100, 512), 0, dev, torch.float32)
+    before = attention.launches
+    with pytest.raises(ValueError, match="float32"):
+        attention.flash_attention(q, q, q, 0.1)
+    got = single_head_attention(q, q, q, scale=0.1)
+    torch.cuda.synchronize()
+    assert attention.launches == before
+    torch.testing.assert_close(
+        got, attention.flash_attention_plain(q, q, q, 0.1), atol=0, rtol=0)
 
 
 def test_wrappers_raise_on_bad_layout(dev):
