@@ -24,16 +24,23 @@ Phases (each prints its findings; any failure exits non-zero):
    SD3 tile and v1's two small-Cout heads, the reference's
    decompositions (``_conv3d_edge_time_fast``, ``_conv3d_edge_fast``)
    against the materialised pad, in fp32 and bf16 (``edge_check``), and
-   the three timed in turns.
+   the three timed in turns.  K5 (the int8 conv) bit-equal to its plain
+   version in bf16 and fp32 on small ragged cases (``K5_CHECK_CASES``)
+   and at the four int8 path shapes (``K5_PATH_SHAPES``, there on the
+   first 3 and last 2 output frames at full H and W), each timed in bf16
+   beside the bf16 conv it replaces (``bf16_conv_ms``, a yardstick).
 4. slice   -- full-width v1 and SD3 in fp32 (TF32 off): encode + decode
    on the card (kernels) against the CPU (plain versions); fp32 attention
-   takes the exact path, so K4 must launch no time here.
-5. serving -- for v1, then SD3: the server ``serve.main`` builds
-   (``serve.prepare``) for 17x720x1280 bf16 clips on an ephemeral port;
+   takes the exact path, so K4 must launch no time here.  Then each
+   family quantized and calibrated once on the CPU, its state carried to
+   the card, and the card's int8 frames held to the CPU's (PSNR).
+5. serving -- for v1 and SD3 in bf16, then in int8 (calibrated on the
+   reference's synthetic clip): the server ``serve.main`` builds
+   (``serve.prepare``) for 17x720x1280 clips on an ephemeral port;
    /healthz, /reconstruct, /encode, /decode, /stats; shapes, finiteness,
-   byte equality of /reconstruct and /decode(/encode), and a launch of
-   every kernel of that path (counts set to 0 just before, read just
-   after), and the latencies.
+   byte equality of /reconstruct and /decode(/encode), a launch of every
+   kernel of that path (counts set to 0 just before, read just after),
+   the latencies, and int8's /reconstruct against bf16's (PSNR).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served paths, and at each
@@ -116,12 +123,16 @@ K3_F32_SLACK = 1e-5
 #: the card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 #: and FLOP/s by the inputs' type (bf16 tensor cores, fp32 without TF32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 #: whole slice, card against CPU, fp32 (TF32 off): relative to max|ref|
 SLICE_TOL = 1e-3
 #: each family's slice clip (B, T, H, W, 3): SD3's 32x32 latent is 1024
 #: tokens, the K4 threshold, which fp32 must not cross into K4
 SLICE_CLIPS = {"v1": (1, 9, 64, 64, 3), "sd3": (1, 5, 256, 256, 3)}
+#: each family's int8 slice clip: level 0 reaches
+#: INT8_MIN_POSITIONS and runs K5 on the card, the plain version on the CPU
+INT8_SLICE_CLIPS = {"v1": (1, 9, 64, 64, 3), "sd3": (1, 5, 128, 128, 3)}
 #: the served clip (T, H, W)
 SERVE_CLIP = (17, 720, 1280)
 #: K1's shapes on the 720p paths (shape, silu, per_frame, timed in bf16):
@@ -228,9 +239,78 @@ K3_CHECK_SHAPES = [(pad, (2, t, h, w)) for pad in K3_PADS
                    for t, h, w in ((5, 19, 37), (1, 1, 130), (5, 1, 257),
                                    (1, 19, 130), (5, 19, 257))
                    if pad != "none" or min(t, h) >= 3]
-#: latent channels and the kernels each served path must launch
-PATHS = {"v1": (4, ("K1", "K2", "K3", "K4")),
-         "sd3": (16, ("K1", "K2", "K4"))}
+#: K5's small check cases, each bf16 and fp32, held bit-equal by phase 3,
+#: the card tests and planted_faults.py: (x (B, T, H, W, Cin), Cout,
+#: kernel, stride, pads, modes, bias).  W ragged against the 128-pixel
+#: block (37, 130, 257 at stride 2), Cout off the 128-channel block (16,
+#: 24, 136), Cin 32, 40, 48, 96 (40 and 48 end in a part-filled
+#: 32-channel slab, 40 on scalar loads), strides 2, every pad mode, the
+#: upsample phases' (kT, 2, 2) windows
+K5_CHECK_CASES = [
+    ((1, 5, 7, 37, 32), 16, (3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1)), ("edge", "zero", "zero"), True),
+    ((2, 4, 5, 9, 48), 24, (3, 3, 3), (1, 1, 1),
+     ((1, 1), (1, 1), (1, 1)), ("edge", "edge", "edge"), True),
+    ((1, 3, 6, 130, 96), 24, (3, 3, 3), (1, 1, 1),
+     ((1, 1), (1, 1), (1, 1)), ("zero", "zero", "zero"), False),
+    ((1, 3, 6, 9, 64), 136, (3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1)), ("edge", "edge", "edge"), True),
+    ((1, 5, 9, 11, 32), 16, (3, 3, 3), (2, 2, 2),
+     ((2, 0), (0, 1), (0, 1)), ("edge", "zero", "zero"), True),
+    ((1, 3, 10, 257, 48), 24, (3, 3, 3), (1, 2, 2),
+     ((2, 0), (0, 1), (0, 1)), ("edge", "zero", "zero"), True),
+    ((1, 4, 6, 9, 40), 16, (3, 3, 3), (2, 2, 2),
+     ((2, 0), (1, 1), (1, 1)), ("edge", "edge", "edge"), True),
+    ((1, 2, 5, 9, 96), 16, (1, 3, 3), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), ("zero", "zero", "zero"), True),
+    ((1, 3, 5, 7, 32), 24, (3, 2, 2), (1, 1, 1),
+     ((2, 0), (1, 0), (1, 0)), ("edge", "zero", "zero"), False),
+    ((1, 3, 5, 7, 48), 16, (3, 2, 2), (1, 1, 1),
+     ((1, 1), (0, 1), (0, 1)), ("edge", "edge", "edge"), True),
+    ((1, 3, 5, 7, 96), 24, (3, 2, 2), (1, 1, 1),
+     ((1, 1), (1, 0), (0, 1)), ("edge", "edge", "edge"), True),
+    ((1, 3, 5, 7, 64), 16, (3, 2, 2), (1, 1, 1),
+     ((1, 1), (0, 1), (1, 0)), ("edge", "zero", "zero"), True),
+]
+#: K5_CHECK_CASES also run with x on half steps of scale_x (k5_inputs)
+K5_HALF_STEP_CASES = (0, 1, 3)
+#: K5 at the int8 paths' shapes, bf16 (name, x, Cout, kernel, stride,
+#: pads, modes): the v1 encoder's level-0 causal conv, an SD3 720x672
+#: tile's, the v1 encoder's first downsample, and the largest upsample
+#: phase conv (a v1 decoder tile's level 2 -> 1, 512 = 2 x 256 outputs)
+K5_PATH_SHAPES = [
+    ("v1_causal", (1, 17, 720, 1280, 128), 128, (3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1)), ("edge", "zero", "zero")),
+    ("sd3_causal", (1, 17, 720, 672, 128), 128, (3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1)), ("edge", "edge", "edge")),
+    ("v1_downsample", (1, 17, 720, 1280, 128), 128, (3, 3, 3), (2, 2, 2),
+     ((2, 0), (0, 1), (0, 1)), ("edge", "zero", "zero")),
+    ("upsample_phase", (1, 9, 360, 336, 256), 512, (3, 2, 2), (1, 1, 1),
+     ((1, 1), (1, 0), (1, 0)), ("edge", "zero", "zero")),
+]
+#: output frames of K5's path shapes held to the plain version, whose
+#: float64 sums would not fit the card at every frame: the first 3 and the
+#: last 2, which hold every time boundary and the largest offsets
+K5_HEAD_FRAMES, K5_TAIL_FRAMES = 3, 2
+#: the int8 slice, card against CPU in fp32: PSNR of the frames, in dB,
+#: with the data range tests/test_quant.py takes, 2 max|ref| (a random
+#: net's frames are not bounded to [-1, 1]).  K5 is bit-equal to the CPU's
+#: plain version; the rest of the net rounds in another order on the card,
+#: and a value moved across a rounding step of an int8 quantizer moves by
+#: a whole step, which the net carries on
+INT8_SLICE_PSNR = 40.0
+#: the served int8 /reconstruct against the served bf16 one, PSNR in dB
+#: (ROADMAP's gate for int8 serving), taken as the reference's bench.py
+#: takes it: on the frames before the uint8 cast, over 2 max|bf16 frames|.
+#: A random net's frames reach +-3.4, past the [-1, 1] the uint8 bytes
+#: keep, so the bytes' PSNR over 255 reads about 10.6 dB less
+INT8_SERVE_PSNR = 35.0
+#: each served path: (variant, --dtype) -> (latent channels, the kernels
+#: it must launch)
+PATHS = {("v1", "bf16"): (4, ("K1", "K2", "K3", "K4")),
+         ("sd3", "bf16"): (16, ("K1", "K2", "K4")),
+         ("v1", "int8"): (4, ("K1", "K2", "K3", "K4", "K5")),
+         ("sd3", "int8"): (16, ("K1", "K2", "K4", "K5"))}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="cuda",
@@ -245,12 +325,18 @@ KERNELS = {
     "K4": dict(name="flash_attention", route="cuda",
                source="cvvae_tpu_torch/csrc/attention.cu",
                replaces="cvvae_tpu/ops/attention.py:60"),
+    # no Pallas kernel: the int8 conv XLA computes for the reference
+    "K5": dict(name="conv3d_int8", route="cuda",
+               source="cvvae_tpu_torch/csrc/conv_int8.cu",
+               replaces="cvvae_tpu/ops/quant.py:256"),
 }
 
 
 def kernel_modules():
-    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
-    return {"K1": groupnorm, "K2": shuffle, "K3": stem, "K4": attention}
+    from cvvae_tpu_torch.ops.kernels import (attention, conv_int8, groupnorm,
+                                             shuffle, stem)
+    return {"K1": groupnorm, "K2": shuffle, "K3": stem, "K4": attention,
+            "K5": conv_int8}
 
 
 def say(*parts):
@@ -290,6 +376,52 @@ def k2_inputs(b, n, c, with_bias, dev, dtype):
     phases = [randn((b, 3, 5, 7, n * c), 50 + i, dev, dtype) for i in range(4)]
     phases[0].view(-1)[0] = -0.0
     return phases, (randn((n * c,), 59, dev, dtype) if with_bias else None)
+
+
+def k5_inputs(shape, cout, kernel, dev, dtype, with_bias=True, seed=60,
+              half_steps=False):
+    """x ~ N(0, 1) in ``dtype``, an int8 kernel (cout, Cin, *kernel)
+    uniform on [-127, 127], per-channel scales around 1/127, scale_x
+    3/127 (so |x| > 3 clips) and a bias of scale 0.1 (or None).  With
+    ``half_steps``, x holds (k + 1/2) / 32 for k in [-130, 130) and scale_x
+    is 1/32, so x / scale_x falls on half-integers, where K5 takes its
+    division and rounds half to even."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wq = torch.randint(-127, 128, (cout, shape[-1]) + tuple(kernel),
+                       generator=g, device=dev, dtype=torch.int8)
+    scale_w = (torch.rand(cout, generator=g, device=dev) + 0.5) / 127
+    if half_steps:
+        k = torch.randint(-130, 130, shape, generator=g, device=dev)
+        x, scale_x = ((k + 0.5) / 32).to(dtype), 1 / 32
+    else:
+        x, scale_x = randn(shape, seed + 1, dev, dtype), 3.0 / 127
+    return (x, wq, scale_w, torch.tensor(scale_x, device=dev),
+            randn((cout,), seed + 2, dev, torch.float32, 0.1)
+            if with_bias else None)
+
+
+def k5_check_cases():
+    """(index, half_steps, case) of K5's small checks: every case of
+    K5_CHECK_CASES, and those of K5_HALF_STEP_CASES again on half steps."""
+    for i, case in enumerate(K5_CHECK_CASES):
+        yield i, False, case
+    for i in K5_HALF_STEP_CASES:
+        yield i, True, K5_CHECK_CASES[i]
+
+
+def k5_frames(x, kernel, stride, pads, modes, first, last):
+    """The input frames and time pads from which output frames [first,
+    last) of the conv come out as output frames [0, last - first): the
+    frames they read, their edge repeats gathered and their zero pads
+    kept as pads."""
+    (lo, hi), k, s = pads[0], kernel[0], stride[0]
+    t = x.shape[1]
+    start, stop = first * s - lo, (last - 1) * s - lo + k
+    if modes[0] == "edge":
+        idx = torch.arange(start, stop, device=x.device).clamp(0, t - 1)
+        return x.index_select(1, idx), (0, 0)
+    return (x[:, max(start, 0):min(stop, t)],
+            (max(-start, 0), max(stop - t, 0)))
 
 
 def k2_exact(got, ref):
@@ -538,7 +670,8 @@ def in_turns(plain, kernel, library=None):
     return ms["kernel"], ms["plain"], lib
 
 
-def work(key, shape, dtype, n=2, silu=True, cout=128):
+def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
+         stride=None, pads=None):
     """(bytes, FLOP) of one call of kernel ``key`` at ``shape``: each
     input read once and each output written once; FLOP as the function
     needs them.
@@ -549,7 +682,10 @@ def work(key, shape, dtype, n=2, silu=True, cout=128):
     output drops the first of its n*T frames; one add an output element.  K3 shape (B, T,
     H, W, Cin) -> ``cout`` channels at the same extent; 2*27*Cin FLOP an
     output element.  K4 shape (B, S, D): q, k, v in, out out; 4*B*S^2*D
-    FLOP."""
+    FLOP.  K5 shape (B, T, H, W, Cin), a ``kernel`` at ``stride`` with
+    ``pads`` to ``cout`` channels: x in and the output out in x's dtype,
+    the int8 kernel, fp32 scales and bias; 2*taps*Cin int8 operations an
+    output element."""
     e = torch.tensor([], dtype=dtype).element_size()
     numel = math.prod(shape)
     if key == "K1":
@@ -564,15 +700,23 @@ def work(key, shape, dtype, n=2, silu=True, cout=128):
     if key == "K4":
         b, s, d = shape
         return 4 * b * s * d * e, 4 * b * s * s * d
+    if key == "K5":
+        from cvvae_tpu_torch.ops.kernels.conv_int8 import out_extents
+        out = math.prod(out_extents(shape, kernel, stride, pads)) \
+            * shape[0] * cout
+        taps = math.prod(kernel)
+        return ((numel + out) * e + cout * shape[-1] * taps + 8 * cout,
+                out * 2 * shape[-1] * taps)
     raise KeyError(key)
 
 
 def bound(key, shape, dtype, **kw):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
-    rate and the FLOP over the peak for the inputs' type."""
+    rate and the FLOP over the peak for the inputs' type (K5's products
+    are int8 whatever x's dtype)."""
     nbytes, flop = work(key, shape, dtype, **kw)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flop / PEAK_FLOPS[torch.int8 if key == "K5" else dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -586,9 +730,10 @@ def _check_kernels(dev):
 
     summary = {k: {"max_abs_err": 0.0, "timed": []} for k in KERNELS}
 
-    def record(key, label, err, excess, tol_text, timing=None):
+    def record(key, label, err, excess, tol_text, timing=None, extra=None):
         """Print one check; fail it where ``excess`` > 0.  ``timing`` is
-        (shape, dtype, kernel ms, plain ms, library ms, work kwargs)."""
+        (shape, dtype, kernel ms, plain ms, library ms, work kwargs);
+        ``extra`` more fields of the timed entry."""
         ok = excess <= 0.0
         line = f"[kernels] {key} {label}: max_abs_err={err!r} {tol_text}"
         if timing:
@@ -597,10 +742,11 @@ def _check_kernels(dev):
             summary[key]["timed"].append(dict(
                 shape=list(shape), dtype=str(dtype).replace("torch.", ""),
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                share=b_ms / k_ms, library_ms=lib_ms))
+                share=b_ms / k_ms, library_ms=lib_ms, **(extra or {})))
             line += (f" kernel_ms={k_ms!r} plain_ms={p_ms!r} "
                      f"library_ms={lib_ms!r} bound_ms={b_ms!r} ({by}) "
                      f"share={b_ms / k_ms!r}")
+            line += "".join(f" {k}={v!r}" for k, v in (extra or {}).items())
         say(f"{line} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{key} {label}: disagrees with its plain "
@@ -733,7 +879,87 @@ def _check_kernels(dev):
                err, excess, tol_text, timing)
         del q, k, v
         torch.cuda.empty_cache()
+
+    _check_k5(dev, record)
     return summary
+
+
+def _check_k5(dev, record):
+    """K5 bit-equal to its plain version: at K5_CHECK_CASES, then at
+    K5_PATH_SHAPES on their first and last output frames, bf16 and fp32;
+    each path shape timed in bf16, in turns with the plain version (on
+    the head frames) and the bf16 conv that int8 replaces (the port's
+    float conv3d on the dequantized kernel, with its edge handling)."""
+    from types import SimpleNamespace
+
+    from cvvae_tpu_torch.ops import conv
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, half, (shape, cout, kernel, stride, pads, modes, with_bias) \
+                in k5_check_cases():
+            args = k5_inputs(shape, cout, kernel, dev, dtype, with_bias,
+                             half_steps=half)
+            got = conv_int8.conv3d_int8(*args, stride, pads, modes)
+            ref = conv_int8.conv3d_int8_plain(*args, stride, pads, modes)
+            torch.cuda.synchronize()
+            exact = k2_exact(got, ref)
+            err = (0.0 if exact else compare(got, ref)[0]
+                   if got.shape == ref.shape else math.inf)
+            record("K5", f"case {i}{' half steps' if half else ''} {shape}"
+                   f"->{cout} k={kernel} s={stride} pads={pads} {modes} "
+                   f"bias={with_bias} {dtype} bit-exact={exact}", err,
+                   0.0 if exact else 1.0, "tol=bit-exact")
+    for name, shape, cout, kernel, stride, pads, modes in K5_PATH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wq, sw, sx, b = k5_inputs(shape, cout, kernel, dev, dtype)
+            got = conv_int8.conv3d_int8(x, wq, sw, sx, b, stride, pads, modes)
+            torch.cuda.synchronize()
+            t_out = got.shape[1]
+            exact, err = True, 0.0
+            windows = [(0, K5_HEAD_FRAMES), (t_out - K5_TAIL_FRAMES, t_out)]
+            for first, last in windows:
+                xs, t_pads = k5_frames(x, kernel, stride, pads, modes, first,
+                                       last)
+                ref = conv_int8.conv3d_int8_plain(
+                    xs, wq, sw, sx, b, stride, (t_pads,) + tuple(pads[1:]),
+                    modes)
+                part = got[:, first:last].contiguous()
+                same = k2_exact(part, ref)
+                exact &= same
+                if not same:
+                    err = max(err, compare(part, ref)[0]
+                              if part.shape == ref.shape else math.inf)
+                del xs, ref, part
+            del got
+            torch.cuda.empty_cache()
+            timing = extra = None
+            if dtype == torch.bfloat16:
+                xs, t_pads = k5_frames(x, kernel, stride, pads, modes, 0,
+                                       K5_HEAD_FRAMES)
+                float_conv = SimpleNamespace(
+                    weight=(wq.float() * sw[:, None, None, None, None]).to(
+                        dtype), bias=b.to(dtype))
+                spec = conv.Conv3DSpec(kernel, stride, pads, modes)
+                ms = turns({
+                    "plain": lambda: conv_int8.conv3d_int8_plain(
+                        xs, wq, sw, sx, b, stride,
+                        (t_pads,) + tuple(pads[1:]), modes),
+                    "kernel": lambda: conv_int8.conv3d_int8(
+                        x, wq, sw, sx, b, stride, pads, modes),
+                    "bf16_conv": lambda: conv.conv3d(x, float_conv, spec)})
+                timing = (shape, dtype, ms["kernel"], ms["plain"], None,
+                          dict(cout=cout, kernel=kernel, stride=stride,
+                               pads=pads))
+                extra = dict(name=name, plain_frames=K5_HEAD_FRAMES,
+                             bf16_conv_ms=ms["bf16_conv"])
+                del xs, float_conv
+            record("K5", f"{name} {shape}->{cout} {dtype} output frames "
+                   f"[0, {K5_HEAD_FRAMES}) and [{t_out - K5_TAIL_FRAMES}, "
+                   f"{t_out}) bit-exact={exact}", err,
+                   0.0 if exact else 1.0, "tol=bit-exact", timing, extra)
+            del x, wq, sw, sx, b
+            torch.cuda.empty_cache()
 
 
 def _attention_fp32(dev, smi):
@@ -866,6 +1092,62 @@ def _check_slice(dev, family):
             raise SystemExit(f"slice {family} {name}: card and CPU disagree")
 
 
+def _check_int8_slice(dev, family):
+    """The family's full-width net quantized and calibrated once on the
+    CPU (plain versions), its state carried to the card; encode + decode
+    of the same clip in fp32 activations (TF32 off) on the card (K5 at the
+    convs of at least INT8_MIN_POSITIONS positions) against the CPU, held
+    by the frames' PSNR."""
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+    from cvvae_tpu_torch.ops.quant import load_quantized_state
+
+    k5 = kernel_modules()["K5"]
+    cfg = config_for_variant(family)
+    clip = INT8_SLICE_CLIPS[family]
+    x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, clip)
+                         .astype(np.float32))
+    t0 = time.perf_counter()
+    q = VideoVAE.from_config(cfg, seed=0, device="cpu").quantize(
+        calibration=x)
+    state = q.state_dict()
+    t_cal = time.perf_counter() - t0
+    outs = {}
+    for d in ("cpu", dev):
+        if d != "cpu":
+            q = load_quantized_state(
+                VideoVAE.from_config(cfg, seed=0, device=d).quantize(),
+                {k: v.to(d) for k, v in state.items()})
+        k5.launches = 0
+        t0 = time.perf_counter()
+        rec = q.decode(q.encode(x.to(d)).mode())
+        if d != "cpu":
+            torch.cuda.synchronize()
+        say(f"[slice] {family} int8 {d}: reconstruct {tuple(x.shape)} -> "
+            f"{tuple(rec.shape)} in {time.perf_counter() - t0:.2f}s; K5 "
+            f"launches {k5.launches}")
+        outs[str(d)] = rec.cpu()
+        del q
+    n_q = sum(k.endswith("weight_q") for k in state)
+    n_x = sum(k.endswith("scale_x") for k in state)
+    if k5.launches == 0:
+        raise SystemExit(f"int8 slice {family}: K5 not launched on the card")
+    ref, got = outs["cpu"], outs[str(dev)]
+    if tuple(got.shape) != clip or not torch.isfinite(got).all():
+        raise SystemExit(f"int8 slice {family}: frames {tuple(got.shape)} "
+                         f"or non-finite values")
+    mse = float(((got.double() - ref.double()) ** 2).mean())
+    peak = 2 * ref.abs().max().item()
+    db = 10 * math.log10(peak ** 2 / mse) if mse > 0 else math.inf
+    ok = db >= INT8_SLICE_PSNR
+    say(f"[slice] {family} int8: {n_q} convs quantized, {n_x} calibrated "
+        f"on the CPU in {t_cal:.1f}s; card against CPU frames PSNR {db!r} "
+        f"dB over 2 max|ref| = {peak!r} (>= {INT8_SLICE_PSNR}; over 2: "
+        f"{10 * math.log10(4.0 / mse) if mse > 0 else math.inf!r}), max_abs_err "
+        f"{(got - ref).abs().max().item()!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"int8 slice {family}: card and CPU disagree")
+
+
 # --------------------------------------------------------------------------
 # phase 5: serving
 # --------------------------------------------------------------------------
@@ -888,18 +1170,23 @@ def _request(port, method, path, arr=None, timeout=900):
     return data, wall
 
 
-def _serve(dev, smi, variant):
+def _serve(dev, smi, path):
+    """Serve ``path`` (variant, dtype): the checks of phase 5.  Returns
+    (launches in the served requests, launches in the /reconstruct alone,
+    the /reconstruct frames)."""
     from cvvae_tpu_torch import serve
 
     t, h, w = SERVE_CLIP
-    z_ch, needed = PATHS[variant]
+    z_ch, needed = PATHS[path]
+    variant = "-".join(path)
     args = serve.build_argparser().parse_args(
-        ["--variant", variant, "--dtype", "bf16", "--height", str(h),
+        ["--variant", path[0], "--dtype", path[1], "--height", str(h),
          "--width", str(w), "--warm_frames", str(t), "--device", str(dev),
          "--port", "0"])
     t0 = time.perf_counter()
     server = serve.prepare(args)
-    say(f"[serve] {variant}: prepare (build + preset + warm-up) "
+    say(f"[serve] {variant}: prepare (build + preset + quantize/calibrate "
+        f"for int8 + warm-up) "
         f"{time.perf_counter() - t0:.2f}s; encoder tile "
         f"{server.worker.vae.config.encode_pixel_tile_size}, decoder tile "
         f"{server.worker.vae.config.pixel_tile_size}")
@@ -925,6 +1212,17 @@ def _serve(dev, smi, variant):
         stats_b, _ = _request(port, "GET", "/stats")
         launches = {k: m.launches for k, m in mods.items()}
         peak = torch.cuda.max_memory_allocated()
+        # the /reconstruct's frames before the worker's uint8 cast, for
+        # int8's agreement with bf16 as the reference measures it
+        worker = server.worker
+        with torch.inference_mode():
+            x = torch.from_numpy(clip).to(worker.device)[None]
+            x = x.to(worker.dtype) / 127.5 - 1.0
+            frames = worker.vae.decode(worker.vae.encode(x).mode())[0]
+            served = ((frames.float() + 1.0) * 127.5).clamp(0, 255).to(
+                torch.uint8).cpu().numpy()
+            frames = frames.float().cpu()
+        del x
     finally:
         server.shutdown()
         server.server_close()
@@ -952,6 +1250,9 @@ def _serve(dev, smi, variant):
     if not same:
         raise SystemExit(f"{variant}: /reconstruct and /decode(/encode) "
                          f"differ")
+    if not np.array_equal(served, rec):
+        raise SystemExit(f"{variant}: the model's frames, cast as the worker "
+                         f"casts them, are not the /reconstruct bytes")
     say(f"[serve] {variant}: stats {stats_b.decode()}")
     say(f"[serve] {variant}: request wall s (after warm-up): "
         f"reconstruct={t_rec!r} "
@@ -963,7 +1264,14 @@ def _serve(dev, smi, variant):
     if missing:
         raise SystemExit(f"{variant}: kernels not launched by the main "
                          f"path: {missing}")
-    return launches, per_rec
+    return launches, per_rec, (rec, frames)
+
+
+def frames_psnr(got, ref, data_range) -> float:
+    """PSNR of two clips (uint8 arrays or float tensors), in dB."""
+    d = torch.as_tensor(got).double() - torch.as_tensor(ref).double()
+    mse = float((d ** 2).mean())
+    return 10 * math.log10(data_range ** 2 / mse) if mse > 0 else math.inf
 
 
 def main() -> int:
@@ -1003,11 +1311,31 @@ def main() -> int:
     summary = _check_kernels(dev)
     _attention_fp32(dev, smi)
     _check_edge_convs(dev, smi)
-    # phase 4: the slice, card against CPU
+    # phase 4: the slice, card against CPU, in float and in int8
     for family in SLICE_CLIPS:
         _check_slice(dev, family)
-    # phase 5: serving, each path with its own counts
-    by_path = {variant: _serve(dev, smi, variant) for variant in PATHS}
+    for family in INT8_SLICE_CLIPS:
+        _check_int8_slice(dev, family)
+    # phase 5: serving, each path with its own counts; int8's frames
+    # against bf16's
+    by_path = {}
+    for path in PATHS:
+        by_path["-".join(path)] = _serve(dev, smi, path)
+    for variant, dtype in PATHS:
+        if dtype == "int8":
+            (q_u8, q_f), (b_u8, b_f) = (by_path[f"{variant}-{d}"][2]
+                                        for d in ("int8", "bf16"))
+            peak = 2 * b_f.abs().max().item()
+            db = frames_psnr(q_f, b_f, peak)
+            ok = db >= INT8_SERVE_PSNR
+            say(f"[serve] {variant}: int8 /reconstruct against bf16's: "
+                f"PSNR {db!r} dB over 2 max|bf16 frames| = {peak!r}, as "
+                f"bench.py measures it (>= {INT8_SERVE_PSNR}); of the uint8 "
+                f"bytes, over 255: {frames_psnr(q_u8, b_u8, 255.0)!r} dB "
+                f"{'ok' if ok else 'FAIL'}; card {smi}")
+            if not ok:
+                raise SystemExit(f"{variant}: int8 serving is {db} dB from "
+                                 f"bf16")
 
     kernels = []
     for k in KERNELS:
@@ -1018,10 +1346,10 @@ def main() -> int:
                          key=lambda e: e["bound_ms"])
         kernels.append(dict(
             KERNELS[k],
-            launches=sum(n[k] for n, _ in by_path.values()),
-            launches_by_path={p: n[k] for p, (n, _) in by_path.items()},
+            launches=sum(n[k] for n, _, _ in by_path.values()),
+            launches_by_path={p: n[k] for p, (n, _, _) in by_path.items()},
             launches_per_reconstruct={p: r[k]
-                                      for p, (_, r) in by_path.items()},
+                                      for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],
             **{f: main_shape[f] for f in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "share",

@@ -6,7 +6,7 @@ reconstruction.
 
 Usage:
     python -m cvvae_tpu_torch.cli --video_path in.mp4 --save_path out.mp4 \
-        [--height 576 --width 1024] [--dtype bf16] [--device cuda] \
+        [--height 576 --width 1024] [--dtype bf16|fp32|int8] [--device cuda] \
         [--mode sample|mode] [--serving] [--metrics]
 
 The model runs with random weights made from --seed (loading the
@@ -34,7 +34,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--dtype", type=str, default="bf16",
-                   choices=["bf16", "fp32", "int8"])
+                   choices=["bf16", "fp32", "int8"],
+                   help="int8 = bf16 activations + the int8 conv stack "
+                        "(ops/quant.py)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--mode", type=str, default="sample",
                    choices=["sample", "mode"],
@@ -42,7 +44,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--serving", action="store_true",
                    help="serving preset: rectangular decode tiles sized to "
                         "the frame; v1 encodes the full frame untiled, SD3 "
-                        "encodes in the decode tiles")
+                        "encodes in the decode tiles; with --dtype int8, "
+                        "static activation scales calibrated on the clip's "
+                        "first 17x256x256 window")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
                    help="print PSNR + timing JSON to stdout")
@@ -92,9 +96,7 @@ def apply_serving_preset(vae, height: int, width: int):
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    if name == "int8":
-        raise SystemExit("--dtype int8 is not ported yet (ROADMAP queue A: "
-                         "int8 with its hand-written int8 conv)")
+    """The activation dtype of ``--dtype``: int8 runs bf16 activations."""
     return torch.float32 if name == "fp32" else torch.bfloat16
 
 
@@ -126,6 +128,9 @@ def main(argv=None) -> dict:
     n = video_io.truncate_to_4k1(len(frames))
     x_np = video_io.normalize(frames[:n])
     x = torch.from_numpy(x_np).to(device=device, dtype=dtype)[None]
+    if args.dtype == "int8":
+        calib = x[:, :17, :256, :256] if args.serving else None
+        vae = vae.quantize(calibration=calib)
 
     def sync():
         if device.type == "cuda":

@@ -20,6 +20,7 @@ another, so peak device memory is one tile's working set.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Optional
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from cvvae_tpu_torch.models import vae_sd3, vae_v1
+from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.distributions import DiagonalGaussian
 
 #: family -> the module holding its Encoder and Decoder
@@ -165,10 +167,34 @@ class VideoVAE(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.encoder.conv_in.weight.dtype
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP queue A: int8 with its "
-            "hand-written int8 conv)")
+    def _is_quantized(self) -> bool:
+        return any(quant.is_quantized(m) for m in self.modules())
+
+    def quantize(self, *, min_cin: int = 64, calibration=None,
+                 margin: float = 1.1, skip_paths=()) -> "VideoVAE":
+        """int8 serving mode (``ops/quant.py``): a new VideoVAE whose big
+        convs hold int8 weights with per-channel scales; this one is left
+        as it is.
+
+        With ``calibration`` (a (B,T,H,W,3) pixel clip in [-1, 1], e.g. a
+        17x256x256 window of the video to be served), one untiled encoder
+        and one decoder net call on it (the decoder on the mean half of the
+        moments) record each quantized conv's max|x|, and each gains a
+        static ``scale_x`` (x ``margin``).  Without it the activation
+        scales are taken per call (``quant.act_scale``)."""
+        q = copy.deepcopy(self)
+        quant.quantize_conv_params(q, min_cin=min_cin,
+                                   skip_paths=tuple(skip_paths))
+        if calibration is None:
+            return q
+        # a window of a clip is a view; the kernels take contiguous input
+        x = torch.as_tensor(calibration).to(
+            device=self.device, dtype=self.dtype).contiguous()
+        with torch.inference_mode(), quant.calibration_scope() as rec:
+            moments = q.encoder(x)
+            q.decoder(moments[..., :moments.shape[-1] // 2])
+        quant.attach_activation_scales(rec, margin=margin)
+        return q
 
     def with_mesh(self, *args, **kwargs):
         raise NotImplementedError(

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.kernels import stem
 
 Pad = Tuple[int, int]
@@ -139,14 +140,24 @@ class Conv(nn.Module):
 
 def conv3d(x: torch.Tensor, params, spec: Conv3DSpec) -> torch.Tensor:
     """Run the conv described by ``spec`` on ``x`` (B,T,H,W,C); ``params``
-    has ``weight`` (O,I,kT,kH,kW) and ``bias`` (O,) or None.  Returns a
-    contiguous (B,T',H',W',O) tensor.
+    has ``weight`` (O,I,kT,kH,kW), or ``weight_q`` and ``scale_w`` where
+    ``quant.quantize_conv_params`` quantized it, and ``bias`` (O,) or
+    None.  Returns a contiguous (B,T',H',W',O) tensor.
 
-    K3 first, as in ``cvvae_tpu/ops/conv.py::conv3d``; then the causal
-    convs (edge time, zero space, T > 1) to the time-axis decomposition,
-    every other edge pad to the all-axes one, and zero pads to the
-    window."""
-    weight, bias = params.weight, params.bias
+    As ``cvvae_tpu/ops/conv.py::conv3d``: a quantized conv records its
+    activation when calibrating, then runs int8 (K5) at T·H·W >=
+    ``quant.INT8_MIN_POSITIONS`` and otherwise in float on the dequantized
+    kernel.  In float, K3 first; then the causal convs (edge time, zero
+    space, T > 1) to the time-axis decomposition, every other edge pad to
+    the all-axes one, and zero pads to the window."""
+    bias = params.bias
+    if quant.is_quantized(params):
+        quant.maybe_record_act(params, x)
+        if x.shape[1] * x.shape[2] * x.shape[3] >= quant.INT8_MIN_POSITIONS:
+            return quant.conv3d_int8(x, params, spec)
+        weight = quant.dequantize_kernel(params)
+    else:
+        weight = params.weight
     if stem.stem_usable(weight, spec):
         return stem.stem_conv3d(x, weight, bias, spec)
     weight = weight.to(x.dtype)

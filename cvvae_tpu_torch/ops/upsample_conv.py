@@ -11,6 +11,11 @@ The op is four (kT, 2, 2) convs on the original tensor, interleaved
 subpixel-style; the interleave, the bias add and the (n c) channel->time
 split are one pass, which on a CUDA tensor is the hand-written kernel K2
 (``ops/kernels/shuffle.py``).
+
+Quantized params (``weight_q``, ``scale_w``) take the reference's int8
+branch: the phase kernels are summed from the dequantized kernel in fp32,
+quantized again per channel, and run as four int8 convs (K5 on a CUDA
+tensor) whose pads K5 takes in its addressing.
 """
 
 from __future__ import annotations
@@ -20,7 +25,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.kernels.shuffle import subpixel_interleave
+
+_CORNERS = (("even", "even"), ("even", "odd"), ("odd", "even"), ("odd", "odd"))
 
 
 def _phase_kernels(w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -43,8 +51,18 @@ def upsample2x_conv3x3_interleave(x: torch.Tensor, params, *, n: int,
     """``temporal_interleave(conv3d(nearest_2x_hw(x)), n)`` in one pass.
 
     x: (B,T,H,W,C) -> (B, n*T' - drop_first, 2H, 2W, C_out/n); ``params``
-    holds ``weight`` (n*c, C, kT, 3, 3) and ``bias`` (n*c,) or None."""
-    kernel = params.weight.to(x.dtype)
+    holds ``weight`` (n*c, C, kT, 3, 3), or ``weight_q`` and ``scale_w``,
+    and ``bias`` (n*c,) or None."""
+    if quant.is_quantized(params):
+        quant.maybe_record_act(params, x)
+        kernel = quant.dequantize_kernel(params)
+        if x.shape[1] * x.shape[2] * x.shape[3] >= quant.INT8_MIN_POSITIONS:
+            phases = _int8_phases(x, params, kernel, t_pad, t_mode, hw_mode)
+            return subpixel_interleave(phases, params.bias, n=n,
+                                       drop_first=drop_first)
+        kernel = kernel.to(x.dtype)
+    else:
+        kernel = params.weight.to(x.dtype)
     xn = x.permute(0, 4, 1, 2, 3)
     if t_mode == "edge" and (t_pad[0] or t_pad[1]):
         xn = F.pad(xn, (0, 0, 0, 0) + tuple(t_pad), mode="replicate")
@@ -58,12 +76,27 @@ def upsample2x_conv3x3_interleave(x: torch.Tensor, params, *, n: int,
         pads = {"even": (1, 0), "odd": (0, 1)}
 
     ks = _phase_kernels(kernel)
-    corners = (("even", "even"), ("even", "odd"), ("odd", "even"),
-               ("odd", "odd"))
     phases = []
-    for k, (hp, wp) in zip(ks, corners):
+    for k, (hp, wp) in zip(ks, _CORNERS):
         xp = F.pad(xn, pads[wp] + pads[hp] + t_zero)
         xp = xp.contiguous(memory_format=torch.channels_last_3d)
         y = F.conv3d(xp, k)
         phases.append(y.permute(0, 2, 3, 4, 1).contiguous())
     return subpixel_interleave(phases, params.bias, n=n, drop_first=drop_first)
+
+
+def _int8_phases(x: torch.Tensor, params, kernel: torch.Tensor,
+                 t_pad: Tuple[int, int], t_mode: str, hw_mode: str):
+    """The four phases of the int8 branch, (B,T',H,W,n*c) each in x's
+    dtype, without the bias.  ``kernel`` is the dequantized fp32 kernel:
+    the phase sums are taken in fp32, as the reference takes them, then
+    quantized per channel.  The reference materialises the edge pads
+    (time ``t_pad``; H/W by one, read through (0,-1)/(-1,0) windows); in
+    K5's addressing those windows are edge pads of (1,0)/(0,1)."""
+    scale_x = getattr(params, "scale_x", None)
+    if scale_x is None:
+        scale_x = quant.act_scale(x)
+    pads = {"even": (1, 0), "odd": (0, 1)}
+    return [quant.conv_int8(x, scale_x, k, (tuple(t_pad), pads[hp], pads[wp]),
+                            (t_mode, hw_mode, hw_mode))
+            for k, (hp, wp) in zip(_phase_kernels(kernel), _CORNERS)]

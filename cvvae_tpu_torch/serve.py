@@ -18,9 +18,15 @@ Port of ``cvvae_tpu/serve.py``.
 * warm-up runs before the socket accepts work, so the first request
   finds the kernels built and the allocator warm.
 
+* ``--dtype int8`` (the default, as in the reference): bf16 activations
+  and the int8 conv stack, its activation scales calibrated at start-up
+  on ``--calibration_video`` (or, without one, on the reference's
+  synthetic noise); ``--quantized_cache DIR`` restores the calibrated
+  model from DIR when DIR exists and writes it there when it does not.
+
 Usage:
-    python -m cvvae_tpu_torch.serve --port 8400 --variant v1 --dtype bf16 \
-        --height 720 --width 1280 --device cuda
+    python -m cvvae_tpu_torch.serve --port 8400 --variant v1 --dtype int8 \
+        --height 720 --width 1280 --device cuda [--calibration_video v.mp4]
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import argparse
 import collections
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -232,8 +239,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=8400)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--variant", default="v1", choices=["v1", "sd3"])
-    ap.add_argument("--dtype", default="bf16",
-                    choices=["int8", "bf16", "fp32"])
+    ap.add_argument("--dtype", default="int8",
+                    choices=["int8", "bf16", "fp32"],
+                    help="int8 = bf16 activations + the int8 conv stack")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--width", type=int, default=1280)
@@ -244,11 +252,59 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--max_body_mb", type=int, default=512,
                     help="reject request bodies larger than this with "
                          "HTTP 413 before reading them into memory")
+    ap.add_argument("--calibration_video", default=None,
+                    help="int8 only: video whose first 17 frames (at most "
+                         "256x256) calibrate the static activation scales; "
+                         "without it they come from synthetic noise")
     ap.add_argument("--quantized_cache", default=None,
-                    help="int8 only: not ported yet")
+                    help="int8 only: directory of the calibrated model "
+                         "(torch.save of its state_dict).  Present -> "
+                         "restored, skipping calibration; absent -> written "
+                         "after calibration")
     ap.add_argument("--spatial_shards", type=int, default=1,
                     help="multi-device serving: not ported yet (1 only)")
     return ap
+
+
+#: the file of a --quantized_cache directory
+CACHE_FILE = "quantized_state.pt"
+
+
+def quantized(vae, args: argparse.Namespace, warm_frames: int):
+    """The int8 model: restored from ``--quantized_cache`` when that
+    directory exists, else quantized and calibrated (and written there
+    when it is given).  Calibration runs on the first 17 frames of
+    ``--calibration_video`` at min(256, H) x min(256, W), or on the
+    reference's synthetic clip, so both calibrate on the same bytes."""
+    from cvvae_tpu_torch.data.video_io import read_video
+    from cvvae_tpu_torch.ops.quant import load_quantized_state
+
+    cache = args.quantized_cache and os.path.abspath(args.quantized_cache)
+    if cache and os.path.isdir(cache):
+        t0 = time.perf_counter()
+        state = torch.load(os.path.join(cache, CACHE_FILE),
+                           map_location=vae.device, weights_only=True)
+        q = load_quantized_state(vae.quantize(), state)
+        print(f"[serve] restored quantized model from {cache} in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        return q
+    ch, cw = min(args.height, 256), min(args.width, 256)
+    if args.calibration_video:
+        frames, _ = read_video(args.calibration_video, height=ch, width=cw,
+                               max_frames=17)
+        calib = frames[None][:, :truncate_to_4k1(len(frames))]
+    else:
+        print("[serve] WARNING: int8 without --calibration_video: the "
+              "activation scales come from synthetic noise; pass a "
+              "representative clip for serving quality", flush=True)
+        calib = np.random.default_rng(0).integers(
+            0, 255, (1, min(17, warm_frames), ch, cw, 3))
+    q = vae.quantize(calibration=calib.astype(np.float32) / 127.5 - 1.0)
+    if cache:
+        os.makedirs(cache)
+        torch.save(q.state_dict(), os.path.join(cache, CACHE_FILE))
+        print(f"[serve] wrote quantized model to {cache}", flush=True)
+    return q
 
 
 def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
@@ -258,9 +314,10 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
                                      torch_dtype)
     from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
 
-    if args.quantized_cache:
-        raise SystemExit("--quantized_cache is not ported yet (ROADMAP "
-                         "queue A: int8)")
+    if args.dtype != "int8":
+        for flag in ("calibration_video", "quantized_cache"):
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag} applies to --dtype int8 only")
     if args.spatial_shards > 1:
         raise SystemExit("--spatial_shards > 1 is not ported yet (ROADMAP "
                          "queue A: multi-device)")
@@ -269,8 +326,10 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
     vae = VideoVAE.from_config(config_for_variant(args.variant),
                                dtype=dtype, device=device)
     apply_serving_preset(vae, args.height, args.width)
-
     warm_frames = truncate_to_4k1(args.warm_frames)
+    if args.dtype == "int8":
+        vae = quantized(vae, args, warm_frames)
+
     print(f"[serve] warming {args.height}x{args.width} x{warm_frames}f "
           f"{args.dtype} on {device} ...", flush=True)
     server = build_server(vae, port=args.port, host=args.host,

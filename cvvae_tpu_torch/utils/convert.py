@@ -8,9 +8,13 @@ per-tensor layout change:
   (a per-frame kernel (1, kH, kW, I, O)  -> a Conv3d weight (O, I, 1, kH, kW))
 * a dense kernel (I, O)                  -> weight (O, I)
 * a norm's scale / bias                  -> its weight / bias
+* a quantized conv's kernel_q (kT, kH, kW, I, O) int8 -> weight_q
+  (O, I, kT, kH, kW); its scale_w and scale_x as they are
 
 Load the result with ``load_state_dict(..., strict=True)`` so that a key
-missed on either side fails.
+missed on either side fails; a quantized tree loads with
+``ops.quant.load_quantized_state`` into a model quantized the same way
+(``VideoVAE.quantize()``), also strictly.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ def _convert_leaf(leaf: str, value: np.ndarray):
         if value.ndim == 2:
             return "weight", value.T
         raise ValueError(f"kernel of rank {value.ndim} has no counterpart")
-    if leaf == "bias":
-        return "bias", value
+    if leaf == "kernel_q":
+        return "weight_q", value.transpose(4, 3, 0, 1, 2)
+    if leaf in ("bias", "scale_w", "scale_x"):
+        return leaf, value
     raise ValueError(f"unexpected leaf {leaf!r}")
 
 

@@ -1,9 +1,12 @@
 """Where a served request's device time goes: ``torch.profiler`` over one
 ``/reconstruct`` of the serving worker, on a CUDA card.
 
-    python -m cvvae_tpu_torch.utils.profiling --variant sd3 [--out FILE]
+    python -m cvvae_tpu_torch.utils.profiling --variant sd3 \
+        [--dtype int8|bf16|fp32] [--out FILE]
 
-The request is the served unit of work: a 17x720x1280 bf16 clip.
+The request is the served unit of work: a 17x720x1280 clip, served in
+``--dtype`` (int8, the server's default, calibrates on the synthetic clip
+as ``serve`` does).
 Builds, presets and warms the server exactly as ``serve.main`` does
 (``serve.prepare``), runs one request unprofiled, then one inside the
 profiler, and prints the wall time, the summed kernel time (the device's
@@ -39,6 +42,7 @@ GROUPS = [
     ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
     ("K2 subpixel interleave", r"subpixel|interleave"),
     ("K3 stem conv", r"stem"),
+    ("K5 int8 conv", r"conv3d_int8"),
     ("cuDNN 3D convs", r"xmma|implicit_gemm|conv|cudnn|cutlass|fprop"),
     ("replicate pads", r"replication_pad"),
     ("zero pads", r"constant_pad"),
@@ -50,7 +54,7 @@ GROUPS = [
 ]
 
 
-def profile_reconstruct(variant: str, out=None) -> None:
+def profile_reconstruct(variant: str, dtype: str = "int8", out=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from cvvae_tpu_torch import serve
@@ -59,7 +63,7 @@ def profile_reconstruct(variant: str, out=None) -> None:
         raise SystemExit("profiling: needs a CUDA card")
     t, h, w = CLIP
     server = serve.prepare(serve.build_argparser().parse_args(
-        ["--variant", variant, "--dtype", "bf16", "--height", str(h),
+        ["--variant", variant, "--dtype", dtype, "--height", str(h),
          "--width", str(w), "--warm_frames", str(t), "--device", "cuda",
          "--port", "0"]))
     worker = server.worker
@@ -95,7 +99,7 @@ def profile_reconstruct(variant: str, out=None) -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    print(f"[profile] {variant} {t}x{h}x{w} bf16 /reconstruct: unprofiled "
+    print(f"[profile] {variant} {t}x{h}x{w} {dtype} /reconstruct: unprofiled "
           f"wall {steady!r} s, "
           f"profiled wall {wall!r} s, kernel time {total / 1e6!r} s "
           f"(busy {100 * total / 1e6 / wall:.1f}%); card {card}")
@@ -127,10 +131,11 @@ def profile_reconstruct(variant: str, out=None) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", default="sd3", choices=["v1", "sd3"])
+    ap.add_argument("--dtype", default="int8", choices=["int8", "bf16", "fp32"])
     ap.add_argument("--out", default=None,
                     help="also write the profiler's full table here")
     args = ap.parse_args(argv)
-    profile_reconstruct(args.variant, args.out)
+    profile_reconstruct(args.variant, args.dtype, args.out)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K4 and of the edge-pad convs:
+"""Planted faults against the checks of K1-K5 and of the edge-pad convs:
 do the bounds that ``chip_smoke.py`` and the card tests hold them to
 catch a broken kernel or decomposition?
 
@@ -20,7 +20,9 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   ``chip_smoke.K3_CHECK_SHAPES`` (Cin 3) on ``chip_smoke.k3_inputs``, held
   by ``chip_smoke.k3_check``;
 - K2, bf16 and fp32, at ``chip_smoke.K2_CASES`` and
-  ``chip_smoke.K2_CHECK_SHAPES``, held bit-exact (``chip_smoke.k2_exact``).
+  ``chip_smoke.K2_CHECK_SHAPES``, held bit-exact (``chip_smoke.k2_exact``);
+- K5, bf16 and fp32, at ``chip_smoke.k5_check_cases`` on
+  ``chip_smoke.k5_inputs``, held bit-exact to its plain version.
 
 The edge-pad decompositions of ``cvvae_tpu_torch/ops/conv.py`` are held
 the same way: the faults of EDGE_FAULTS are planted in copies of that
@@ -52,7 +54,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from cvvae_tpu_torch.ops import conv  # noqa: E402
 from cvvae_tpu_torch.ops.kernels import (  # noqa: E402
-    _build, attention, groupnorm, shuffle, stem)
+    _build, attention, conv_int8, groupnorm, shuffle, stem)
 
 #: fault -> (kernel, source file, its text, the replacement)
 FAULTS = {
@@ -103,6 +105,18 @@ FAULTS = {
         "K2", "shuffle.cu",
         "reinterpret_cast<const V*>(bias)[j * cv + ci];",
         "reinterpret_cast<const V*>(bias)[((j + 1) % n) * cv + ci];"),
+    "W's edge pad read as zeros (not clamped)": (
+        "K5", "conv_int8.cu",
+        "        if (!a.edgeW) continue;",
+        "        continue;"),
+    "scale_w[0] used for every channel": (
+        "K5", "conv_int8.cu",
+        "__fmul_rn(sx, scale_w[o])",
+        "__fmul_rn(sx, scale_w[0])"),
+    "the last slab (the last tap row's last Cin chunk) dropped": (
+        "K5", "conv_int8.cu",
+        "const int n_slabs = a.kT * a.kH * n_cc;",
+        "const int n_slabs = a.kT * a.kH * n_cc - 1;"),
 }
 
 
@@ -202,6 +216,22 @@ def _k2_cases():
                    f"bias={with_bias} {dtype}: bit-exact={exact}", not exact)
 
 
+def _k5_cases():
+    """(label, fails) of every K5 check case on the library now loaded."""
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for _, half, (shape, cout, kernel, stride, pads, modes, bias) in \
+                chip_smoke.k5_check_cases():
+            args = chip_smoke.k5_inputs(shape, cout, kernel, dev, dtype, bias,
+                                        half_steps=half)
+            exact = chip_smoke.k2_exact(
+                conv_int8.conv3d_int8(*args, stride, pads, modes),
+                conv_int8.conv3d_int8_plain(*args, stride, pads, modes))
+            yield (f"K5 {shape}->{cout} k={kernel} s={stride} pads={pads} "
+                   f"{modes} half_steps={half} {dtype}: bit-exact={exact}",
+                   not exact)
+
+
 def edge_cases(module=None, dev=None, cases=None,
                dtypes=(torch.bfloat16,)):
     """(label, fails) of every edge-conv case (by default
@@ -249,7 +279,7 @@ def planted_conv(tmp: Path, i: int, replacements):
 
 #: each kernel's cases, and the edge convs'
 CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
-         "edge": edge_cases}
+         "K5": _k5_cases, "edge": edge_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:

@@ -9,6 +9,7 @@ import torch
 import chip_smoke
 import planted_faults
 from cvvae_tpu_torch.ops.kernels.groupnorm import group_norm_silu_plain
+from cvvae_tpu_torch.utils import kernel_variants
 
 CPU = torch.device("cpu")
 
@@ -53,6 +54,14 @@ def test_k1_check_takes_one_rounding_of_fp32(offset, silu, per_frame):
     ("K3", (1, 17, 720, 1280, 3), {}, 4.10, None, 1.23, "bytes"),
     ("K4", (5, 14400, 512), {}, None, 2.12, 2.15, "operations"),
     ("K4", (5, 7560, 512), {}, None, 0.585, 0.59, "operations"),
+    # K5 at 1,979 TOP/s int8: the v1 level-0 causal conv (13.86 TOP) and
+    # the v1 downsample at stride 2, which its bytes bound
+    ("K5", (1, 17, 720, 1280, 128),
+     dict(cout=128, kernel=(3, 3, 3), stride=(1, 1, 1),
+          pads=((2, 0), (1, 1), (1, 1))), 8.02, 13.861, 7.0, "operations"),
+    ("K5", (1, 17, 720, 1280, 128),
+     dict(cout=128, kernel=(3, 3, 3), stride=(2, 2, 2),
+          pads=((2, 0), (0, 1), (0, 1))), 4.54, 1.835, 1.36, "bytes"),
 ])
 def test_bounds_of_the_main_path_shapes(key, shape, kw, gb, tflop, ms, by):
     nbytes, flop = chip_smoke.work(key, shape, torch.bfloat16, **kw)
@@ -161,3 +170,55 @@ def test_planted_edge_faults_fail_the_edge_check(tmp_path, fault):
         module, CPU, cases, (torch.float32, torch.bfloat16))]
     assert len(fails) == 4
     assert all(fails) if fault else not any(fails)
+
+
+@pytest.mark.parametrize("fault", sorted(planted_faults.FAULTS))
+def test_planted_kernel_faults_apply_once(fault):
+    """Each fault of ``planted_faults.FAULTS`` names text that its source
+    holds once (else the planted build would fail or plant nothing), and
+    changes it."""
+    _, name, old, new = planted_faults.FAULTS[fault]
+    text = (planted_faults._build.CSRC / name).read_text()
+    assert text.count(old) == 1 and old != new
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.K5_CHECK_CASES)))
+def test_k5_frames_give_the_output_frames(case):
+    """``k5_frames`` picks the input frames (edge repeats gathered, zero
+    pads kept) from which K5's plain version gives the chosen output
+    frames, as phase 3 compares the 720p path shapes."""
+    from cvvae_tpu_torch.ops.kernels.conv_int8 import conv3d_int8_plain
+
+    shape, cout, kernel, stride, pads, modes, bias = \
+        chip_smoke.K5_CHECK_CASES[case]
+    x, wq, sw, sx, b = chip_smoke.k5_inputs(shape, cout, kernel, "cpu",
+                                            torch.float32, bias)
+    full = conv3d_int8_plain(x, wq, sw, sx, b, stride, pads, modes)
+    t_out = full.shape[1]
+    for first, last in ((0, min(2, t_out)), (max(t_out - 2, 0), t_out)):
+        xs, t_pads = chip_smoke.k5_frames(x, kernel, stride, pads, modes,
+                                          first, last)
+        part = conv3d_int8_plain(xs, wq, sw, sx, b, stride,
+                                 (t_pads,) + tuple(pads[1:]), modes)
+        assert torch.equal(part, full[:, first:last])
+
+
+def test_k5_pack_weight_layout():
+    """The kernel's B: (O padded to 128, taps, Cin padded to 32), taps in
+    (dt, dh, dw) order, zeros in the padding."""
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+
+    wq = torch.randint(-127, 128, (24, 40, 3, 2, 2), dtype=torch.int8)
+    packed = conv_int8.pack_weight(wq)
+    assert packed.shape == (128, 12, 64) and packed.dtype == torch.int8
+    assert torch.equal(packed[5, (2 * 2 + 1) * 2 + 0, :40], wq[5, :, 2, 1, 0])
+    assert not packed[24:].any() and not packed[:, :, 40:].any()
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
+def test_kernel_variants_apply_once(variant):
+    """Each variant of ``utils/kernel_variants.py`` replaces text that
+    csrc/conv_int8.cu holds once."""
+    text = (planted_faults._build.CSRC / "conv_int8.cu").read_text()
+    for old, new in kernel_variants.VARIANTS[variant]:
+        assert text.count(old) == 1 and old != new

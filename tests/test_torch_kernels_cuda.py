@@ -14,7 +14,8 @@ import torch
 
 import chip_smoke
 from cvvae_tpu_torch.ops.conv import Conv3DSpec
-from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
+from cvvae_tpu_torch.ops.kernels import (attention, conv_int8, groupnorm,
+                                         shuffle, stem)
 
 pytestmark = pytest.mark.cuda
 
@@ -261,3 +262,89 @@ def test_wrappers_raise_on_bad_layout(dev):
     p = [torch.zeros((1, 2, 4, 4, 8), device=dev).transpose(2, 3)] * 4
     with pytest.raises(ValueError):
         shuffle.subpixel_interleave(p, None, n=2)
+
+
+# K5 is bit-equal to its plain version: both sum exact integers and round
+# the product and the bias add apart (planted_faults.py shows what this
+# catches)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(chip_smoke.k5_check_cases()),
+                         ids=lambda c: f"{c[0]}{'-half' if c[1] else ''}")
+def test_conv_int8_kernel_bit_exact(dev, dtype, case):
+    _, half, (shape, cout, kernel, stride, pads, modes, bias) = case
+    args = chip_smoke.k5_inputs(shape, cout, kernel, dev, dtype, bias,
+                                half_steps=half)
+    before = conv_int8.launches
+    got = conv_int8.conv3d_int8(*args, stride, pads, modes)
+    torch.cuda.synchronize()
+    assert conv_int8.launches == before + 1
+    ref = conv_int8.conv3d_int8_plain(*args, stride, pads, modes)
+    assert chip_smoke.k2_exact(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_int8_kernel_misaligned_input(dev, dtype):
+    """A view that starts off a 16-byte boundary takes the scalar loads."""
+    shape, cout, kernel, stride, pads, modes, bias = \
+        chip_smoke.K5_CHECK_CASES[1]
+    x, *rest = chip_smoke.k5_inputs(shape, cout, kernel, dev, dtype, bias)
+    flat = torch.empty(x.numel() + 1, device=dev, dtype=dtype)
+    xv = flat[1:].view(x.shape)
+    xv.copy_(x)
+    got = conv_int8.conv3d_int8(xv, *rest, stride, pads, modes)
+    ref = conv_int8.conv3d_int8_plain(x, *rest, stride, pads, modes)
+    assert chip_smoke.k2_exact(got, ref)
+
+
+def test_quantized_conv_dynamic_scale_on_the_card(dev):
+    """Without a calibrated scale, conv3d takes max|x| / 127 from one
+    reduction on the card and launches K5 with it."""
+    from cvvae_tpu_torch.ops import conv, quant
+
+    spec = conv.Conv3DSpec.v1_causal()
+    m = conv.Conv(spec, 64, 32).to(dev)
+    quant.quantize_conv_params(m, min_cin=1)
+    x = _randn((1, 5, 64, 64, 64), 3, dev, torch.bfloat16)
+    before = conv_int8.launches
+    got = m(x)
+    torch.cuda.synchronize()
+    assert conv_int8.launches == before + 1
+    ref = conv_int8.conv3d_int8_plain(x, m.weight_q, m.scale_w,
+                                      quant.act_scale(x), m.bias,
+                                      spec.stride, spec.pads, spec.modes)
+    assert chip_smoke.k2_exact(got, ref)
+
+
+def test_conv_int8_refuses_what_it_does_not_take(dev):
+    x, wq, sw, sx, b = chip_smoke.k5_inputs((1, 3, 5, 7, 32), 16, (3, 3, 3),
+                                            dev, torch.float32)
+    ok = ((1, 1, 1), ((1, 1), (1, 1), (1, 1)), ("zero",) * 3)
+    conv_int8.conv3d_int8(x, wq, sw, sx, b, *ok)
+    for bad in (
+            (x.half(), wq, sw, sx, b) + ok,
+            (x.transpose(2, 3), wq, sw, sx, b) + ok,
+            (x, wq.float(), sw, sx, b) + ok,
+            (x, wq, sw, sx, b, (1, 1, 1), ((1, 1), (-1, 1), (1, 1)), ok[2]),
+            (x, wq, sw, sx, b, ok[0], ok[1], ("zero", "reflect", "zero")),
+            (x, wq, sw, sx, b, (1, 1, 4)) + ok[1:]):
+        with pytest.raises(ValueError):
+            conv_int8.conv3d_int8(*bad)
+
+
+def test_quantize_calibrates_on_a_window_of_a_clip(dev):
+    """``cli --dtype int8 --serving`` calibrates on a view of the clip
+    (its first 17x256x256 window): quantize makes it contiguous for the
+    kernels, and records a scale for every quantized conv."""
+    from cvvae_tpu_torch.models.vae_v1 import VAE1Config
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
+
+    cfg = VideoVAEConfig(net=VAE1Config(ch=32, ch_mult=(1, 2, 4),
+                                        num_res_blocks=1,
+                                        norm_num_groups=8),
+                         tile_spatial_size=None, en_de_n_frames_a_time=None)
+    vae = VideoVAE.from_config(cfg, device=dev, dtype=torch.bfloat16)
+    x = _randn((1, 9, 96, 96, 3), 4, dev, torch.bfloat16)
+    q = vae.quantize(calibration=x[:, :5, :64, :64])
+    state = q.state_dict()
+    n_q = sum(k.endswith("weight_q") for k in state)
+    assert n_q > 0 and n_q == sum(k.endswith("scale_x") for k in state)

@@ -26,8 +26,8 @@ from cvvae_tpu.models.video_vae import VideoVAEConfig as JConfig
 from cvvae_tpu_torch.models.vae_v1 import VAE1Config
 from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
 from cvvae_tpu_torch.ops.conv import Conv3DSpec
-from cvvae_tpu_torch.ops.kernels import (_build, attention, groupnorm,
-                                         shuffle, stem)
+from cvvae_tpu_torch.ops.kernels import (_build, attention, conv_int8,
+                                         groupnorm, shuffle, stem)
 from cvvae_tpu_torch.utils.convert import from_jax_params
 
 torch.set_num_threads(2)
@@ -85,8 +85,14 @@ def test_from_jax_params_layouts():
     assert torch.equal(out["c.weight"], torch.from_numpy(dense.T.copy()))
     assert set(out) == {"a.weight", "a.bias", "b.0.weight", "c.weight",
                         "n.weight", "n.bias"}
+    q = from_jax_params({"x": {"kernel_q": conv.astype(np.int8),
+                               "scale_w": np.ones(5, np.float32),
+                               "scale_x": np.float32(0.5)}})
+    assert torch.equal(q["x.weight_q"], torch.from_numpy(
+        conv.astype(np.int8).transpose(4, 3, 0, 1, 2).copy()))
+    assert set(q) == {"x.weight_q", "x.scale_w", "x.scale_x"}
     with pytest.raises(ValueError, match="unexpected leaf"):
-        from_jax_params({"x": {"kernel_q": conv}})
+        from_jax_params({"x": {"kernel_x": conv}})
     with pytest.raises(ValueError, match="rank"):
         from_jax_params({"x": {"kernel": np.zeros((2, 2, 2))}})
 
@@ -104,6 +110,11 @@ def _calls():
     pix = _randn((1, 3, 6, 7, 3), 8)
     sw, sb = _randn((128, 3, 3, 3, 3), 9), _randn((128,), 10)
     q, k, v = (_randn((2, 1100, 64), 11 + i) for i in range(3))
+    xq = _randn((1, 3, 5, 7, 32), 14)
+    wq = torch.from_numpy(np.random.RandomState(15).randint(
+        -127, 128, (16, 32, 3, 3, 3)).astype(np.int8))
+    qsw, qsx = _randn((16,), 16).abs() / 127, torch.tensor(0.02)
+    pads, modes = ((2, 0), (1, 1), (1, 1)), ("edge", "zero", "zero")
     return [
         (groupnorm, lambda t: groupnorm.group_norm_silu(
             t(x), w, b, num_groups=4, eps=1e-5, silu=True),
@@ -121,10 +132,14 @@ def _calls():
         (attention, lambda t: attention.flash_attention(t(q), t(k), t(v),
                                                         0.125),
          lambda: attention.flash_attention_plain(q, k, v, 0.125)),
+        (conv_int8, lambda t: conv_int8.conv3d_int8(
+            t(xq), wq, qsw, qsx, w, (1, 1, 1), pads, modes),
+         lambda: conv_int8.conv3d_int8_plain(xq, wq, qsw, qsx, w, (1, 1, 1),
+                                             pads, modes)),
     ]
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(6))
 def test_cpu_tensor_takes_plain_version(case):
     mod, wrapped, plain = _calls()[case]
     before = mod.launches
@@ -133,7 +148,7 @@ def test_cpu_tensor_takes_plain_version(case):
     assert torch.equal(got, plain())
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(6))
 def test_other_devices_are_refused(case):
     """Neither CPU nor CUDA: the wrapper raises before any launch."""
     mod, wrapped, _ = _calls()[case]
@@ -147,10 +162,11 @@ def test_nothing_is_built_at_import():
     assert _build._load.cache_info().currsize == 0
     assert _build.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in _build._sources()} == {
-        "attention.cu", "common.cuh", "groupnorm.cu", "shuffle.cu", "stem.cu"}
+        "attention.cu", "common.cuh", "conv_int8.cu", "groupnorm.cu",
+        "shuffle.cu", "stem.cu"}
     assert set(_build._SIGNATURES) == {
         "cvvae_group_norm", "cvvae_subpixel_interleave", "cvvae_stem_conv3d",
-        "cvvae_flash_attention"}
+        "cvvae_flash_attention", "cvvae_conv3d_int8"}
 
 
 def test_layout_check_names_the_fix():

@@ -332,8 +332,8 @@ def test_prepare_builds_an_sd3_server(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dtype", "int8"], "int8"),
-    (["--quantized_cache", "q"], "quantized_cache"),
+    (["--dtype", "bf16", "--calibration_video", "v.mp4"], "int8"),
+    (["--dtype", "bf16", "--quantized_cache", "q"], "quantized_cache"),
     (["--spatial_shards", "2"], "spatial_shards"),
     (["--device", "cuda:99"], "cuda:99"),
 ])

@@ -186,7 +186,8 @@ def test_unknown_family_raises():
 
 
 @pytest.mark.parametrize("method,args,match", [
-    ("quantize", (), "int8"), ("with_mesh", (None,), "multi-device")])
+    pytest.param("with_mesh", (None,), "multi-device",
+                 id="with_mesh-args1-multi-device")])
 def test_unported_features_raise(method, args, match):
     vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE),
                                device="cpu")
