@@ -24,11 +24,14 @@ Phases (each prints its findings; any failure exits non-zero):
    SD3 tile and v1's two small-Cout heads, the reference's
    decompositions (``_conv3d_edge_time_fast``, ``_conv3d_edge_fast``)
    against the materialised pad, in fp32 and bf16 (``edge_check``), and
-   the three timed in turns.  K5 (the int8 conv) bit-equal to its plain
-   version in bf16 and fp32 on small ragged cases (``K5_CHECK_CASES``)
-   and at the four int8 path shapes (``K5_PATH_SHAPES``, there on the
-   first 3 and last 2 output frames at full H and W), each timed in bf16
-   beside the bf16 conv it replaces (``bf16_conv_ms``, a yardstick).
+   the three timed in turns.  K5 (the int8 conv: K5.stage, then
+   K5.gemm) bit-equal to its plain version in bf16 and fp32 on small
+   ragged cases (``K5_CHECK_CASES``) and at the four int8 path shapes
+   (``K5_PATH_SHAPES``, there on the first 3 and last 2 output frames at
+   full H and W), each timed in bf16 (stage and GEMM in one window)
+   beside the bf16 conv it replaces (``bf16_conv_ms``, a yardstick);
+   K5.stage alone bit-equal to its plain version at the path shapes and
+   timed there with its bytes bound.
 4. slice   -- full-width v1 and SD3 in fp32 (TF32 off): encode + decode
    on the card (kernels) against the CPU (plain versions); fp32 attention
    takes the exact path, so K4 must launch no time here.  Then each
@@ -39,7 +42,8 @@ Phases (each prints its findings; any failure exits non-zero):
    (``serve.prepare``) for 17x720x1280 clips on an ephemeral port;
    /healthz, /reconstruct, /encode, /decode, /stats; shapes, finiteness,
    byte equality of /reconstruct and /decode(/encode), a launch of every
-   kernel of that path (counts set to 0 just before, read just after),
+   kernel of that path (counts set to 0 just before, read just after;
+   K5.stage and K5.gemm counted apart),
    the latencies, and int8's /reconstruct against bf16's (PSNR).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -309,8 +313,8 @@ INT8_SERVE_PSNR = 35.0
 #: it must launch)
 PATHS = {("v1", "bf16"): (4, ("K1", "K2", "K3", "K4")),
          ("sd3", "bf16"): (16, ("K1", "K2", "K4")),
-         ("v1", "int8"): (4, ("K1", "K2", "K3", "K4", "K5")),
-         ("sd3", "int8"): (16, ("K1", "K2", "K4", "K5"))}
+         ("v1", "int8"): (4, ("K1", "K2", "K3", "K4", "K5", "K5.stage")),
+         ("sd3", "int8"): (16, ("K1", "K2", "K4", "K5", "K5.stage"))}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="cuda",
@@ -325,10 +329,16 @@ KERNELS = {
     "K4": dict(name="flash_attention", route="cuda",
                source="cvvae_tpu_torch/csrc/attention.cu",
                replaces="cvvae_tpu/ops/attention.py:60"),
-    # no Pallas kernel: the int8 conv XLA computes for the reference
+    # no Pallas kernel: the int8 conv XLA computes for the reference; its
+    # timed numbers are stage + GEMM (conv3d_int8), its launches the GEMM's
     "K5": dict(name="conv3d_int8", route="cuda",
                source="cvvae_tpu_torch/csrc/conv_int8.cu",
                replaces="cvvae_tpu/ops/quant.py:256"),
+    # K5's staging pass: the reference's quantize_act_static and its edge
+    # pad on the int8 tensor (XLA)
+    "K5.stage": dict(name="int8_stage", route="cuda",
+                     source="cvvae_tpu_torch/csrc/conv_int8.cu",
+                     replaces="cvvae_tpu/ops/quant.py:75"),
 }
 
 
@@ -337,6 +347,22 @@ def kernel_modules():
                                              shuffle, stem)
     return {"K1": groupnorm, "K2": shuffle, "K3": stem, "K4": attention,
             "K5": conv_int8}
+
+
+#: each kernel's launch counter: (its module's key, the attribute)
+COUNTERS = {**{k: (k, "launches") for k in ("K1", "K2", "K3", "K4", "K5")},
+            "K5.stage": ("K5", "stage_launches")}
+
+
+def launch_counts():
+    mods = kernel_modules()
+    return {k: getattr(mods[m], attr) for k, (m, attr) in COUNTERS.items()}
+
+
+def reset_launch_counts():
+    mods = kernel_modules()
+    for m, attr in COUNTERS.values():
+        setattr(mods[m], attr, 0)
 
 
 def say(*parts):
@@ -685,7 +711,9 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     FLOP.  K5 shape (B, T, H, W, Cin), a ``kernel`` at ``stride`` with
     ``pads`` to ``cout`` channels: x in and the output out in x's dtype,
     the int8 kernel, fp32 scales and bias; 2*taps*Cin int8 operations an
-    output element."""
+    output element.  K5.stage shape (B, T, H, W, Cin) with ``pads`` and
+    the W ``stride``: x in, the staged int8 tensor out
+    (``conv_int8.staged_shape``); one division an input value."""
     e = torch.tensor([], dtype=dtype).element_size()
     numel = math.prod(shape)
     if key == "K1":
@@ -707,16 +735,22 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
         taps = math.prod(kernel)
         return ((numel + out) * e + cout * shape[-1] * taps + 8 * cout,
                 out * 2 * shape[-1] * taps)
+    if key == "K5.stage":
+        from cvvae_tpu_torch.ops.kernels.conv_int8 import staged_shape
+        return (numel * e + math.prod(staged_shape(shape, pads, stride[2]))
+                + 4, numel)
     raise KeyError(key)
 
 
 def bound(key, shape, dtype, **kw):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the FLOP over the peak for the inputs' type (K5's products
-    are int8 whatever x's dtype)."""
+    are int8 whatever x's dtype; K5.stage's divisions fp32)."""
     nbytes, flop = work(key, shape, dtype, **kw)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / PEAK_FLOPS[torch.int8 if key == "K5" else dtype] * 1e3
+    peak = PEAK_FLOPS[{"K5": torch.int8, "K5.stage": torch.float32}.get(
+        key, dtype)]
+    t_ops = flop / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -887,9 +921,14 @@ def _check_kernels(dev):
 def _check_k5(dev, record):
     """K5 bit-equal to its plain version: at K5_CHECK_CASES, then at
     K5_PATH_SHAPES on their first and last output frames, bf16 and fp32;
-    each path shape timed in bf16, in turns with the plain version (on
-    the head frames) and the bf16 conv that int8 replaces (the port's
-    float conv3d on the dequantized kernel, with its edge handling)."""
+    each path shape timed in bf16 (K5.stage then K5.gemm, the packed
+    weight made beforehand as a module keeps it), in turns with the plain
+    version (on the head frames) and the bf16 conv that int8 replaces
+    (the port's float conv3d on the dequantized kernel, with its edge
+    handling).  K5.stage alone bit-equal to its plain version at the path
+    shapes in both dtypes, timed in bf16 in turns with it.  Then the
+    upsample's four phase GEMMs from one staged tensor
+    (:func:`_check_k5_phases`)."""
     from types import SimpleNamespace
 
     from cvvae_tpu_torch.ops import conv
@@ -913,24 +952,13 @@ def _check_k5(dev, record):
     for name, shape, cout, kernel, stride, pads, modes in K5_PATH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x, wq, sw, sx, b = k5_inputs(shape, cout, kernel, dev, dtype)
-            got = conv_int8.conv3d_int8(x, wq, sw, sx, b, stride, pads, modes)
-            torch.cuda.synchronize()
+            _check_k5_stage(record, name, x, sx, pads, modes, stride)
+            wpk = conv_int8.pack_weight(wq)
+            got = conv_int8.conv3d_int8(x, wq, sw, sx, b, stride, pads, modes,
+                                        wpk)
             t_out = got.shape[1]
-            exact, err = True, 0.0
-            windows = [(0, K5_HEAD_FRAMES), (t_out - K5_TAIL_FRAMES, t_out)]
-            for first, last in windows:
-                xs, t_pads = k5_frames(x, kernel, stride, pads, modes, first,
-                                       last)
-                ref = conv_int8.conv3d_int8_plain(
-                    xs, wq, sw, sx, b, stride, (t_pads,) + tuple(pads[1:]),
-                    modes)
-                part = got[:, first:last].contiguous()
-                same = k2_exact(part, ref)
-                exact &= same
-                if not same:
-                    err = max(err, compare(part, ref)[0]
-                              if part.shape == ref.shape else math.inf)
-                del xs, ref, part
+            exact, err = k5_ends_exact(got, x, wq, sw, sx, b, kernel, stride,
+                                       pads, modes)
             del got
             torch.cuda.empty_cache()
             timing = extra = None
@@ -946,7 +974,7 @@ def _check_k5(dev, record):
                         xs, wq, sw, sx, b, stride,
                         (t_pads,) + tuple(pads[1:]), modes),
                     "kernel": lambda: conv_int8.conv3d_int8(
-                        x, wq, sw, sx, b, stride, pads, modes),
+                        x, wq, sw, sx, b, stride, pads, modes, wpk),
                     "bf16_conv": lambda: conv.conv3d(x, float_conv, spec)})
                 timing = (shape, dtype, ms["kernel"], ms["plain"], None,
                           dict(cout=cout, kernel=kernel, stride=stride,
@@ -958,8 +986,91 @@ def _check_k5(dev, record):
                    f"[0, {K5_HEAD_FRAMES}) and [{t_out - K5_TAIL_FRAMES}, "
                    f"{t_out}) bit-exact={exact}", err,
                    0.0 if exact else 1.0, "tol=bit-exact", timing, extra)
-            del x, wq, sw, sx, b
+            del x, wq, sw, sx, b, wpk
             torch.cuda.empty_cache()
+    _check_k5_phases(dev, record)
+
+
+def k5_ends_exact(got, x, wq, sw, sx, b, kernel, stride, pads, modes):
+    """(bit-equal, max|d|) of a K5 output ``got`` against the plain
+    version on its first K5_HEAD_FRAMES and last K5_TAIL_FRAMES output
+    frames."""
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+
+    torch.cuda.synchronize()
+    t_out = got.shape[1]
+    exact, err = True, 0.0
+    for first, last in ((0, K5_HEAD_FRAMES), (t_out - K5_TAIL_FRAMES, t_out)):
+        xs, t_pads = k5_frames(x, kernel, stride, pads, modes, first, last)
+        ref = conv_int8.conv3d_int8_plain(
+            xs, wq, sw, sx, b, stride, (t_pads,) + tuple(pads[1:]), modes)
+        part = got[:, first:last].contiguous()
+        same = k2_exact(part, ref)
+        exact &= same
+        if not same:
+            err = max(err, compare(part, ref)[0]
+                      if part.shape == ref.shape else math.inf)
+        del xs, ref, part
+    return exact, err
+
+
+def _check_k5_phases(dev, record):
+    """The upsample's four phase GEMMs as ``upsample_conv._int8_phases``
+    runs them, at the upsample_phase path shape: x staged once with (1,1)
+    H and W pads, each phase's GEMM reading its (1,0)/(0,1) window of it
+    (origin 0 or 1 in H and W), no bias; each bit-equal to the plain int8
+    conv with the phase's own pads on its first and last output frames,
+    bf16 and fp32."""
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+
+    shape, cout, kernel, stride, pads, modes = next(
+        c[1:] for c in K5_PATH_SHAPES if c[0] == "upsample_phase")
+    for dtype in (torch.bfloat16, torch.float32):
+        x, wq, sw, sx, _ = k5_inputs(shape, cout, kernel, dev, dtype,
+                                     with_bias=False)
+        wpk = conv_int8.pack_weight(wq)
+        staged = conv_int8.stage(x, sx, (pads[0], (1, 1), (1, 1)), modes)
+        for hp in ((1, 0), (0, 1)):
+            for wp in ((1, 0), (0, 1)):
+                phase = (pads[0], hp, wp)
+                got = conv_int8.gemm(staged, wq, sw, sx, None, stride, phase,
+                                     wpk)
+                exact, err = k5_ends_exact(got, x, wq, sw, sx, None, kernel,
+                                           stride, phase, modes)
+                record("K5", f"upsample_phase one stage "
+                       f"{tuple(staged.xq.shape)} {dtype}, GEMM window "
+                       f"pads={phase} output frames [0, {K5_HEAD_FRAMES}) "
+                       f"and the last {K5_TAIL_FRAMES} bit-exact={exact}",
+                       err, 0.0 if exact else 1.0, "tol=bit-exact")
+                del got
+        del x, wq, sw, sx, wpk, staged
+        torch.cuda.empty_cache()
+
+
+def _check_k5_stage(record, name, x, sx, pads, modes, stride):
+    """K5.stage at a path shape against its plain version, bit for bit;
+    timed in bf16, in turns with it."""
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+
+    got = conv_int8.stage(x, sx, pads, modes, stride[2]).xq
+    ref = conv_int8.stage_plain(x, sx, pads, modes, stride[2])
+    torch.cuda.synchronize()
+    exact = got.shape == ref.shape and torch.equal(got, ref)
+    err = (0.0 if exact else (got.float() - ref.float()).abs().max().item()
+           if got.shape == ref.shape else math.inf)
+    del got, ref
+    torch.cuda.empty_cache()
+    timing = None
+    if x.dtype == torch.bfloat16:
+        k_ms, p_ms, _ = in_turns(
+            lambda: conv_int8.stage_plain(x, sx, pads, modes, stride[2]),
+            lambda: conv_int8.stage(x, sx, pads, modes, stride[2]))
+        timing = (tuple(x.shape), x.dtype, k_ms, p_ms, None,
+                  dict(stride=stride, pads=pads))
+        torch.cuda.empty_cache()
+    record("K5.stage", f"{name} {tuple(x.shape)} {x.dtype} pads={pads} "
+           f"{modes} bit-exact={exact}", err, 0.0 if exact else 1.0,
+           "tol=bit-exact", timing, dict(name=name) if timing else None)
 
 
 def _attention_fp32(dev, smi):
@@ -1094,10 +1205,10 @@ def _check_slice(dev, family):
 
 def _check_int8_slice(dev, family):
     """The family's full-width net quantized and calibrated once on the
-    CPU (plain versions), its state carried to the card; encode + decode
-    of the same clip in fp32 activations (TF32 off) on the card (K5 at the
-    convs of at least INT8_MIN_POSITIONS positions) against the CPU, held
-    by the frames' PSNR."""
+    card, its state carried to the CPU; encode + decode of the same clip
+    in fp32 activations (TF32 off) on the card (K5 at the convs of at
+    least INT8_MIN_POSITIONS positions) against the CPU (plain versions),
+    held by the frames' PSNR."""
     from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
     from cvvae_tpu_torch.ops.quant import load_quantized_state
 
@@ -1107,16 +1218,15 @@ def _check_int8_slice(dev, family):
     x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, clip)
                          .astype(np.float32))
     t0 = time.perf_counter()
-    q = VideoVAE.from_config(cfg, seed=0, device="cpu").quantize(
-        calibration=x)
-    state = q.state_dict()
+    on_card = VideoVAE.from_config(cfg, seed=0, device=dev).quantize(
+        calibration=x.to(dev))
+    torch.cuda.synchronize()
     t_cal = time.perf_counter() - t0
+    state = {k: v.cpu() for k, v in on_card.state_dict().items()}
     outs = {}
     for d in ("cpu", dev):
-        if d != "cpu":
-            q = load_quantized_state(
-                VideoVAE.from_config(cfg, seed=0, device=d).quantize(),
-                {k: v.to(d) for k, v in state.items()})
+        q = on_card if d != "cpu" else load_quantized_state(
+            VideoVAE.from_config(cfg, seed=0, device="cpu").quantize(), state)
         k5.launches = 0
         t0 = time.perf_counter()
         rec = q.decode(q.encode(x.to(d)).mode())
@@ -1127,6 +1237,7 @@ def _check_int8_slice(dev, family):
             f"launches {k5.launches}")
         outs[str(d)] = rec.cpu()
         del q
+    del on_card
     n_q = sum(k.endswith("weight_q") for k in state)
     n_x = sum(k.endswith("scale_x") for k in state)
     if k5.launches == 0:
@@ -1140,7 +1251,7 @@ def _check_int8_slice(dev, family):
     db = 10 * math.log10(peak ** 2 / mse) if mse > 0 else math.inf
     ok = db >= INT8_SLICE_PSNR
     say(f"[slice] {family} int8: {n_q} convs quantized, {n_x} calibrated "
-        f"on the CPU in {t_cal:.1f}s; card against CPU frames PSNR {db!r} "
+        f"on the card in {t_cal:.1f}s; card against CPU frames PSNR {db!r} "
         f"dB over 2 max|ref| = {peak!r} (>= {INT8_SLICE_PSNR}; over 2: "
         f"{10 * math.log10(4.0 / mse) if mse > 0 else math.inf!r}), max_abs_err "
         f"{(got - ref).abs().max().item()!r} {'ok' if ok else 'FAIL'}")
@@ -1193,24 +1304,22 @@ def _serve(dev, smi, path):
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    mods = kernel_modules()
     try:
         clip = np.random.RandomState(0).randint(0, 256, (t, h, w, 3),
                                                 dtype=np.uint8)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for m in mods.values():
-            m.launches = 0
+        reset_launch_counts()
         health, _ = _request(port, "GET", "/healthz")
         if json.loads(health) != {"ok": True}:
             raise SystemExit(f"/healthz: {health!r}")
         rec_b, t_rec = _request(port, "POST", "/reconstruct", clip)
-        per_rec = {k: m.launches for k, m in mods.items()}
+        per_rec = launch_counts()
         z_b, t_enc = _request(port, "POST", "/encode", clip)
         z = np.load(io.BytesIO(z_b), allow_pickle=False)
         dec_b, t_dec = _request(port, "POST", "/decode", z)
         stats_b, _ = _request(port, "GET", "/stats")
-        launches = {k: m.launches for k, m in mods.items()}
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         # the /reconstruct's frames before the worker's uint8 cast, for
         # int8's agreement with bf16 as the reference measures it
@@ -1293,10 +1402,19 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     say(f"[device] {smi}")
     t_start = time.perf_counter()
+    # wall seconds of each phase, printed at the end
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 2)
+        return out
 
     # phase 2: build
     t0 = time.perf_counter()
     _build.library()
+    phase_s["build"] = round(time.perf_counter() - t0, 2)
     say(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f}s (nvcc {_build.last_build_seconds:.2f}s)"
         f" into {_build.build_dir()}")
@@ -1308,19 +1426,20 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions, fp32 attention's exact
     # path, the edge-pad convs
-    summary = _check_kernels(dev)
-    _attention_fp32(dev, smi)
-    _check_edge_convs(dev, smi)
+    summary = timed("kernels", _check_kernels, dev)
+    timed("attention_fp32", _attention_fp32, dev, smi)
+    timed("edge_convs", _check_edge_convs, dev, smi)
     # phase 4: the slice, card against CPU, in float and in int8
     for family in SLICE_CLIPS:
-        _check_slice(dev, family)
+        timed(f"slice_{family}", _check_slice, dev, family)
     for family in INT8_SLICE_CLIPS:
-        _check_int8_slice(dev, family)
+        timed(f"int8_slice_{family}", _check_int8_slice, dev, family)
     # phase 5: serving, each path with its own counts; int8's frames
     # against bf16's
     by_path = {}
     for path in PATHS:
-        by_path["-".join(path)] = _serve(dev, smi, path)
+        by_path["-".join(path)] = timed("serve_" + "-".join(path), _serve,
+                                        dev, smi, path)
     for variant, dtype in PATHS:
         if dtype == "int8":
             (q_u8, q_f), (b_u8, b_f) = (by_path[f"{variant}-{d}"][2]
@@ -1355,7 +1474,8 @@ def main() -> int:
                                           "bound_by", "share",
                                           "library_ms")},
             timed=summary[k]["timed"]))
-    say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; "
+        f"wall s by phase: {json.dumps(phase_s)}")
     say(f"[card] {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -48,8 +48,7 @@
 // bf16 only, as the reference's flash is: fp32 attention takes the
 // exact path (cvvae_tpu_torch/ops/attention.py).
 #include "common.cuh"
-
-#include <cuda.h>
+#include "hopper.cuh"
 #include <math.h>
 
 namespace {
@@ -99,25 +98,6 @@ struct Layout {
   static constexpr int bytes = x_off + 4 * kBM * kBK * 4 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
 // arrive on the barrier at the same offset in block ``cta`` of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
                                                     uint32_t cta) {
@@ -128,35 +108,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
           "r"(smem_u32(bar)),
       "r"(cta)
       : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait until the phase of parity ``parity`` has completed; a wait that
-// lasts 10 s (a lost load) traps rather than holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = now_ns();
-  while (!mbar_try(bar, parity))
-    if (now_ns() - t0 > 10000000000ull) __trap();
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -171,12 +122,6 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::
           : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
 }
 
 // one box of a (D, S, B) tensor seen as (64, S, D/64, B) (make_map): rows
@@ -209,26 +154,6 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst,
       : "memory");
 }
 
-// wgmma operand descriptor of a 128-byte-swizzled tile: start address,
-// leading and stride byte offsets (PTX ISA, "matrix descriptor")
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // keep the compiler from moving accesses of wgmma's registers across
 // its issue and its wait
 template <int N>
@@ -700,28 +625,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
           pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
   if (loads_k || loads_v) ld.drain();
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link to libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a (B, S, D) bf16 tensor seen as (64, S, D/64, B), innermost first, and

@@ -18,11 +18,14 @@ A conv is quantized when its kernel is 5-D with ``C_in >= min_cin``
 the RGB and latent heads and the 1×1×1 shortcuts stay in float.
 
 On a CUDA tensor the int8 conv is the hand-written kernel K5
-(``ops/kernels/conv_int8.py``), which quantizes the activation as it
-loads it and takes the edge pads in its addressing.  The reference
-materialises its edge pads on the int8 tensor (the default path of
-``conv3d_int8``); its other branch (``EDGE_FAST_SPACE``, off by default)
-is not ported.
+(``ops/kernels/conv_int8.py``) in the reference's steps: a staging pass
+quantizes the activation and materialises its pads on the int8 tensor (as
+the default path of the reference's ``conv3d_int8`` does), then an s8
+GEMM reads a window of it.  The reference's other branch
+(``EDGE_FAST_SPACE``, off by default) is not ported.  K5's packed kernel
+is built once per module at first use (:func:`packed_weight`) and kept as
+a non-persistent buffer, never in the state dict, and built again when
+the int8 kernel it came from changes (:func:`derived`).
 
 Below ``INT8_MIN_POSITIONS`` positions (T·H·W) a quantized conv runs in
 float on the dequantized kernel, as the reference does, so the two
@@ -32,7 +35,8 @@ compute the same function at every shape.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+import weakref
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,10 +49,17 @@ from cvvae_tpu_torch.ops.kernels import conv_int8 as k5
 INT8_MIN_POSITIONS = 5 * 64 * 64
 
 
+def _over_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 rounded as one division on every device: PyTorch's CUDA
+    division by a Python number multiplies by its rounded reciprocal,
+    which can differ from the CPU's quotient in the last bit."""
+    return t / t.new_tensor(127.0)
+
+
 def quantize_kernel(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, I, kT, kH, kW) float -> (int8 kernel, fp32 per-O scale)."""
     w = weight.float()
-    scale = w.abs().amax(dim=(1, 2, 3, 4)) / 127.0
+    scale = _over_127(w.abs().amax(dim=(1, 2, 3, 4)))
     scale = torch.clamp_min(scale, 1e-12)
     wq = torch.clamp(torch.round(w / scale[:, None, None, None, None]),
                      -127, 127).to(torch.int8)
@@ -70,7 +81,7 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def act_scale(x: torch.Tensor) -> torch.Tensor:
     """The dynamic scale of ``x``: max(max|x| / 127, 1e-12), an fp32
     scalar tensor on x's device (one reduction, no host sync)."""
-    return torch.clamp_min(x.float().abs().amax() / 127.0, 1e-12)
+    return torch.clamp_min(_over_127(x.float().abs().amax()), 1e-12)
 
 
 def quantize_act_static(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -123,10 +134,42 @@ def attach_activation_scales(calib: Dict[nn.Module, float], *,
 def conv_int8(x: torch.Tensor, scale_x: torch.Tensor, kernel_fp: torch.Tensor,
               pads, modes, stride=(1, 1, 1)) -> torch.Tensor:
     """int8 conv of ``x`` quantized with ``scale_x`` and a float kernel
-    (O, I, kT, kH, kW) quantized here per channel (the upsample's derived
-    phase kernels), no bias, output in x's dtype."""
+    (O, I, kT, kH, kW) quantized here per channel (the reference's helper
+    for derived kernels), no bias, output in x's dtype.  The upsample's
+    phases take K5's staged form instead (``ops/upsample_conv.py``)."""
     wq, scale_w = quantize_kernel(kernel_fp)
     return k5.conv3d_int8(x, wq, scale_w, scale_x, None, stride, pads, modes)
+
+
+def derived(params, name: str,
+            build: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """The non-persistent buffer ``name`` of a quantized conv, ``build()``
+    from its ``weight_q`` and ``scale_w``.  It is kept while those are the
+    same tensors at the same version and address, and built again when
+    one changes: ``load_state_dict`` copies into them (a new version), a
+    move to another device or an assignment replaces them."""
+    src = [(weakref.ref(t), t._version, t.data_ptr())
+           for t in (params.weight_q, params.scale_w)]
+    made = params.__dict__.setdefault("_derived_from", {})
+    old = made.get(name)
+    buf = params._buffers.get(name)
+    if buf is None or old is None or any(
+            r0() is not r1() or v0 != v1 or p0 != p1
+            for (r0, v0, p0), (r1, v1, p1) in zip(old, src)):
+        buf = build()
+        params.register_buffer(name, buf, persistent=False)
+        made[name] = src
+    return buf
+
+
+def packed_weight(params) -> Optional[torch.Tensor]:
+    """K5's B (``conv_int8.pack_weight``) of a quantized conv on the card,
+    the non-persistent buffer ``k5_wpk`` (:func:`derived`); None on the
+    CPU, whose plain version reads ``weight_q``."""
+    if params.weight_q.device.type == "cpu":
+        return None
+    return derived(params, "k5_wpk",
+                   lambda: k5.pack_weight(params.weight_q))
 
 
 def _eligible(m: nn.Module, min_cin: int, min_cout: int) -> bool:
@@ -185,4 +228,5 @@ def conv3d_int8(x: torch.Tensor, params, spec) -> torch.Tensor:
     if scale_x is None:
         scale_x = act_scale(x)
     return k5.conv3d_int8(x, params.weight_q, params.scale_w, scale_x,
-                          params.bias, spec.stride, spec.pads, spec.modes)
+                          params.bias, spec.stride, spec.pads, spec.modes,
+                          packed_weight(params))

@@ -14,8 +14,10 @@ split are one pass, which on a CUDA tensor is the hand-written kernel K2
 
 Quantized params (``weight_q``, ``scale_w``) take the reference's int8
 branch: the phase kernels are summed from the dequantized kernel in fp32,
-quantized again per channel, and run as four int8 convs (K5 on a CUDA
-tensor) whose pads K5 takes in its addressing.
+quantized again per channel (once per module, kept as non-persistent
+buffers), and run as four int8 convs (K5 on a CUDA tensor) over one
+staged tensor: x quantized once with its H and W padded by one on each
+side, each phase reading its window of it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from cvvae_tpu_torch.ops import quant
+from cvvae_tpu_torch.ops.kernels import conv_int8 as k5
 from cvvae_tpu_torch.ops.kernels.shuffle import subpixel_interleave
 
 _CORNERS = (("even", "even"), ("even", "odd"), ("odd", "even"), ("odd", "odd"))
@@ -55,12 +58,11 @@ def upsample2x_conv3x3_interleave(x: torch.Tensor, params, *, n: int,
     and ``bias`` (n*c,) or None."""
     if quant.is_quantized(params):
         quant.maybe_record_act(params, x)
-        kernel = quant.dequantize_kernel(params)
         if x.shape[1] * x.shape[2] * x.shape[3] >= quant.INT8_MIN_POSITIONS:
-            phases = _int8_phases(x, params, kernel, t_pad, t_mode, hw_mode)
+            phases = _int8_phases(x, params, t_pad, t_mode, hw_mode)
             return subpixel_interleave(phases, params.bias, n=n,
                                        drop_first=drop_first)
-        kernel = kernel.to(x.dtype)
+        kernel = quant.dequantize_kernel(params).to(x.dtype)
     else:
         kernel = params.weight.to(x.dtype)
     xn = x.permute(0, 4, 1, 2, 3)
@@ -85,18 +87,42 @@ def upsample2x_conv3x3_interleave(x: torch.Tensor, params, *, n: int,
     return subpixel_interleave(phases, params.bias, n=n, drop_first=drop_first)
 
 
-def _int8_phases(x: torch.Tensor, params, kernel: torch.Tensor,
-                 t_pad: Tuple[int, int], t_mode: str, hw_mode: str):
+def _phase_weights(params):
+    """The four phase kernels of quantized ``params`` as K5 takes them:
+    (int8 kernels (4, O, I, kT, 2, 2), their scales (4, O), and on the card
+    their packed form, else None).  The phase sums are taken in fp32 from
+    the dequantized kernel, as the reference takes them, then quantized
+    per channel; kept as non-persistent buffers while the int8 kernel
+    stays the same (``quant.derived``)."""
+    def quantized(i):
+        return torch.stack([quant.quantize_kernel(k)[i] for k in
+                            _phase_kernels(quant.dequantize_kernel(params))])
+
+    wq = quant.derived(params, "k5_phase_wq", lambda: quantized(0))
+    sw = quant.derived(params, "k5_phase_sw", lambda: quantized(1))
+    wpk = None
+    if wq.device.type != "cpu":
+        wpk = quant.derived(params, "k5_phase_wpk", lambda: torch.stack(
+            [k5.pack_weight(k) for k in wq]))
+    return wq, sw, wpk
+
+
+def _int8_phases(x: torch.Tensor, params, t_pad: Tuple[int, int],
+                 t_mode: str, hw_mode: str):
     """The four phases of the int8 branch, (B,T',H,W,n*c) each in x's
-    dtype, without the bias.  ``kernel`` is the dequantized fp32 kernel:
-    the phase sums are taken in fp32, as the reference takes them, then
-    quantized per channel.  The reference materialises the edge pads
-    (time ``t_pad``; H/W by one, read through (0,-1)/(-1,0) windows); in
-    K5's addressing those windows are edge pads of (1,0)/(0,1)."""
+    dtype, without the bias.  The reference materialises the edge pads
+    (time ``t_pad``; H/W by one, read through (0,-1)/(-1,0) windows) and
+    runs each phase with its (1,0)/(0,1) H/W pads; here x is quantized
+    and padded once, time by ``t_pad`` and H/W by (1,1) in ``hw_mode``
+    (K5.stage), and each phase reads its window of that."""
     scale_x = getattr(params, "scale_x", None)
     if scale_x is None:
         scale_x = quant.act_scale(x)
+    wq, sw, wpk = _phase_weights(params)
+    staged = k5.stage(x, scale_x, (tuple(t_pad), (1, 1), (1, 1)),
+                      (t_mode, hw_mode, hw_mode))
     pads = {"even": (1, 0), "odd": (0, 1)}
-    return [quant.conv_int8(x, scale_x, k, (tuple(t_pad), pads[hp], pads[wp]),
-                            (t_mode, hw_mode, hw_mode))
-            for k, (hp, wp) in zip(_phase_kernels(kernel), _CORNERS)]
+    return [k5.gemm(staged, wq[i], sw[i], scale_x, None, (1, 1, 1),
+                    (tuple(t_pad), pads[hp], pads[wp]),
+                    None if wpk is None else wpk[i])
+            for i, (hp, wp) in enumerate(_CORNERS)]

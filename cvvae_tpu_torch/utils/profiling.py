@@ -42,7 +42,8 @@ GROUPS = [
     ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
     ("K2 subpixel interleave", r"subpixel|interleave"),
     ("K3 stem conv", r"stem"),
-    ("K5 int8 conv", r"conv3d_int8"),
+    ("K5.gemm int8 GEMM", r"int8_gemm"),
+    ("K5.stage int8 staging", r"int8_stage"),
     ("cuDNN 3D convs", r"xmma|implicit_gemm|conv|cudnn|cutlass|fprop"),
     ("replicate pads", r"replication_pad"),
     ("zero pads", r"constant_pad"),

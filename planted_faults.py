@@ -21,8 +21,9 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   by ``chip_smoke.k3_check``;
 - K2, bf16 and fp32, at ``chip_smoke.K2_CASES`` and
   ``chip_smoke.K2_CHECK_SHAPES``, held bit-exact (``chip_smoke.k2_exact``);
-- K5, bf16 and fp32, at ``chip_smoke.k5_check_cases`` on
-  ``chip_smoke.k5_inputs``, held bit-exact to its plain version.
+- K5 (K5.stage then K5.gemm), bf16 and fp32, at
+  ``chip_smoke.k5_check_cases`` on ``chip_smoke.k5_inputs``, held
+  bit-exact to its plain version.
 
 The edge-pad decompositions of ``cvvae_tpu_torch/ops/conv.py`` are held
 the same way: the faults of EDGE_FAULTS are planted in copies of that
@@ -105,18 +106,22 @@ FAULTS = {
         "K2", "shuffle.cu",
         "reinterpret_cast<const V*>(bias)[j * cv + ci];",
         "reinterpret_cast<const V*>(bias)[((j + 1) % n) * cv + ci];"),
-    "W's edge pad read as zeros (not clamped)": (
+    "the staging pass's edge pads read as zeros (not replicated)": (
         "K5", "conv_int8.cu",
-        "        if (!a.edgeW) continue;",
-        "        continue;"),
+        "    if (!edge) return -1;",
+        "    return -1;"),
+    "the last tap row dropped from the GEMM's K loop": (
+        "K5", "conv_int8.cu",
+        "  return a.kT * a.kH;",
+        "  return a.kT * a.kH - 1;"),
     "scale_w[0] used for every channel": (
         "K5", "conv_int8.cu",
-        "__fmul_rn(sx, scale_w[o])",
-        "__fmul_rn(sx, scale_w[0])"),
-    "the last slab (the last tap row's last Cin chunk) dropped": (
+        "__ldg(scale_w + c)",
+        "__ldg(scale_w)"),
+    "every tap of a reused A strip read from its first row": (
         "K5", "conv_int8.cu",
-        "const int n_slabs = a.kT * a.kH * n_cc;",
-        "const int n_slabs = a.kT * a.kH * n_cc - 1;"),
+        "          int row0 = dw;",
+        "          int row0 = 0;"),
 }
 
 

@@ -62,6 +62,14 @@ def test_k1_check_takes_one_rounding_of_fp32(offset, silu, per_frame):
     ("K5", (1, 17, 720, 1280, 128),
      dict(cout=128, kernel=(3, 3, 3), stride=(2, 2, 2),
           pads=((2, 0), (0, 1), (0, 1))), 4.54, 1.835, 1.36, "bytes"),
+    # K5.stage: 4.01 GB of bf16 in, (19, 722, 1282, 128) int8 out
+    ("K5.stage", (1, 17, 720, 1280, 128),
+     dict(stride=(1, 1, 1), pads=((2, 0), (1, 1), (1, 1))), 6.26, None, 1.87,
+     "bytes"),
+    # at W stride 2 the staged W (1281) is rounded up to 1282
+    ("K5.stage", (1, 17, 720, 1280, 128),
+     dict(stride=(2, 2, 2), pads=((2, 0), (0, 1), (0, 1))), 6.26, None,
+     1.87, "bytes"),
 ])
 def test_bounds_of_the_main_path_shapes(key, shape, kw, gb, tflop, ms, by):
     nbytes, flop = chip_smoke.work(key, shape, torch.bfloat16, **kw)
@@ -204,13 +212,15 @@ def test_k5_frames_give_the_output_frames(case):
 
 
 def test_k5_pack_weight_layout():
-    """The kernel's B: (O padded to 128, taps, Cin padded to 32), taps in
-    (dt, dh, dw) order, zeros in the padding."""
+    """The GEMM's B: (O padded to the 128-channel N tile, taps, Cin padded
+    to the 128-channel K chunk), taps in (dt, dh, dw) order, zeros in the
+    padding."""
     from cvvae_tpu_torch.ops.kernels import conv_int8
 
+    assert (conv_int8.BN, conv_int8.KC) == (128, 128)
     wq = torch.randint(-127, 128, (24, 40, 3, 2, 2), dtype=torch.int8)
     packed = conv_int8.pack_weight(wq)
-    assert packed.shape == (128, 12, 64) and packed.dtype == torch.int8
+    assert packed.shape == (128, 12, 128) and packed.dtype == torch.int8
     assert torch.equal(packed[5, (2 * 2 + 1) * 2 + 0, :40], wq[5, :, 2, 1, 0])
     assert not packed[24:].any() and not packed[:, :, 40:].any()
 

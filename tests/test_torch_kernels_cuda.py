@@ -274,17 +274,34 @@ def test_conv_int8_kernel_bit_exact(dev, dtype, case):
     _, half, (shape, cout, kernel, stride, pads, modes, bias) = case
     args = chip_smoke.k5_inputs(shape, cout, kernel, dev, dtype, bias,
                                 half_steps=half)
-    before = conv_int8.launches
+    before = conv_int8.launches, conv_int8.stage_launches
     got = conv_int8.conv3d_int8(*args, stride, pads, modes)
     torch.cuda.synchronize()
-    assert conv_int8.launches == before + 1
+    assert (conv_int8.launches, conv_int8.stage_launches) == (
+        before[0] + 1, before[1] + 1)
     ref = conv_int8.conv3d_int8_plain(*args, stride, pads, modes)
     assert chip_smoke.k2_exact(got, ref)
 
 
+# K5.stage alone: the staged int8 tensor, pads and zero padding included,
+# equal to its plain version's
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(chip_smoke.k5_check_cases()),
+                         ids=lambda c: f"{c[0]}{'-half' if c[1] else ''}")
+def test_int8_stage_kernel_bit_exact(dev, dtype, case):
+    _, half, (shape, cout, kernel, stride, pads, modes, bias) = case
+    x, _, _, sx, _ = chip_smoke.k5_inputs(shape, cout, kernel, dev, dtype,
+                                          bias, half_steps=half)
+    got = conv_int8.stage(x, sx, pads, modes, stride[2])
+    torch.cuda.synchronize()
+    ref = conv_int8.stage_plain(x, sx, pads, modes, stride[2])
+    assert got.xq.dtype == torch.int8 and torch.equal(got.xq, ref)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_int8_kernel_misaligned_input(dev, dtype):
-    """A view that starts off a 16-byte boundary takes the scalar loads."""
+    """A view that starts off a 16-byte boundary takes the staging pass's
+    scalar loads."""
     shape, cout, kernel, stride, pads, modes, bias = \
         chip_smoke.K5_CHECK_CASES[1]
     x, *rest = chip_smoke.k5_inputs(shape, cout, kernel, dev, dtype, bias)
@@ -294,6 +311,36 @@ def test_conv_int8_kernel_misaligned_input(dev, dtype):
     got = conv_int8.conv3d_int8(xv, *rest, stride, pads, modes)
     ref = conv_int8.conv3d_int8_plain(x, *rest, stride, pads, modes)
     assert chip_smoke.k2_exact(got, ref)
+    staged = conv_int8.stage(xv, rest[2], pads, modes)
+    assert torch.equal(staged.xq, conv_int8.stage_plain(x, rest[2], pads,
+                                                        modes))
+
+
+@pytest.mark.parametrize("hw_mode", ["zero", "edge"])
+def test_int8_upsample_stages_once_on_the_card(dev, hw_mode):
+    """The upsample's four phase GEMMs read one staged tensor: one stage
+    launch, four GEMM launches, frames equal to the CPU's."""
+    from cvvae_tpu_torch.ops import quant
+    from cvvae_tpu_torch.ops.upsample_conv import \
+        upsample2x_conv3x3_interleave
+
+    m = torch.nn.Module()
+    m.weight = torch.nn.Parameter(_randn((96, 64, 3, 3, 3), 11, "cpu",
+                                         torch.bfloat16, 0.05))
+    m.bias = torch.nn.Parameter(_randn((96,), 12, "cpu", torch.bfloat16, 0.1))
+    quant.quantize_conv_params(m, min_cin=1)
+    m.register_buffer("scale_x", torch.tensor(2.5 / 127))
+    # 5 x 64 x 70 positions: past INT8_MIN_POSITIONS, so int8
+    x = _randn((1, 5, 64, 70, 64), 13, "cpu", torch.bfloat16)
+    kw = dict(n=2, t_pad=(2, 0), t_mode="edge", hw_mode=hw_mode)
+    ref = upsample2x_conv3x3_interleave(x, m, **kw)
+    m.to(dev)
+    before = conv_int8.launches, conv_int8.stage_launches
+    got = upsample2x_conv3x3_interleave(x.to(dev), m, **kw)
+    torch.cuda.synchronize()
+    assert (conv_int8.launches, conv_int8.stage_launches) == (
+        before[0] + 4, before[1] + 1)
+    assert chip_smoke.k2_exact(got.cpu(), ref)
 
 
 def test_quantized_conv_dynamic_scale_on_the_card(dev):
@@ -320,15 +367,35 @@ def test_conv_int8_refuses_what_it_does_not_take(dev):
                                             dev, torch.float32)
     ok = ((1, 1, 1), ((1, 1), (1, 1), (1, 1)), ("zero",) * 3)
     conv_int8.conv3d_int8(x, wq, sw, sx, b, *ok)
+    wide = torch.zeros((16, 32, 3, 3, 4), dtype=torch.int8, device=dev)
     for bad in (
             (x.half(), wq, sw, sx, b) + ok,
             (x.transpose(2, 3), wq, sw, sx, b) + ok,
             (x, wq.float(), sw, sx, b) + ok,
             (x, wq, sw, sx, b, (1, 1, 1), ((1, 1), (-1, 1), (1, 1)), ok[2]),
             (x, wq, sw, sx, b, ok[0], ok[1], ("zero", "reflect", "zero")),
-            (x, wq, sw, sx, b, (1, 1, 4)) + ok[1:]):
+            # a W stride past kMaxSW, a kernel wider than kMaxKW
+            (x, wq, sw, sx, b, (1, 1, 4)) + ok[1:],
+            (x, wide, sw, sx, b) + ok):
+        before = conv_int8.launches, conv_int8.stage_launches
         with pytest.raises(ValueError):
             conv_int8.conv3d_int8(*bad)
+        assert (conv_int8.launches, conv_int8.stage_launches) == before
+    # the staging pass alone
+    for bad in ((x.half(), sx, ok[1], ok[2]),
+                (x.transpose(2, 3), sx, ok[1], ok[2]),
+                (x, sx, ((1, 1), (-1, 1), (1, 1)), ok[2]),
+                (x, sx, ok[1], ("zero", "reflect", "zero"))):
+        with pytest.raises(ValueError):
+            conv_int8.stage(*bad)
+    # a GEMM window past the staged pads, or a W stride that does not
+    # divide the staged W
+    staged = conv_int8.stage(x, sx, ok[1], ok[2])
+    with pytest.raises(ValueError):
+        conv_int8.gemm(staged, wq, sw, sx, b, (1, 1, 1),
+                       ((2, 0), (1, 1), (1, 1)))
+    with pytest.raises(ValueError):
+        conv_int8.gemm(staged, wq, sw, sx, b, (1, 1, 2), ok[1])
 
 
 def test_quantize_calibrates_on_a_window_of_a_clip(dev):

@@ -163,10 +163,10 @@ def test_nothing_is_built_at_import():
     assert _build.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in _build._sources()} == {
         "attention.cu", "common.cuh", "conv_int8.cu", "groupnorm.cu",
-        "shuffle.cu", "stem.cu"}
+        "hopper.cuh", "shuffle.cu", "stem.cu"}
     assert set(_build._SIGNATURES) == {
         "cvvae_group_norm", "cvvae_subpixel_interleave", "cvvae_stem_conv3d",
-        "cvvae_flash_attention", "cvvae_conv3d_int8"}
+        "cvvae_flash_attention", "cvvae_int8_stage", "cvvae_int8_gemm"}
 
 
 def test_layout_check_names_the_fix():
