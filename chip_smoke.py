@@ -45,9 +45,23 @@ Phases (each prints its findings; any failure exits non-zero):
    kernel of that path (counts set to 0 just before, read just after;
    K5.stage and K5.gemm counted apart),
    the latencies, and int8's /reconstruct against bf16's (PSNR).
+6. stream  -- a seeded 45x720x1280 uint8 clip through ``streaming.py``
+   with the served v1 int8 model (encode windows 17, 17, 13; decode
+   windows 5, 5, 4): the serial stream's bytes equal the batch path's,
+   prefetch 1 and 3 and the pipelined loop equal the serial stream's,
+   chunk_batch=2's latents (the encoder at B = 2) bit-equal to the serial
+   ones;
+   the stream's launches (counts set to 0 just before), wall time, fps and
+   peak memory beside one 17-frame window's.
+7. ckpt    -- full-width random v1 and SD3 models written as the
+   reference's HF directories (``write_reference_checkpoint``) and loaded
+   with ``VideoVAE.from_pretrained``: weights, latents and frames
+   bit-equal to the source model's on a 17x256x256 clip; a Lightning .ckpt
+   with a non-VAE key; an int8 /reconstruct served from --vae_path equal
+   to the one served from the same seed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the per-kernel JSON summary (launches on the served paths, and at each
+the per-kernel JSON summary (launches on the served and streamed paths, and at each
 timed shape ms, plain_ms, bound_ms, bound_by, share and library_ms; the
 top-level numbers are those of the bf16 shape with the largest bound).
 It imports nothing of JAX.
@@ -139,6 +153,13 @@ SLICE_CLIPS = {"v1": (1, 9, 64, 64, 3), "sd3": (1, 5, 256, 256, 3)}
 INT8_SLICE_CLIPS = {"v1": (1, 9, 64, 64, 3), "sd3": (1, 5, 128, 128, 3)}
 #: the served clip (T, H, W)
 SERVE_CLIP = (17, 720, 1280)
+#: phase 6's streamed clip (T, H, W): encode windows of 17, 17 and 13
+#: frames, decode windows of 5, 5 and 4 latents, so both ragged tails run
+STREAM_CLIP = (45, 720, 1280)
+#: the served path phase 6 streams: (variant, --dtype)
+STREAM_PATH = ("v1", "int8")
+#: phase 7's clip (T, H, W) for the loaded models' outputs
+CKPT_CLIP = (17, 256, 256)
 #: K1's shapes on the 720p paths (shape, silu, per_frame, timed in bf16):
 #: encoder level 0 (SiLU), the mid-block per-frame norm (no SiLU; the one
 #: shape F.group_norm also computes, as (5, 512, 14400)), a mid-block
@@ -1376,6 +1397,304 @@ def _serve(dev, smi, path):
     return launches, per_rec, (rec, frames)
 
 
+# --------------------------------------------------------------------------
+# phase 6: streaming at full width
+# --------------------------------------------------------------------------
+
+def _stream(dev, smi):
+    """Phase 6: a 45-frame 720p clip through ``streaming.py`` with the
+    served v1 int8 model (the serving preset, calibrated as ``serve``
+    calibrates without --calibration_video).  The serial stream's bytes
+    against the batch path's; prefetch 1 and 3 and the pipelined loop
+    against the serial stream's; chunk_batch=2's latents against the serial
+    latents.  Returns the serial stream's kernel launches."""
+    from cvvae_tpu_torch import serve, streaming
+    from cvvae_tpu_torch.cli import apply_serving_preset
+    from cvvae_tpu_torch.data.video_io import to_uint8, to_unit
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+
+    t, h, w = STREAM_CLIP
+    variant, mode = STREAM_PATH
+    dtype = torch.bfloat16
+    args = serve.build_argparser().parse_args(
+        ["--variant", variant, "--dtype", mode, "--height", str(h),
+         "--width", str(w), "--device", str(dev)])
+    t0 = time.perf_counter()
+    vae = VideoVAE.from_config(config_for_variant(variant), dtype=dtype,
+                               device=dev)
+    apply_serving_preset(vae, h, w)
+    vae = serve.quantized(vae, args, 17)
+    torch.cuda.synchronize()
+    model_bytes = torch.cuda.memory_allocated()
+    say(f"[stream] {variant}-{mode}: model built, preset and calibrated in "
+        f"{time.perf_counter() - t0:.2f}s ({model_bytes / 2**30:.2f} GiB)")
+    clip = np.random.RandomState(1).randint(0, 256, (t, h, w, 3),
+                                            dtype=np.uint8)
+
+    def stream(frames, **kw):
+        return np.concatenate(list(streaming.streaming_decode(
+            vae, streaming.streaming_encode(vae, iter(frames), dtype=dtype),
+            **kw)))
+
+    def latents(**kw):
+        return torch.cat(list(streaming.streaming_encode(
+            vae, iter(clip), dtype=dtype, **kw)), dim=1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the batch path, as the server computes a clip (also the warm-up)
+    with torch.inference_mode():
+        x = to_unit(torch.from_numpy(clip).to(dev)[None], dtype)
+        batch = to_uint8(vae.decode(vae.encode(x).mode())[0]).cpu().numpy()
+        del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one 17-frame window's peak, then the whole stream's
+    torch.cuda.reset_peak_memory_stats()
+    timed(lambda: stream(clip[:17]))
+    window_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    serial, wall = timed(lambda: stream(clip))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[stream] {variant}-{mode} {t}x{h}x{w} (encode windows 17, 17, "
+        f"13; decode windows 5, 5, 4): serial stream {wall!r} s, "
+        f"{t / wall!r} fps; peak device memory {peak / 2**30!r} GiB, one "
+        f"17-frame window's {window_peak / 2**30!r} GiB (model "
+        f"{model_bytes / 2**30!r} GiB); card {smi}")
+    say(f"[stream] kernel launches in the serial stream: {launches}")
+    missing = [k for k in PATHS[STREAM_PATH][1] if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"stream: kernels not launched: {missing}")
+    if serial.shape != (t, h, w, 3) or not np.array_equal(serial, batch):
+        raise SystemExit(f"stream: frames {serial.shape} differ from the "
+                         f"batch path's")
+    say("[stream] serial stream bytes == batch path bytes: True")
+    runs = {f"prefetch={p}": (lambda p=p: stream(clip, prefetch=p))
+            for p in (1, 3)}
+
+    def pipelined():
+        blocks = []
+        streaming.reconstruct_stream(vae, iter(clip), blocks.append,
+                                     dtype=dtype, pipelined=True)
+        return np.concatenate(blocks)
+
+    runs["pipelined"] = pipelined
+    for name, fn in runs.items():
+        got, wall_k = timed(fn)
+        same = np.array_equal(got, serial)
+        say(f"[stream] {name}: {wall_k!r} s, {t / wall_k!r} fps; bytes == "
+            f"serial stream bytes: {same}")
+        if not same:
+            raise SystemExit(f"stream {name}: bytes differ from serial")
+    reset_launch_counts()
+    z1 = latents()
+    enc = launch_counts()
+    say(f"[stream] kernel launches a window (three of each): encode "
+        f"{ {k: n / 3 for k, n in enc.items()} }, decode "
+        f"{ {k: (launches[k] - n) / 3 for k, n in enc.items()} }")
+    z2, wall_b = timed(lambda: latents(chunk_batch=2))
+    equal = torch.equal(z1, z2)
+    say(f"[stream] chunk_batch=2 latents (windows 1-2 at B = 2, the 13-frame "
+        f"tail alone) == serial latents: {equal}; max|d| "
+        f"{(z2.float() - z1.float()).abs().max().item()!r}; encode "
+        f"{wall_b!r} s")
+    if not equal:
+        raise SystemExit("stream chunk_batch=2: latents differ from serial")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: reference checkpoints
+# --------------------------------------------------------------------------
+
+def reference_layout(state, conv2d=True, dense_conv=True):
+    """The port's state dict -> the reference's checkpoint layout, the
+    inverse of ``utils/convert.convert_state_dict``: the module paths the
+    reference names otherwise (``downsample.conv``, ``to_out.0``, ...), a
+    kT = 1 conv as a Conv2d (O, I, kH, kW) with ``conv2d`` (else a Conv3d),
+    a dense layer as a 1x1 Conv2d (O, I, 1, 1) with ``dense_conv`` (else a
+    Linear)."""
+    import re
+
+    from cvvae_tpu_torch.utils.convert import _DENSE_NAMES, _NORM_NAMES
+
+    paths = [(re.compile(r"\b(downsample|upsample|(?:down|up)samplers\.\d+)$"),
+              r"\1.conv"), (re.compile(r"\bto_out$"), "to_out.0")]
+    out = {}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1)
+        name = next(p for p in reversed(module.split("."))
+                    if not p.isdigit())
+        if leaf == "weight" and name not in _NORM_NAMES:
+            if name in _DENSE_NAMES:
+                if dense_conv:
+                    value = value[:, :, None, None]
+            elif conv2d and value.ndim == 5 and value.shape[2] == 1:
+                value = value[:, :, 0]
+        for pat, rep in paths:
+            module = pat.sub(rep, module)
+        out[f"{module}.{leaf}"] = value.detach().cpu().clone()
+    return out
+
+
+def reference_config(config) -> dict:
+    """A VideoVAEConfig -> the reference's config.json (the inverse of
+    ``utils/convert._config_from_json``)."""
+    net = config.net
+    out = dict(
+        scaling_factor=config.scaling_factor,
+        en_de_n_frames_a_time=config.en_de_n_frames_a_time,
+        time_n_compress=config.time_n_compress,
+        spatial_n_compress=config.spatial_n_compress,
+        tile_spatial_size=config.tile_spatial_size,
+        tile_overlap_ratio=config.tile_overlap_ratio,
+        num_video_frames=config.num_video_frames,
+        in_channels=net.in_channels, double_z=net.double_z,
+        half_3d=net.half_3d, causal_encoder=net.causal_encoder,
+        causal_decoder=net.causal_decoder)
+    if config.family == "sd3":
+        return dict(out, _class_name="CVVAESD3Model",
+                    out_channels=net.latent_channels,
+                    block_out_channels=list(net.block_out_channels),
+                    layers_per_block=net.layers_per_block,
+                    norm_num_groups=net.norm_num_groups,
+                    mid_block_add_attention=net.mid_block_add_attention)
+    return dict(out, _class_name="CVVAEModel", z_channels=net.z_channels,
+                out_ch=net.out_ch, ch=net.ch, ch_mult=list(net.ch_mult),
+                num_res_blocks=net.num_res_blocks,
+                attn_resolutions=list(net.attn_resolutions),
+                resolution=net.resolution, use_3d_conv=net.use_3d_conv,
+                dropout=net.dropout)
+
+
+def write_reference_checkpoint(path, config, state, **layout):
+    """An HF checkpoint directory as the reference ships one:
+    ``config.json`` and ``model.safetensors`` in its layout
+    (``reference_layout(state, **layout)``)."""
+    from safetensors.torch import save_file
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(reference_config(config), f)
+    save_file(reference_layout(state, **layout),
+              os.path.join(path, "model.safetensors"))
+
+
+def _reconstruct_served(dev, flags, clip):
+    """Build a server with ``serve.prepare(flags)``, POST one /reconstruct
+    of ``clip`` and stop it.  Returns (the response's frames, launches in
+    the request)."""
+    from cvvae_tpu_torch import serve
+
+    t, h, w = clip.shape[:3]
+    args = serve.build_argparser().parse_args(
+        flags + ["--height", str(h), "--width", str(w), "--warm_frames",
+                 str(t), "--device", str(dev), "--port", "0"])
+    server = serve.prepare(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        reset_launch_counts()
+        body, _ = _request(server.server_address[1], "POST", "/reconstruct",
+                           clip)
+        launches = launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        server.worker.vae = None
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    return np.load(io.BytesIO(body), allow_pickle=False), launches
+
+
+def _checkpoints(dev, smi):
+    """Phase 7: full-width random v1 and SD3 models written as reference
+    HF directories and loaded with ``VideoVAE.from_pretrained`` on the card
+    (weights and outputs bit-equal to the source model's on a 17x256x256
+    clip); a Lightning .ckpt with a non-VAE key through
+    ``load_torch_checkpoint_file``; one int8 /reconstruct served from
+    --vae_path, byte-equal to the server built from the same seed."""
+    import tempfile
+
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+    from cvvae_tpu_torch.utils.convert import load_torch_checkpoint_file
+
+    dtype = torch.bfloat16
+    t, h, w = CKPT_CLIP
+    x = torch.from_numpy(np.random.RandomState(2).uniform(
+        -1, 1, (1, t, h, w, 3)).astype(np.float32)).to(dev, dtype)
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("v1", "sd3"):
+            src = VideoVAE.from_config(config_for_variant(variant), seed=0,
+                                       dtype=dtype, device=dev)
+            path = os.path.join(tmp, variant)
+            t0 = time.perf_counter()
+            write_reference_checkpoint(path, src.config, src.state_dict())
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = VideoVAE.from_pretrained(path, dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            same_state = all(torch.equal(v, got.state_dict()[k])
+                             for k, v in src.state_dict().items())
+            outs = []
+            for vae in (src, got):
+                z = vae.encode(x).mode()
+                outs.append((z, vae.decode(z)))
+            equal = (got.config == src.config and same_state
+                     and all(torch.equal(a, b)
+                             for a, b in zip(outs[0], outs[1])))
+            size = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+            say(f"[ckpt] {variant}: wrote {size / 2**20:.1f} MiB in "
+                f"{t_write:.2f}s; from_pretrained on the card in "
+                f"{t_load:.2f}s; config, weights, latents {tuple(outs[1][0].shape)} "
+                f"and frames {tuple(outs[1][1].shape)} bit-equal to the "
+                f"source model's: {equal}")
+            if not equal:
+                raise SystemExit(f"checkpoint {variant}: from_pretrained "
+                                 f"differs from the source model")
+            if variant == "v1":
+                ref = reference_layout(src.state_dict())
+                ckpt = os.path.join(tmp, "last.ckpt")
+                torch.save({"state_dict": dict(ref, **{
+                    "loss.logvar": torch.zeros(())}), "global_step": 1}, ckpt)
+                state, skipped = load_torch_checkpoint_file(ckpt, dtype=dtype)
+                ok = skipped == ["loss.logvar"] and state.keys() == \
+                    src.state_dict().keys() and all(
+                        torch.equal(v.to(dev), src.state_dict()[k])
+                        for k, v in state.items())
+                say(f"[ckpt] Lightning .ckpt: skipped {skipped}; the VAE "
+                    f"state equal to the source's: {ok}")
+                if not ok:
+                    raise SystemExit("checkpoint .ckpt: wrong state")
+            del src, got, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+        clip = np.random.RandomState(3).randint(0, 256, (t, h, w, 3),
+                                                dtype=np.uint8)
+        served, launches = _reconstruct_served(
+            dev, ["--vae_path", os.path.join(tmp, "v1"), "--dtype", "int8"],
+            clip)
+        seeded, _ = _reconstruct_served(
+            dev, ["--variant", "v1", "--dtype", "int8"], clip)
+    same = served.shape == (t, h, w, 3) and np.array_equal(served, seeded)
+    say(f"[ckpt] int8 /reconstruct {clip.shape} served from --vae_path: "
+        f"frames {served.shape} {served.dtype}, == the server built from "
+        f"seed 0: {same}; launches {launches}")
+    if not same or launches["K5"] <= 0:
+        raise SystemExit("checkpoint: the server from --vae_path differs")
+
+
 def frames_psnr(got, ref, data_range) -> float:
     """PSNR of two clips (uint8 arrays or float tensors), in dB."""
     d = torch.as_tensor(got).double() - torch.as_tensor(ref).double()
@@ -1456,6 +1775,11 @@ def main() -> int:
                 raise SystemExit(f"{variant}: int8 serving is {db} dB from "
                                  f"bf16")
 
+    # phase 6: streaming at full width, its own counts; phase 7: reference
+    # checkpoints
+    stream = timed("stream", _stream, dev, smi)
+    timed("checkpoints", _checkpoints, dev, smi)
+
     kernels = []
     for k in KERNELS:
         # the top-level numbers are those of the kernel's bf16 shape with
@@ -1465,8 +1789,10 @@ def main() -> int:
                          key=lambda e: e["bound_ms"])
         kernels.append(dict(
             KERNELS[k],
-            launches=sum(n[k] for n, _, _ in by_path.values()),
-            launches_by_path={p: n[k] for p, (n, _, _) in by_path.items()},
+            launches=sum(n[k] for n, _, _ in by_path.values()) + stream[k],
+            launches_by_path=dict(
+                {p: n[k] for p, (n, _, _) in by_path.items()},
+                **{"stream-" + "-".join(STREAM_PATH): stream[k]}),
             launches_per_reconstruct={p: r[k]
                                       for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],

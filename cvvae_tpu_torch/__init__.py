@@ -1,8 +1,8 @@
 """cvvae_tpu_torch — the PyTorch/CUDA port of cvvae_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``cvvae_tpu``: the same video
-VAE (v1 family so far), the same channels-last (B, T, H, W, C) public
-layout and module names, with plain tensor code in PyTorch and every
+VAEs (the v1 and SD3 families), the same channels-last (B, T, H, W, C)
+public layout and module names, with plain tensor code in PyTorch and every
 Pallas TPU kernel on the serving path re-written by hand in CUDA C++
 (``csrc/``, wrappers in ``ops/kernels/``).  It imports torch and never
 jax.

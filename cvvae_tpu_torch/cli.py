@@ -6,11 +6,12 @@ reconstruction.
 
 Usage:
     python -m cvvae_tpu_torch.cli --video_path in.mp4 --save_path out.mp4 \
-        [--height 576 --width 1024] [--dtype bf16|fp32|int8] [--device cuda] \
-        [--mode sample|mode] [--serving] [--metrics]
+        [--vae_path /path/to/hf_checkpoint_dir [--subfolder vae3d]] \
+        [--variant v1|sd3] [--height 576 --width 1024] \
+        [--dtype bf16|fp32|int8] [--device cuda] [--mode sample|mode] \
+        [--serving] [--metrics]
 
-The model runs with random weights made from --seed (loading the
-reference checkpoints is not ported yet).
+Without --vae_path the model runs with random weights made from --seed.
 """
 
 from __future__ import annotations
@@ -20,14 +21,17 @@ import dataclasses
 import json
 import time
 
-import numpy as np
 import torch
 
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--vae_path", type=str, default=None,
+                   help="HF checkpoint dir (config.json + safetensors)")
+    p.add_argument("--subfolder", type=str, default=None,
+                   help="checkpoint subfolder, e.g. vae3d / vae3d_sd3")
     p.add_argument("--variant", type=str, default="v1",
-                   help="v1 | v1-1 | sd3")
+                   help="v1 | v1-1 | sd3 (used when --vae_path is absent)")
     p.add_argument("--video_path", type=str, required=True)
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--height", type=int, default=576)
@@ -49,7 +53,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "first 17x256x256 window")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
-                   help="print PSNR + timing JSON to stdout")
+                   help="print PSNR, SSIM, L1 + timing JSON to stdout")
     return p
 
 
@@ -113,12 +117,17 @@ def require_device(name: str) -> torch.device:
 def main(argv=None) -> dict:
     from cvvae_tpu_torch.data import video_io
     from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+    from cvvae_tpu_torch.utils.metrics import reconstruction_report
 
     args = build_argparser().parse_args(argv)
     dtype = torch_dtype(args.dtype)
     device = require_device(args.device)
-    vae = VideoVAE.from_config(config_for_variant(args.variant),
-                               seed=args.seed, dtype=dtype, device=device)
+    if args.vae_path:
+        vae = VideoVAE.from_pretrained(args.vae_path, subfolder=args.subfolder,
+                                       dtype=dtype, device=device)
+    else:
+        vae = VideoVAE.from_config(config_for_variant(args.variant),
+                                   seed=args.seed, dtype=dtype, device=device)
     if args.serving:
         apply_serving_preset(vae, args.height, args.width)
 
@@ -153,12 +162,13 @@ def main(argv=None) -> dict:
 
     rec_np = x_rec[0].float().cpu().numpy()
     video_io.write_video(args.save_path, video_io.denormalize(rec_np), fps)
-    mse = float(np.mean((rec_np - x_np) ** 2))
-    psnr = float(10.0 * np.log10(4.0 / mse)) if mse > 0 else float("inf")
     result = {
         "frames": int(n), "height": args.height, "width": args.width,
         "device": str(device), "latent_shape": list(z.shape),
-        "encode_s": t_encode, "decode_s": t_decode, "psnr_db": psnr,
+        "encode_s": t_encode, "decode_s": t_decode,
+        # against the fp32 frames, as the reference measures it
+        **reconstruction_report(torch.from_numpy(x_np)[None],
+                                torch.from_numpy(rec_np)[None]),
         "save_path": args.save_path,
     }
     if args.metrics:

@@ -1,7 +1,9 @@
 """Video read/write on the host (OpenCV backend, imported at first use).
 
 Port of ``cvvae_tpu/data/video_io.py``.  Frames are RGB uint8;
-``normalize`` maps to [-1, 1] via x/127.5 - 1.
+``normalize`` maps to [-1, 1] via x/127.5 - 1.  ``to_unit`` and
+``to_uint8`` are the same maps on the device, where the served and
+streamed frames cross the host link as uint8 (1 B/px).
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def read_video(path: str, *, height: Optional[int] = None,
@@ -66,3 +69,15 @@ def normalize(frames: np.ndarray) -> np.ndarray:
 def denormalize(frames: np.ndarray) -> np.ndarray:
     """[-1, 1] float -> uint8 RGB."""
     return np.clip((frames + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+
+def to_unit(u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 frames -> [-1, 1] in ``dtype``: the cast is exact, then
+    x/127.5 - 1 rounds twice in ``dtype`` (as cvvae_tpu/streaming.py:101)."""
+    return u8.to(dtype) / 127.5 - 1.0
+
+
+def to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] frames -> uint8: fp32 arithmetic and a truncating cast, as
+    ``denormalize``."""
+    return ((x.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import os
 from typing import Any, Optional
 
 import torch
@@ -124,6 +125,15 @@ def _blend_v(a: torch.Tensor, b: torch.Tensor, overlap: int) -> torch.Tensor:
     return torch.cat([blended, b[:, :, overlap:, :, :]], dim=2)
 
 
+def _on_device(device, who: str) -> torch.device:
+    """``device``, or RuntimeError when it is the card and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"VideoVAE.{who}: no CUDA device; pass "
+                           f"device='cpu' to build the model on the CPU")
+    return device
+
+
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
@@ -151,13 +161,25 @@ class VideoVAE(nn.Module):
 
         The model runs on the card unless the caller asks for the CPU
         (``device="cpu"``); without a card the default raises."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("VideoVAE.from_config: no CUDA device; pass "
-                               "device='cpu' to build the model on the CPU")
+        device = _on_device(device, "from_config")
         g = torch.Generator().manual_seed(seed)
         vae = cls(config, g).to(device=device, dtype=dtype)
         return vae.eval().requires_grad_(False)
+
+    @classmethod
+    def from_pretrained(cls, path: str, subfolder: Optional[str] = None,
+                        dtype: torch.dtype = torch.float32,
+                        device: Any = "cuda") -> "VideoVAE":
+        """Load a reference HF checkpoint directory (config.json +
+        *.safetensors; ``utils/convert.py``) onto ``device`` in ``dtype``.
+
+        As ``from_config``: on the card unless the caller asks for the CPU,
+        and without a card the default raises."""
+        from cvvae_tpu_torch.utils.convert import load_reference_checkpoint
+        device = _on_device(device, "from_pretrained")
+        if subfolder:
+            path = os.path.join(path, subfolder)
+        return load_reference_checkpoint(cls, path, dtype=dtype, device=device)
 
     @property
     def device(self) -> torch.device:

@@ -24,9 +24,14 @@ Port of ``cvvae_tpu/serve.py``.
   synthetic noise); ``--quantized_cache DIR`` restores the calibrated
   model from DIR when DIR exists and writes it there when it does not.
 
+Without ``--vae_path`` (a reference HF checkpoint dir) the model has
+random weights from seed 0 (``--variant``).
+
 Usage:
-    python -m cvvae_tpu_torch.serve --port 8400 --variant v1 --dtype int8 \
-        --height 720 --width 1280 --device cuda [--calibration_video v.mp4]
+    python -m cvvae_tpu_torch.serve --port 8400 --dtype int8 \
+        --height 720 --width 1280 --device cuda \
+        [--vae_path /path/to/CV-VAE --subfolder vae3d | --variant v1|sd3] \
+        [--calibration_video v.mp4]
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cvvae_tpu_torch.data.video_io import truncate_to_4k1
+from cvvae_tpu_torch.data.video_io import (to_uint8, to_unit,
+                                           truncate_to_4k1)
 
 
 def _npy_bytes(arr: np.ndarray) -> bytes:
@@ -84,17 +90,15 @@ class VAEWorker:
 
     # ---- device ops (worker thread only) ----
     def _encode(self, frames_u8: np.ndarray, sample: bool) -> np.ndarray:
-        x = torch.from_numpy(frames_u8).to(self.device)[None]
-        x = x.to(self.dtype) / 127.5 - 1.0
+        x = to_unit(torch.from_numpy(frames_u8).to(self.device)[None],
+                    self.dtype)
         post = self.vae.encode(x)
         z = post.sample(self._generator) if sample else post.mode()
         return z.float().cpu().numpy()
 
     def _decode(self, z_np: np.ndarray) -> np.ndarray:
         z = torch.from_numpy(z_np).to(device=self.device, dtype=self.dtype)
-        x = self.vae.decode(z)[0]
-        u8 = ((x.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-        return u8.cpu().numpy()
+        return to_uint8(self.vae.decode(z)[0]).cpu().numpy()
 
     def _loop(self):
         while True:
@@ -238,7 +242,14 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--port", type=int, default=8400)
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--variant", default="v1", choices=["v1", "sd3"])
+    ap.add_argument("--variant", default="v1", choices=["v1", "sd3"],
+                    help="random weights from seed 0; used when --vae_path "
+                         "is absent")
+    ap.add_argument("--vae_path", default=None,
+                    help="reference HF checkpoint dir (config.json + "
+                         "*.safetensors)")
+    ap.add_argument("--subfolder", default=None,
+                    help="checkpoint subfolder, e.g. vae3d / vae3d_sd3")
     ap.add_argument("--dtype", default="int8",
                     choices=["int8", "bf16", "fp32"],
                     help="int8 = bf16 activations + the int8 conv stack")
@@ -323,8 +334,13 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
                          "queue A: multi-device)")
     dtype = torch_dtype(args.dtype)
     device = require_device(args.device)
-    vae = VideoVAE.from_config(config_for_variant(args.variant),
-                               dtype=dtype, device=device)
+    if args.vae_path:
+        vae = VideoVAE.from_pretrained(args.vae_path,
+                                       subfolder=args.subfolder,
+                                       dtype=dtype, device=device)
+    else:
+        vae = VideoVAE.from_config(config_for_variant(args.variant),
+                                   dtype=dtype, device=device)
     apply_serving_preset(vae, args.height, args.width)
     warm_frames = truncate_to_4k1(args.warm_frames)
     if args.dtype == "int8":

@@ -55,6 +55,13 @@ GROUPS = [
 ]
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
 def profile_reconstruct(variant: str, dtype: str = "int8", out=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,13 +104,10 @@ def profile_reconstruct(variant: str, dtype: str = "int8", out=None) -> None:
         name = next((g for g, pat in GROUPS if re.search(pat, e.key)), "other")
         groups[name][0] += e.self_device_time_total
         groups[name][1] += e.count
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
     print(f"[profile] {variant} {t}x{h}x{w} {dtype} /reconstruct: unprofiled "
           f"wall {steady!r} s, "
           f"profiled wall {wall!r} s, kernel time {total / 1e6!r} s "
-          f"(busy {100 * total / 1e6 / wall:.1f}%); card {card}")
+          f"(busy {100 * total / 1e6 / wall:.1f}%); card {card()}")
     for name, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         if us:
             print(f"[profile] {name:28s} {us / 1e3:10.2f} ms "

@@ -415,3 +415,29 @@ def test_quantize_calibrates_on_a_window_of_a_clip(dev):
     state = q.state_dict()
     n_q = sum(k.endswith("weight_q") for k in state)
     assert n_q > 0 and n_q == sum(k.endswith("scale_x") for k in state)
+
+
+def test_streaming_prefetch_matches_serial_on_the_card(dev):
+    """Two encode and two decode windows on the card: with prefetch=1
+    each window's fetch runs on a side stream into pinned memory, and the
+    bytes are the serial stream's."""
+    from cvvae_tpu_torch.models.vae_v1 import VAE1Config
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
+    from cvvae_tpu_torch.streaming import streaming_decode, streaming_encode
+
+    cfg = VideoVAEConfig(net=VAE1Config(ch=32, num_res_blocks=1,
+                                        norm_num_groups=8),
+                         tile_spatial_size=None, en_de_n_frames_a_time=8)
+    vae = VideoVAE.from_config(cfg, device=dev, dtype=torch.bfloat16)
+    frames = np.random.RandomState(5).randint(0, 256, (17, 64, 96, 3),
+                                              dtype=np.uint8)
+
+    def run(prefetch):
+        return list(streaming_decode(vae, streaming_encode(vae, iter(frames)),
+                                     prefetch=prefetch))
+
+    serial, early = run(0), run(1)
+    assert [len(b) for b in serial] == [9, 8]
+    assert len(early) == len(serial)
+    for a, b in zip(early, serial):
+        np.testing.assert_array_equal(a, b)

@@ -43,6 +43,10 @@ def test_import_pulls_in_no_jax():
             "import cvvae_tpu_torch.data.video_io, cvvae_tpu_torch.utils.convert\n"
             "import cvvae_tpu_torch.models.video_vae, "
             "cvvae_tpu_torch.utils.profiling\n"
+            "import cvvae_tpu_torch.streaming, cvvae_tpu_torch.data.pipeline\n"
+            "import cvvae_tpu_torch.utils.metrics, "
+            "cvvae_tpu_torch.utils.verify_checkpoints, "
+            "cvvae_tpu_torch.utils.bench_streaming\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cvvae_tpu' or "
             "m.startswith('cvvae_tpu.'))\n"
