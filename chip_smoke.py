@@ -23,7 +23,8 @@ Phases (each prints its findings; any failure exits non-zero):
    Then the edge-pad convs: at the v1 720p level-0 shape, a 720x672
    SD3 tile and v1's two small-Cout heads, the reference's
    decompositions (``_conv3d_edge_time_fast``, ``_conv3d_edge_fast``)
-   against the materialised pad, in fp32 and bf16 (``edge_check``), and
+   against the materialised pad, in fp32 (on the first
+   ``EDGE_F32_FRAMES`` frames) and bf16 (``edge_check``), and
    the three timed in turns.  K5 (the int8 conv: K5.stage, then
    K5.gemm) bit-equal to its plain version in bf16 and fp32 on small
    ragged cases (``K5_CHECK_CASES``) and at the four int8 path shapes
@@ -59,6 +60,18 @@ Phases (each prints its findings; any failure exits non-zero):
    bit-equal to the source model's on a 17x256x256 clip; a Lightning .ckpt
    with a non-VAE key; an int8 /reconstruct served from --vae_path equal
    to the one served from the same seed.
+8. train   -- K1.bwd and K2.bwd at the SD3 training path's shapes
+   (``K1_BWD_SHAPES``, ``K2_BWD_SHAPES``) against their plain versions
+   in fp32 and bf16, twice bit-identical, timed in fp32 in turns (with
+   ``native_group_norm_backward`` as K1.bwd's library call where there is
+   no SiLU); one G step then one D step of the full-width shipped recipe
+   (random LPIPS) on the card and on the CPU from one state and one set of
+   draws (losses, gradient norms, parameter updates; every parameter
+   with a nonzero gradient; K1, K1.bwd, K2, K2.bwd launched and K3, K4,
+   K5 not); ``train.main`` on the shipped YAML for ``TRAIN_MAIN_STEPS``
+   steps on seeded local data (a JPEG tar and cv2 mp4 clips): per-step
+   wall time by kind and batch shape, peak memory, finite losses,
+   launches a step, and a checkpoint written and reloaded.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served and streamed paths, and at each
@@ -216,6 +229,12 @@ EDGE_CASES = [("v1_causal", (1, 17, 720, 1280, 128), "v1_causal", 128),
               ("sd3_causal", (1, 17, 720, 672, 128), "sd3_causal", 128),
               ("v1_decoder_conv_out", (1, 17, 720, 672, 128), "v1_causal", 3),
               ("v1_encoder_conv_out", (1, 5, 90, 160, 512), "v1_causal", 8)]
+#: the fp32 edge checks run on the first EDGE_F32_FRAMES frames of each
+#: case (the causal time fixes act on the first two output frames, the
+#: space fixes on every frame); bf16 keeps all 17 frames and is timed
+#: there.  Cut from 17 when phase 8 was added, to keep the script inside
+#: its time budget: the v1 720p fp32 check alone took 171 s.
+EDGE_F32_FRAMES = 5
 #: fp32 (TF32 off): the decomposition against the materialised pad,
 #: |d| <= EDGE_F32_TOL * (1 + |ref|); the two sum the same terms in another
 #: order (the fixes' taps summed first)
@@ -360,6 +379,14 @@ KERNELS = {
     "K5.stage": dict(name="int8_stage", route="cuda",
                      source="cvvae_tpu_torch/csrc/conv_int8.cu",
                      replaces="cvvae_tpu/ops/quant.py:75"),
+    # the backward kernels of the training path: the reference leaves both
+    # gradients to XLA's autodiff of the functions K1 and K2 compute
+    "K1.bwd": dict(name="group_norm_silu_backward", route="cuda",
+                   source="cvvae_tpu_torch/csrc/groupnorm_bwd.cu",
+                   replaces="cvvae_tpu/ops/pallas/groupnorm.py:90"),
+    "K2.bwd": dict(name="subpixel_interleave_backward", route="cuda",
+                   source="cvvae_tpu_torch/csrc/shuffle_bwd.cu",
+                   replaces="cvvae_tpu/ops/pallas/shuffle.py:148"),
 }
 
 
@@ -372,7 +399,9 @@ def kernel_modules():
 
 #: each kernel's launch counter: (its module's key, the attribute)
 COUNTERS = {**{k: (k, "launches") for k in ("K1", "K2", "K3", "K4", "K5")},
-            "K5.stage": ("K5", "stage_launches")}
+            "K5.stage": ("K5", "stage_launches"),
+            "K1.bwd": ("K1", "bwd_launches"),
+            "K2.bwd": ("K2", "bwd_launches")}
 
 
 def launch_counts():
@@ -742,6 +771,11 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     if key == "K2":  # the first frame is dropped where n > 1
         out = 4 * numel * (shape[1] * n - (n > 1)) // (shape[1] * n)
         return (4 * numel + out) * e + shape[-1] * e, out
+    if key == "K1.bwd":  # x and dy in, dx out; the dz and dz*xh sums
+        return 3 * numel * e + 4 * shape[-1] * 4, numel * (8 + 6 * silu)
+    if key == "K2.bwd":  # dy in, the four phases out; the bias sums
+        out = 4 * numel * (shape[1] * n - (n > 1)) // (shape[1] * n)
+        return (4 * numel + out) * e + shape[-1] * 4, out
     if key == "K3":
         out = numel // shape[-1] * cout
         w = 27 * shape[-1] * cout + cout
@@ -1142,7 +1176,12 @@ def _check_edge_convs(dev, smi):
         paths = edge_paths(spec)
         for dtype in (torch.float32, torch.bfloat16):
             t0 = time.perf_counter()
-            x, w, b = edge_inputs(shape, cout, dev, dtype)
+            if dtype == torch.float32:
+                x, w, b = edge_inputs((shape[0], min(shape[1],
+                                                     EDGE_F32_FRAMES))
+                                      + shape[2:], cout, dev, dtype)
+            else:
+                x, w, b = edge_inputs(shape, cout, dev, dtype)
             ref = paths["materialised"](x, w, b)
             mag = (paths["materialised"](x.abs(), w.abs(), b.abs())
                    if dtype == torch.bfloat16 else None)
@@ -1153,7 +1192,8 @@ def _check_edge_convs(dev, smi):
                 torch.cuda.synchronize()
                 err, excess, text = edge_check(got, ref, mag)
                 ok = excess <= 0.0
-                say(f"[edge] {name} {shape}->{cout} {dtype} {path} against "
+                say(f"[edge] {name} {tuple(x.shape)}->{cout} {dtype} {path} "
+                    f"against "
                     f"the materialised pad: max_abs_err={err!r} excess="
                     f"{excess!r} {text} {'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -1702,6 +1742,482 @@ def frames_psnr(got, ref, data_range) -> float:
     return 10 * math.log10(data_range ** 2 / mse) if mse > 0 else math.inf
 
 
+# --------------------------------------------------------------------------
+# phase 8: training
+# --------------------------------------------------------------------------
+
+#: K1.bwd's shapes on the SD3 latent-constraint training path at full width
+#: on the shipped (1, 17, 256, 256) clip: (where, shape, groups, eps, silu,
+#: per_frame)
+K1_BWD_SHAPES = [
+    ("sd3 level-0 resblock norm", (1, 17, 256, 256, 128), 32, 1e-6, True,
+     False),
+    ("sd3 mid-block attention norm, per frame", (1, 5, 32, 32, 512), 32, 1e-6,
+     False, True),
+    ("vae2d level-0 norm, per frame", (1, 5, 256, 256, 128), 32, 1e-6, True,
+     True),
+    ("disc3d block-0 norm", (1, 9, 128, 128, 64), 32, 1e-5, True, False),
+]
+#: K2.bwd's shapes there: the SD3 decoder's three upsample tails (phase
+#: shape, n)
+K2_BWD_SHAPES = [((1, 5, 32, 32, 1024), 2), ((1, 9, 64, 64, 512), 1),
+                 ((1, 9, 128, 128, 512), 2)]
+#: K1.bwd against its plain version on the same inputs and saved
+#: statistics, ||d|| / ||ref|| of dx, dweight and dbias apart: fp32 (both
+#: sum in fp32, in other orders; the merges in double), bf16 (both compute
+#: in fp32 and round dx once to bf16; a few ulps apart where the sums
+#: differ)
+K1_BWD_RMS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def k1_bwd_inputs(shape, dev, dtype):
+    """x, weight, bias as ``k1_inputs`` makes them, and dy ~ N(0, 1)."""
+    x, w, b = k1_inputs(shape, dev, dtype)
+    return x, randn(shape, 4, dev, dtype), w, b
+
+
+def k1_bwd_check(x, dy, w, b, groups, eps, silu, per_frame):
+    """K1.bwd against its plain version on K1's saved statistics:
+    ({"dx", "dweight", "dbias"}: ||d|| / ||ref||, the kernel's (dx, dw,
+    db), the kernel's statistics)."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
+    _, mean, inv = groupnorm._launch(x, w, b, groups, eps, silu, per_frame,
+                                     True)
+    kw = dict(silu=silu, per_frame=per_frame)
+    got = groupnorm.group_norm_silu_backward(dy, x, w, b, mean, inv, **kw)
+    ref = groupnorm.group_norm_silu_backward_plain(dy, x, w, b, mean, inv,
+                                                   **kw)
+    rel = {k: compare(g, r)[3] for k, g, r in
+           zip(("dx", "dweight", "dbias"), got, ref)}
+    return rel, got, (mean, inv)
+
+
+def k2_bwd_check(dy, n, t, with_bias, drop_first=True):
+    """K2.bwd against its plain version: (phases bit-equal, excess of
+    d(bias) over its bound, kernel's (phases, dbias)).  d(bias) is held to
+    the float64 sum within the bound of recursive fp32 summation: each
+    thread adds at most ``terms`` values in fp32, (terms - 1) * 2^-24 *
+    sum|dy| of the channel, then one rounding of the result."""
+    from cvvae_tpu_torch.ops.kernels import shuffle
+    phases, db = shuffle.subpixel_interleave_backward(
+        dy, n=n, t=t, drop_first=drop_first, with_bias=with_bias)
+    ref, _ = shuffle.subpixel_interleave_backward_plain(
+        dy, n=n, t=t, drop_first=drop_first, with_bias=False)
+    exact = all(torch.equal(a, r) for a, r in zip(phases, ref))
+    excess = 0.0
+    if with_bias:
+        b, _, h2, w2, c = dy.shape
+        plan = shuffle.launch_plan(
+            [dy] + phases, None, c, b * n * t * h2,
+            torch.cuda.get_device_properties(dy.device).multi_processor_count)
+        terms = (-(-(b * n * t * h2) // plan["grid"])) * (-(-w2 // plan["by"]))
+        full = dy.double()
+        if n > 1 and drop_first:
+            full = torch.cat([full.new_zeros((b, 1) + tuple(dy.shape[2:])),
+                              full], 1)
+        full = full.reshape(b, t, n, h2, w2, c)
+        want = full.sum(dim=(0, 1, 3, 4)).reshape(-1)
+        mag = full.abs().sum(dim=(0, 1, 3, 4)).reshape(-1)
+        tol = (terms - 1) * 2.0 ** -24 * mag + 2.0 ** -24 * want.abs()
+        excess = ((db.double() - want).abs() - tol).max().item()
+    return exact, excess, (phases, db)
+
+
+def library_group_norm_backward(dy, x, mean, inv, w, groups, per_frame):
+    """A callable of one ``native_group_norm_backward`` on K1.bwd's
+    inputs in its own (N, C, HxW) layout (made here, untimed): the library
+    yardstick of K1.bwd without SiLU."""
+    b = x.shape[0] * (x.shape[1] if per_frame else 1)
+    c = x.shape[-1]
+    xn = x.reshape(b, -1, c).transpose(1, 2).contiguous()
+    dyn = dy.reshape(b, -1, c).transpose(1, 2).contiguous()
+    m, r = mean.to(x.dtype).contiguous(), inv.to(x.dtype).contiguous()
+    wn = w.to(x.dtype)
+    return lambda: torch.ops.aten.native_group_norm_backward(
+        dyn, xn, m, r, wn, b, c, xn.shape[2], groups, [True, True, True])
+
+
+def _train_kernels(dev, summary):
+    """K1.bwd and K2.bwd at the training path's shapes against their plain
+    versions, fp32 and bf16; twice bit-identical; timed in fp32 (the
+    path's dtype) in turns (plain, kernel, kernel, plain, then the library
+    call where there is one)."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm, shuffle
+
+    def put(key, label, err, ok, text, timing=None):
+        summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"], err)
+        if timing:
+            shape, dtype, k_ms, p_ms, l_ms, kw = timing
+            b_ms, by = bound(key, shape, dtype, **kw)
+            summary[key]["timed"].append(dict(
+                shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                where=label.split(" float")[0].split(" bfloat")[0],
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                share=b_ms / k_ms, library_ms=l_ms))
+            text += (f"; {k_ms:.3f} ms (plain {p_ms:.3f}, library "
+                     f"{'none' if l_ms is None else f'{l_ms:.3f}'}, bound "
+                     f"{b_ms:.3f} by {by}, {100 * b_ms / k_ms:.1f}%)")
+        say(f"[train] {key} {label}: {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{key} {label}: disagrees with its plain "
+                             f"version")
+
+    for where, shape, groups, eps, silu, per_frame in K1_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy, w, b = k1_bwd_inputs(shape, dev, dtype)
+            rel, got, stats = k1_bwd_check(x, dy, w, b, groups, eps, silu,
+                                           per_frame)
+            kw = dict(silu=silu, per_frame=per_frame)
+            again = groupnorm.group_norm_silu_backward(dy, x, w, b, *stats,
+                                                       **kw)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            del got, again
+            tol = K1_BWD_RMS[dtype]
+            ok = same and all(v <= tol for v in rel.values())
+            text = (f"||d||/||ref|| dx {rel['dx']!r} dweight "
+                    f"{rel['dweight']!r} dbias {rel['dbias']!r} (<= {tol}); "
+                    f"twice bit-identical {same}")
+            timing = None
+            if dtype == torch.float32:
+                lib = (None if silu else library_group_norm_backward(
+                    dy, x, *stats, w, groups, per_frame))
+                k_ms, p_ms, l_ms = in_turns(
+                    lambda: groupnorm.group_norm_silu_backward_plain(
+                        dy, x, w, b, *stats, **kw),
+                    lambda: groupnorm.group_norm_silu_backward(
+                        dy, x, w, b, *stats, **kw), lib)
+                timing = (shape, dtype, k_ms, p_ms, l_ms, dict(silu=silu))
+                del lib
+            put("K1.bwd", f"{where} {tuple(shape)} {dtype}", rel["dx"], ok,
+                text, timing)
+            del x, dy, stats
+            torch.cuda.empty_cache()
+    for shape, n in K2_BWD_SHAPES:
+        b, t, h, w, nc = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dy = randn((b, n * t - (n > 1), 2 * h, 2 * w, nc // n), 9, dev,
+                       dtype)
+            exact, excess, (ph, db) = k2_bwd_check(dy, n, t, True)
+            ph2, db2 = shuffle.subpixel_interleave_backward(dy, n=n, t=t)
+            same = (all(torch.equal(a, c) for a, c in zip(ph, ph2))
+                    and torch.equal(db, db2))
+            del ph, ph2, db2
+            ok = exact and excess <= 0.0 and same
+            text = (f"phases bit-exact {exact}; dbias excess over its fp32 "
+                    f"summation bound {excess!r}; twice bit-identical {same}")
+            timing = None
+            if dtype == torch.float32:
+                k_ms, p_ms, _ = in_turns(
+                    lambda: shuffle.subpixel_interleave_backward_plain(
+                        dy, n=n, t=t),
+                    lambda: shuffle.subpixel_interleave_backward(
+                        dy, n=n, t=t))
+                timing = (shape, dtype, k_ms, p_ms, None, dict(n=n))
+            put("K2.bwd", f"upsample tail {tuple(shape)} n={n} {dtype}",
+                0.0, ok, text, timing)
+            del dy
+            torch.cuda.empty_cache()
+
+
+#: phase 8's card-against-CPU training clip (B, T, H, W, 3)
+TRAIN_CHECK_CLIP = (1, 5, 32, 32, 3)
+#: card against CPU, fp32 with TF32 off: each metric to TRAIN_LOSS_RTOL *
+#: (1 + |cpu|) (the kernel checks' form: loss/g and the logits are means
+#: of O(1) patch logits that cancel to ~0.03, where a rounding-level
+#: difference of 3.5e-6 is 1.1e-4 of the mean), the gradients' global
+#: norms to TRAIN_LOSS_RTOL relative, the parameter updates elementwise to
+#: TRAIN_UPDATE_TOL * lr -- the CPU test's (tests/torch_train_parity.py)
+#: update bound, and, as there, from a state past its first steps: at an
+#: optimizer's first step Adam's update is g / (|g| + eps), about sign(g)
+#: * lr, which turns a rounding-level difference of a near-zero gradient
+#: into a whole lr
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_UPDATE_TOL = 1e-2
+SHIPPED_CONFIG = os.path.join(ROOT, "configs", "sd3_latent_constraint.yaml")
+
+
+def shipped_engine_config(**optim):
+    """The shipped SD3 latent-constraint recipe's EngineConfig, with the
+    optimizer fields in ``optim`` replaced."""
+    import dataclasses
+    from cvvae_tpu_torch.utils.config import (instantiate_from_config,
+                                              load_configs)
+    cfg = instantiate_from_config(
+        load_configs([SHIPPED_CONFIG])["model"]["engine"])
+    return dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
+                                                              **optim))
+
+
+def _cpu(state_dict):
+    if isinstance(state_dict, torch.Tensor):
+        return state_dict.detach().cpu().clone()
+    if isinstance(state_dict, dict):
+        return {k: _cpu(v) for k, v in state_dict.items()}
+    return state_dict
+
+
+def _to_cpu_state(st):
+    """A copy of TrainState ``st`` on the CPU."""
+    import copy
+    out = copy.copy(st)
+    out.params = copy.deepcopy(st.params).cpu()
+    out.disc_params = copy.deepcopy(st.disc_params).cpu()
+    return out
+
+
+def _train_card_vs_cpu(dev):
+    """One G step then one D step of the full-width shipped recipe
+    (random LPIPS and constraint decoder), each from one state with one
+    set of draws, on the card and on the CPU.  The state is the card's
+    after a G step (the gate closed) and a D step from the seeded init, so
+    both optimizers hold moments; the D step starts from the CPU's state
+    after its G step on both.  Returns the card's launches in the two
+    compared steps."""
+    import warnings
+    from cvvae_tpu_torch.training.engine import TrainingEngine, named_params
+
+    cfg = shipped_engine_config(num_warmup_steps=0)
+    x = torch.from_numpy(np.random.RandomState(5).uniform(
+        -1, 1, TRAIN_CHECK_CLIP).astype(np.float32))
+    b, t, h, w, _ = TRAIN_CHECK_CLIP
+    g = torch.Generator().manual_seed(6)
+    shape = (b, (t - 1) // 4 + 1, h // 8, w // 8, cfg.latent_channels)
+    draws = [{"noise": torch.randn(shape, generator=g),
+              "offsets": torch.randint(1, 5, ((t - 1) // 4,), generator=g)},
+             {"noise": torch.randn(shape, generator=g)}]
+    t_setup = time.perf_counter()
+    engines = {}
+    for d in (dev, "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            engines[str(d)] = TrainingEngine(cfg, allow_random_lpips=True,
+                                             seed=0, device=d)
+        engines[str(d)].keep_grads = True
+    eng = engines[str(dev)]
+    st = eng.init_state(0)
+    # the CPU's modules: a copy of the card's (their weights are loaded
+    # from the carried-over state below), quicker than a seeded init
+    states = {str(dev): st, "cpu": _to_cpu_state(st)}
+    for i in range(2):  # a G step, then a D step: the carried-over state
+        st, _ = eng.train_step(st, {"frames": x.to(dev)},
+                               torch.Generator(dev).manual_seed(i))
+    start = _cpu(st.state_dict())
+    say(f"[train] card-vs-cpu: engines, states and the card's two carried-"
+        f"over steps in {time.perf_counter() - t_setup:.2f}s")
+
+    def params_of(st, prefix):
+        return named_params(st.params if prefix == "g" else st.disc_params)
+
+    failures, counts, lr = [], {}, {}
+    for kind, step_draws in zip("gd", draws):
+        out, grads = {}, {}
+        for d in ("cpu", dev):
+            e = engines[str(d)]
+            st = states[str(d)].load_state_dict(start)
+            step = st.step
+            before = {k: v.detach().cpu().clone()
+                      for k, v in params_of(st, kind).items()}
+            if d != "cpu":
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            st, m = e.train_step(
+                st, {"frames": x.to(d)},
+                draws={k: v.to(d) for k, v in step_draws.items()})
+            if d != "cpu":
+                torch.cuda.synchronize()
+                counts = {k: counts.get(k, 0) + v
+                          for k, v in launch_counts().items()}
+            seconds = time.perf_counter() - t0
+            zero = [k for k, gr in e.last_grads.items()
+                    if not bool((gr != 0).any())]
+            delta = {k: v.detach().cpu() - before[k]
+                     for k, v in params_of(st, kind).items()}
+            grads[str(d)] = {k: v.detach().cpu() for k, v in
+                             e.last_grads.items()}
+            out[str(d)] = ({k: float(v) for k, v in m.items()},
+                           float(e.last_grad_norm), zero, delta)
+            if d == "cpu":
+                after_cpu = _cpu(st.state_dict())
+            lr[kind] = (e.lr_schedule_g if kind == "g"
+                        else e.lr_schedule_d)(step)
+            say(f"[train] card-vs-cpu {d}: {kind.upper()} step {step} of the "
+                f"full-width shipped recipe on {TRAIN_CHECK_CLIP} in "
+                f"{seconds:.2f}s")
+        (mc, nc, _, dc), (mg, ng, zero, dg) = out["cpu"], out[str(dev)]
+        worst, worst_k = max((abs(mg[k] - mc[k]) / (1 + abs(mc[k])), k)
+                             for k in mc)
+        upd = max((dg[k] - dc[k]).abs().max().item() for k in dg) / lr[kind]
+        moved = max(v.abs().max().item() for v in dg.values()) / lr[kind]
+        say(f"[train] {kind.upper()} step: losses {json.dumps(mg)}; worst "
+            f"|card - cpu| / (1 + |cpu|) {worst!r} ({worst_k}, <= "
+            f"{TRAIN_LOSS_RTOL}); gradient global norm card {ng!r} cpu "
+            f"{nc!r}; updates max |card - cpu| / lr {upd!r} (<= "
+            f"{TRAIN_UPDATE_TOL}), largest update / lr {moved!r}; "
+            f"parameters with an all-zero gradient {zero}")
+        gc, gg = grads["cpu"], grads[str(dev)]
+        gmax = max(v.abs().max().item() for v in gc.values())
+        rows = []
+        for k in dg:
+            err = (dg[k] - dc[k]).abs() / lr[kind]
+            n_over = int((err > TRAIN_UPDATE_TOL).sum())
+            rows.append((err.max().item(), k, n_over, err.numel(),
+                         gc[k].abs().max().item() / gmax,
+                         (gg[k] - gc[k]).abs().max().item() / gmax))
+        rows.sort(reverse=True)
+        say(f"[train] {kind.upper()} step: elements past {TRAIN_UPDATE_TOL} lr "
+            f"{sum(r[2] for r in rows)} of {sum(r[3] for r in rows)}; worst "
+            f"(update err / lr, param, elements past, numel, max|g| / "
+            f"max|g| of all, max|g card - g cpu| / max|g| of all): "
+            f"{rows[:6]}")
+        if worst > TRAIN_LOSS_RTOL or abs(ng - nc) > TRAIN_LOSS_RTOL * nc:
+            failures.append(f"{kind} losses or gradient norm")
+        if upd > TRAIN_UPDATE_TOL or moved == 0.0:
+            failures.append(f"{kind} parameter updates")
+        if zero:
+            failures.append(f"{kind} zero gradients {zero[:5]}")
+        if not all(math.isfinite(v) for v in mg.values()):
+            failures.append(f"{kind} non-finite losses")
+        start = after_cpu
+    say(f"[train] launches in the card's compared G + D steps: {counts}")
+    need = ("K1", "K1.bwd", "K2", "K2.bwd")
+    if any(counts.get(k, 0) == 0 for k in need) or any(
+            counts.get(k, 0) for k in ("K3", "K4", "K5", "K5.stage")):
+        failures.append(f"launches {counts}")
+    del engines, eng, states, st
+    if failures:
+        raise SystemExit(f"training card against CPU: {failures}")
+    return counts
+
+
+def write_train_data(root, seed=0, n_images=16, image_hw=(360, 400),
+                     n_videos=2, video_frames=24, video_hw=(288, 320)):
+    """Seeded local data for the shipped YAML's two datasets: a tar of
+    JPEG images (``image_webdata``, a webdataset shard) and a CSV of cv2
+    mp4 clips (``webvid``).  Returns (tar dir, csv dir, video root)."""
+    import cv2
+    import tarfile
+
+    rng = np.random.RandomState(seed)
+    tar_dir, csv_dir, video_root = (os.path.join(root, d)
+                                    for d in ("tars", "csv", "videos"))
+    for d in (tar_dir, csv_dir, video_root):
+        os.makedirs(d, exist_ok=True)
+    with tarfile.open(os.path.join(tar_dir, "shard-000000.tar"), "w") as tf:
+        for i in range(n_images):
+            img = rng.randint(0, 256, image_hw + (3,), dtype=np.uint8)
+            ok, buf = cv2.imencode(".jpg", img)
+            assert ok
+            for ext, data in (("jpg", buf.tobytes()),
+                              ("txt", f"image {i}".encode())):
+                info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    rows = ["path,name"]
+    for i in range(n_videos):
+        path = os.path.join(video_root, f"clip{i}.mp4")
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                              (video_hw[1], video_hw[0]))
+        for _ in range(video_frames):
+            out.write(rng.randint(0, 256, video_hw + (3,), dtype=np.uint8))
+        out.release()
+        rows.append(f"clip{i}.mp4,clip {i}")
+    with open(os.path.join(csv_dir, "clips.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return tar_dir, csv_dir, video_root
+
+
+#: phase 8's run of train.main on the shipped YAML
+TRAIN_MAIN_STEPS = 6
+
+
+def _train_main(dev, smi):
+    """``cvvae_tpu_torch.train.main`` on the shipped YAML at full width
+    with the shipped batches, on seeded local data: per-step wall time by
+    kind and batch shape, peak memory, finite losses, launches a step, and
+    a checkpoint written and reloaded.  Returns the run's launches."""
+    import tempfile
+    import warnings
+    from cvvae_tpu_torch import train
+    from cvvae_tpu_torch.training.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tar_dir, csv_dir, video_root = write_train_data(tmp, seed=8)
+        logdir = os.path.join(tmp, "run")
+        per_step = []
+        last = [launch_counts()]
+
+        def on_step(entry):
+            now = launch_counts()
+            per_step.append({k: now[k] - last[0][k] for k in now})
+            last[0] = now
+
+        argv = ["--base", SHIPPED_CONFIG, "--train", "--max_steps",
+                str(TRAIN_MAIN_STEPS), "--logdir", logdir,
+                "model.allow_random_lpips=true",
+                f"data.train.datasets.image_webdata.urls_or_dir={tar_dir}",
+                f"data.train.datasets.webvid.urls_or_dir={csv_dir}",
+                f"data.train.datasets.webvid.decoder.params.video_root="
+                f"{video_root}",
+                f"trainer.ckpt_every={TRAIN_MAIN_STEPS}",
+                "trainer.image_every=0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        last[0] = launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            trainer, state = train.main(argv, step_callback=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        by = {}
+        for e in trainer.step_log:
+            by.setdefault(f"{e['kind']} {e['shape']}", []).append(e["seconds"])
+        finite = all(math.isfinite(v) for e in trainer.step_log
+                     for v in e["metrics"].values())
+        for e, launches in zip(trainer.step_log, per_step):
+            say(f"[train] main step {e['step']} {e['kind'].upper()} "
+                f"{e['shape']}: {e['seconds']:.3f}s; loss/total "
+                f"{e['metrics']['loss/total']!r} loss/rec "
+                f"{e['metrics']['loss/rec']!r} loss/disc "
+                f"{e['metrics']['loss/disc']!r}; launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+        later = {k: (v[1:] if len(v) > 1 else v) for k, v in by.items()}
+        say(f"[train] main: {TRAIN_MAIN_STEPS} steps in {wall:.2f}s; wall s "
+            f"per step by kind and batch shape, after the first of each: "
+            f"{json.dumps({k: statistics.mean(v) for k, v in later.items()})}"
+            f" (all: {json.dumps(by)}); peak memory {peak:.2f} GiB; finite "
+            f"losses {finite}; card {smi}")
+        ckpt = CheckpointManager(logdir, rolling_every=TRAIN_MAIN_STEPS)
+        step = ckpt.latest_step()
+        fresh = _to_cpu_state(state)  # zeroed, then restored
+        with torch.no_grad():
+            for t in list(fresh.params.parameters()) + list(
+                    fresh.disc_params.parameters()):
+                t.zero_()
+        fresh.step = 0
+        ckpt.restore(fresh)
+        same = fresh.step == state.step and all(
+            torch.equal(a, b.cpu()) for a, b in zip(
+                list(fresh.params.state_dict().values())
+                + list(fresh.disc_params.state_dict().values()),
+                list(state.params.state_dict().values())
+                + list(state.disc_params.state_dict().values())))
+        say(f"[train] main: checkpoint at step {step} written and reloaded "
+            f"bit-equal into a zeroed state: {same}")
+        kinds = {e["kind"] for e in trainer.step_log}
+        if not (finite and same and step == TRAIN_MAIN_STEPS
+                and kinds == {"g", "d"}):
+            raise SystemExit("train.main: non-finite losses, a missing step "
+                             "kind or a checkpoint that does not reload")
+    if any(counts[k] == 0 for k in ("K1", "K1.bwd", "K2", "K2.bwd")):
+        raise SystemExit(f"train.main: a training kernel never ran {counts}")
+    return counts
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1779,20 +2295,32 @@ def main() -> int:
     # checkpoints
     stream = timed("stream", _stream, dev, smi)
     timed("checkpoints", _checkpoints, dev, smi)
+    # phase 8: training -- the backward kernels at the path's shapes, one G
+    # and one D step card against CPU, then train.main on the shipped YAML
+    # (its launches counted from 0 just before)
+    t8 = time.perf_counter()
+    timed("train_kernels", _train_kernels, dev, summary)
+    train_check = timed("train_card_vs_cpu", _train_card_vs_cpu, dev)
+    train_main = timed("train_main", _train_main, dev, smi)
+    say(f"[train] phase 8 in {time.perf_counter() - t8:.1f}s; launches in "
+        f"the card's G + D check {train_check}")
 
     kernels = []
     for k in KERNELS:
         # the top-level numbers are those of the kernel's bf16 shape with
-        # the largest bound (its largest shape on the serving path)
-        main_shape = max((e for e in summary[k]["timed"]
-                          if e["dtype"] == "bfloat16"),
-                         key=lambda e: e["bound_ms"])
+        # the largest bound (its largest shape on the serving path); the
+        # backward kernels are timed in fp32, the training path's dtype
+        timed_k = summary[k]["timed"]
+        main_shape = max([e for e in timed_k if e["dtype"] == "bfloat16"]
+                         or timed_k, key=lambda e: e["bound_ms"])
         kernels.append(dict(
             KERNELS[k],
-            launches=sum(n[k] for n, _, _ in by_path.values()) + stream[k],
+            launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
+                      + train_main[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
-                **{"stream-" + "-".join(STREAM_PATH): stream[k]}),
+                **{"stream-" + "-".join(STREAM_PATH): stream[k],
+                   "train": train_main[k]}),
             launches_per_reconstruct={p: r[k]
                                       for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],

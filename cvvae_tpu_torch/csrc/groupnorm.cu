@@ -139,7 +139,8 @@ __global__ void gn_merge(const T* __restrict__ x,
                          const double* __restrict__ part,
                          const float* __restrict__ weight,
                          const float* __restrict__ bias,
-                         float* __restrict__ coef, int B, Plan p, float eps) {
+                         float* __restrict__ coef, float* __restrict__ stats,
+                         int B, Plan p, float eps) {
   const int lane = threadIdx.x & 31;
   const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (wid >= B * p.G) return;
@@ -161,6 +162,11 @@ __global__ void gn_merge(const T* __restrict__ x,
   const float mean =
       (float)((double)to_f32(x[(int64_t)b * p.S * p.C + g * p.cg]) + m);
   const float inv = rsqrtf((float)var + eps);
+  // saved for K1.bwd (csrc/groupnorm_bwd.cu) when a gradient is needed
+  if (stats != nullptr && lane == 0) {
+    stats[((int64_t)b * p.G + g) * 2] = mean;
+    stats[((int64_t)b * p.G + g) * 2 + 1] = inv;
+  }
   for (int c = g * p.cg + lane; c < (g + 1) * p.cg; c += 32) {
     const float a = inv * weight[c];
     coef[(int64_t)b * 2 * p.C + c] = a;
@@ -213,14 +219,14 @@ __global__ void __launch_bounds__(max_threads<V>())
 
 template <typename T, int V, int NS>
 int launch(const void* x, void* y, const float* weight, const float* bias,
-           double* part, float* coef, int B, const Plan& p, int threads,
-           float eps, int silu, cudaStream_t stream) {
+           double* part, float* coef, float* stats, int B, const Plan& p,
+           int threads, float eps, int silu, cudaStream_t stream) {
   const dim3 grid(p.n_blocks, B);
   const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
   gn_stats<T, V, NS><<<grid, threads, smem, stream>>>((const T*)x, part, p);
   const int warps = B * p.G;
   gn_merge<T><<<(warps + 7) / 8, 256, 0, stream>>>(
-      (const T*)x, part, weight, bias, coef, B, p, eps);
+      (const T*)x, part, weight, bias, coef, stats, B, p, eps);
   if (silu)
     gn_apply<T, V, true><<<grid, threads, 0, stream>>>((const T*)x, (T*)y,
                                                         coef, p);
@@ -234,14 +240,14 @@ int launch(const void* x, void* y, const float* weight, const float* bias,
 // elements that divides C and is a divisor or a multiple of C / G
 template <typename T>
 int dispatch(int V, int NS, const void* x, void* y, const float* w,
-             const float* bi, double* part, float* coef, int B,
-             const Plan& p, int threads, float eps, int silu,
+             const float* bi, double* part, float* coef, float* stats,
+             int B, const Plan& p, int threads, float eps, int silu,
              cudaStream_t s) {
   constexpr int kV = 16 / sizeof(T);
 #define CVVAE_GN(v, ns)                                                   \
   if (V == v && NS == ns)                                                 \
-    return launch<T, v, ns>(x, y, w, bi, part, coef, B, p, threads, eps, \
-                            silu, s);
+    return launch<T, v, ns>(x, y, w, bi, part, coef, stats, B, p, threads, \
+                            eps, silu, s);
   CVVAE_GN(kV, 1)
   CVVAE_GN(kV, 2)
   CVVAE_GN(kV, 4)
@@ -259,12 +265,14 @@ int dispatch(int V, int NS, const void* x, void* y, const float* w,
 
 // x, y: (B, S, C) contiguous, 16-byte aligned, dtype f32 or bf16.
 // weight, bias: (C,) f32.  part: (B, n_blocks, G, 2) f64 scratch.  coef:
-// (B, 2, C) f32 scratch.  The plan (V, NS, threads, rows_per_block,
-// n_blocks) comes from ops/kernels/groupnorm.py::launch_plan and is
-// checked here.
+// (B, 2, C) f32 scratch.  stats: NULL, or (B, G, 2) f32 that receives each
+// (batch row, group)'s mean and 1/std for the backward pass.  The plan (V,
+// NS, threads, rows_per_block, n_blocks) comes from
+// ops/kernels/groupnorm.py::launch_plan and is checked here.
 CVVAE_EXPORT int cvvae_group_norm(const void* x, void* y, const void* weight,
                                   const void* bias, void* part, void* coef,
-                                  int B, int64_t S, int C, int G, float eps,
+                                  void* stats, int B, int64_t S, int C, int G,
+                                  float eps,
                                   int silu, int dtype, int V, int NS,
                                   int threads, int64_t rows_per_block,
                                   int n_blocks, int device, void* stream) {
@@ -281,10 +289,11 @@ CVVAE_EXPORT int cvvae_group_norm(const void* x, void* y, const void* weight,
   if (dtype == CVVAE_BF16)
     return dispatch<__nv_bfloat16>(V, NS, x, y, (const float*)weight,
                                    (const float*)bias, (double*)part,
-                                   (float*)coef, B, p, threads, eps, silu, s);
+                                   (float*)coef, (float*)stats, B, p, threads,
+                                   eps, silu, s);
   if (dtype == CVVAE_F32)
     return dispatch<float>(V, NS, x, y, (const float*)weight,
                            (const float*)bias, (double*)part, (float*)coef,
-                           B, p, threads, eps, silu, s);
+                           (float*)stats, B, p, threads, eps, silu, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,9 @@ Differences from the v1 family:
 
 Shipped config: block_out_channels (128,256,512,512), layers_per_block 2,
 causal encoder, non-causal decoder, half_3d.  Layout is channels-last
-(B, T, H, W, C).  This slice serves: dropout > 0 is refused.
+(B, T, H, W, C).  The training options (dropout from an explicit
+generator, remat per resblock, ``features_only`` and
+``apply_decoder_head``) are v1's (``models/vae_v1.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from cvvae_tpu_torch.models.vae_v1 import _check_serving
+from cvvae_tpu_torch.models.vae_v1 import (apply_decoder_head, dropout_apply,
+                                           run_resblock)
 from cvvae_tpu_torch.ops.attention import Dense, dense, spatial_self_attention
 from cvvae_tpu_torch.ops.conv import Conv, Conv3DSpec
 from cvvae_tpu_torch.ops.norm import group_norm, group_norm_per_frame, norm_init
@@ -75,6 +78,7 @@ class ResnetBlock(nn.Module):
     def __init__(self, cfg: VAESD3Config, c_in: int, c_out: int, causal: bool,
                  g: Generator = None):
         super().__init__()
+        self.dropout, self.c_out = cfg.dropout, c_out
         self.groups = cfg.norm_num_groups
         conv1 = cfg.conv_spec(causal)
         conv2 = Conv3DSpec.spatial2d() if cfg.half_3d else conv1
@@ -85,12 +89,14 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = (Conv(Conv3DSpec.pointwise(), c_in, c_out, g)
                               if c_in != c_out else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = group_norm(x, self.norm1, num_groups=self.groups, eps=NORM_EPS,
                        silu=True)
         h = self.conv1(h)
         h = group_norm(h, self.norm2, num_groups=self.groups, eps=NORM_EPS,
                        silu=True)
+        h = dropout_apply(h, mask, self.dropout)
         h = self.conv2(h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
@@ -146,9 +152,9 @@ class Block(nn.Module):
         self.upsamplers = (nn.ModuleList([upsampler])
                            if upsampler is not None else None)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, **run) -> torch.Tensor:
         for r in self.resnets:
-            h = r(h)
+            h = run_resblock(r, h, **run)
         if self.downsamplers is not None:
             h = self.downsamplers[0](h)
         if self.upsamplers is not None:
@@ -166,11 +172,11 @@ class MidBlock(nn.Module):
             nn.ModuleList([Attention(channels, cfg.norm_num_groups, g)])
             if cfg.mid_block_add_attention else None)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = self.resnets[0](h)
+    def forward(self, h: torch.Tensor, **run) -> torch.Tensor:
+        h = run_resblock(self.resnets[0], h, **run)
         if self.attentions is not None:
             h = self.attentions[0](h)
-        return self.resnets[1](h)
+        return run_resblock(self.resnets[1], h, **run)
 
 
 class Encoder(nn.Module):
@@ -178,7 +184,6 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: VAESD3Config, g: Generator = None):
         super().__init__()
-        _check_serving(cfg)
         causal = cfg.causal_encoder
         self.groups = cfg.norm_num_groups
         chans = cfg.block_out_channels
@@ -202,11 +207,15 @@ class Encoder(nn.Module):
         self.conv_norm_out = norm_init(chans[-1])
         self.conv_out = Conv(cfg.conv_spec(causal), chans[-1], z_out, g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, remat: bool = False,
+                generator: Generator = None) -> torch.Tensor:
+        """``remat``: each resblock under ``torch.utils.checkpoint``;
+        ``generator``: dropout where the config has it (training)."""
+        run = dict(remat=remat, generator=generator)
         h = self.conv_in(x)
         for blk in self.down_blocks:
-            h = blk(h)
-        h = self.mid_block(h)
+            h = blk(h, **run)
+        h = self.mid_block(h, **run)
         h = group_norm(h, self.conv_norm_out, num_groups=self.groups,
                        eps=NORM_EPS, silu=True)
         return self.conv_out(h)
@@ -217,7 +226,6 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: VAESD3Config, g: Generator = None):
         super().__init__()
-        _check_serving(cfg)
         causal = cfg.causal_decoder
         self.groups = cfg.norm_num_groups
         rev = tuple(reversed(cfg.block_out_channels))
@@ -239,10 +247,17 @@ class Decoder(nn.Module):
         self.conv_norm_out = norm_init(rev[-1])
         self.conv_out = Conv(cfg.conv_spec(causal), rev[-1], cfg.in_channels, g)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid_block(self.conv_in(z))
+    def forward(self, z: torch.Tensor, *, remat: bool = False,
+                generator: Generator = None,
+                features_only: bool = False) -> torch.Tensor:
+        """As the encoder's; ``features_only`` stops before ``conv_out``
+        (``apply_decoder_head`` runs it)."""
+        run = dict(remat=remat, generator=generator)
+        h = self.mid_block(self.conv_in(z), **run)
         for blk in self.up_blocks:
-            h = blk(h)
+            h = blk(h, **run)
         h = group_norm(h, self.conv_norm_out, num_groups=self.groups,
                        eps=NORM_EPS, silu=True)
+        if features_only:
+            return h
         return self.conv_out(h)

@@ -14,8 +14,11 @@ ch_mult=(1,2,4,4), 2 res blocks):
   (time upsample at odd levels), and a spatial+temporal attention
   mid-block.  The encoder is causal in time; the decoder is not.
 
-Layout is channels-last (B, T, H, W, C).  GroupNorm eps is 1e-5.  This
-slice serves: dropout > 0 is refused, and there is no remat.
+Layout is channels-last (B, T, H, W, C).  GroupNorm eps is 1e-5.  The
+training options follow the JAX package: dropout (drawn from an explicit
+generator), remat per resblock (``torch.utils.checkpoint``), and the
+decoder split into features and head (``features_only``,
+``apply_decoder_head``).
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from cvvae_tpu_torch.ops.attention import (
     Dense, dense, spatial_self_attention, temporal_self_attention)
-from cvvae_tpu_torch.ops.conv import Conv, Conv3DSpec
+from cvvae_tpu_torch.ops.conv import Conv, Conv3DSpec, conv3d
 from cvvae_tpu_torch.ops.norm import (
     group_norm, group_norm_per_frame, layer_norm, norm_init)
 from cvvae_tpu_torch.ops.upsample_conv import upsample2x_conv3x3_interleave
@@ -72,17 +76,41 @@ class VAE1Config:
         return Conv3DSpec.v1_plain(k, p, stride)
 
 
-def _check_serving(cfg: VAE1Config) -> None:
-    if cfg.dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 is a training option; the training stack is not "
-            "ported yet (ROADMAP queue A: training)")
+def run_resblock(block: nn.Module, h: torch.Tensor, *, remat: bool = False,
+                 generator: Generator = None) -> torch.Tensor:
+    """One resblock as the JAX package's ``res`` runs it: with dropout
+    where the config has it and a ``generator`` is given (training; the
+    JAX package's ``deterministic=False``), and under
+    ``torch.utils.checkpoint`` (``use_reentrant=False``) with ``remat``.
+    The dropout mask is drawn here, before the checkpointed call, so the
+    recompute in the backward reuses it: a checkpoint restores the global
+    RNG's state, not an explicit generator's."""
+    mask = None
+    if block.dropout > 0 and generator is not None:
+        shape = tuple(h.shape[:-1]) + (block.c_out,)
+        mask = torch.rand(shape, generator=generator, device=h.device) \
+            < 1.0 - block.dropout
+    if remat:
+        return torch.utils.checkpoint.checkpoint(block, h, mask,
+                                                 use_reentrant=False)
+    return block(h, mask)
+
+
+def dropout_apply(h: torch.Tensor, mask: Optional[torch.Tensor],
+                  rate: float) -> torch.Tensor:
+    """``where(mask, h / keep, 0)`` in h's dtype (the JAX package's
+    inverted dropout); ``mask`` None is no dropout."""
+    if mask is None:
+        return h
+    keep = 1.0 - rate
+    return torch.where(mask, h / keep, torch.zeros_like(h)).to(h.dtype)
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, cfg: VAE1Config, c_in: int, c_out: int, causal: bool,
                  g: Generator = None):
         super().__init__()
+        self.dropout, self.c_out = cfg.dropout, c_out
         self.groups = cfg.norm_num_groups
         conv1 = cfg.conv_spec(causal)
         conv2 = Conv3DSpec.spatial2d() if cfg.half_3d else conv1
@@ -93,12 +121,14 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = (Conv(Conv3DSpec.pointwise(), c_in, c_out, g)
                              if c_in != c_out else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = group_norm(x, self.norm1, num_groups=self.groups, eps=NORM_EPS,
                        silu=True)
         h = self.conv1(h)
         h = group_norm(h, self.norm2, num_groups=self.groups, eps=NORM_EPS,
                        silu=True)
+        h = dropout_apply(h, mask, self.dropout)
         h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
@@ -170,9 +200,9 @@ class Level(nn.Module):
         self.downsample = downsample
         self.upsample = upsample
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, **run) -> torch.Tensor:
         for i, blk in enumerate(self.block):
-            h = blk(h)
+            h = run_resblock(blk, h, **run)
             if self.attn is not None:
                 h = self.attn[i](h)
         if self.downsample is not None:
@@ -190,8 +220,9 @@ class Mid(nn.Module):
         self.attn_1 = AttnBlock(channels, attn_kind, cfg.norm_num_groups, g)
         self.block_2 = ResnetBlock(cfg, channels, channels, causal, g)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.block_2(self.attn_1(self.block_1(h)))
+    def forward(self, h: torch.Tensor, **run) -> torch.Tensor:
+        h = self.attn_1(run_resblock(self.block_1, h, **run))
+        return run_resblock(self.block_2, h, **run)
 
 
 def _encoder_attn_levels(cfg: VAE1Config):
@@ -218,7 +249,6 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: VAE1Config, g: Generator = None):
         super().__init__()
-        _check_serving(cfg)
         causal = cfg.causal_encoder
         self.groups = cfg.norm_num_groups
         self.conv_in = Conv(cfg.conv_spec(causal), cfg.in_channels, cfg.ch, g)
@@ -245,11 +275,15 @@ class Encoder(nn.Module):
         self.norm_out = norm_init(c_mid)
         self.conv_out = Conv(cfg.conv_spec(causal), c_mid, z_out, g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, remat: bool = False,
+                generator: Generator = None) -> torch.Tensor:
+        """``remat``: each resblock under ``torch.utils.checkpoint``;
+        ``generator``: dropout where the config has it (training)."""
+        run = dict(remat=remat, generator=generator)
         h = self.conv_in(x)
         for level in self.down:
-            h = level(h)
-        h = self.mid(h)
+            h = level(h, **run)
+        h = self.mid(h, **run)
         h = group_norm(h, self.norm_out, num_groups=self.groups, eps=NORM_EPS,
                        silu=True)
         return self.conv_out(h)
@@ -260,7 +294,6 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: VAE1Config, g: Generator = None):
         super().__init__()
-        _check_serving(cfg)
         causal = cfg.causal_decoder
         self.groups = cfg.norm_num_groups
         c_mid = cfg.ch * cfg.ch_mult[-1]
@@ -287,10 +320,25 @@ class Decoder(nn.Module):
         self.norm_out = norm_init(block_in)
         self.conv_out = Conv(cfg.conv_spec(causal), block_in, cfg.out_ch, g)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid(self.conv_in(z))
+    def forward(self, z: torch.Tensor, *, remat: bool = False,
+                generator: Generator = None,
+                features_only: bool = False) -> torch.Tensor:
+        """As the encoder's; ``features_only`` stops before ``conv_out``
+        (``apply_decoder_head`` runs it)."""
+        run = dict(remat=remat, generator=generator)
+        h = self.mid(self.conv_in(z), **run)
         for level in reversed(self.up):
-            h = level(h)
+            h = level(h, **run)
         h = group_norm(h, self.norm_out, num_groups=self.groups, eps=NORM_EPS,
                        silu=True)
+        if features_only:
+            return h
         return self.conv_out(h)
+
+
+def apply_decoder_head(conv_out, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The decoder's final conv alone, with ``conv_out``'s ``weight`` and
+    ``bias`` (any object holding them): the training engine takes the
+    gradients of the NLL and GAN losses w.r.t. that weight only (the
+    adaptive discriminator weight) on the decoder's features."""
+    return conv3d(h, conv_out, cfg.conv_spec(cfg.causal_decoder))

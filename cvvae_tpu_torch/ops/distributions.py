@@ -32,12 +32,21 @@ class DiagonalGaussian(NamedTuple):
     def var(self) -> torch.Tensor:
         return torch.exp(self.logvar)
 
-    def sample(self, generator: torch.Generator) -> torch.Tensor:
-        """Draw from the posterior; ``generator`` lives on the mean's
-        device.  It does not reproduce the JAX package's draws."""
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=self.mean.dtype)
-        return self.mean + self.std * noise
+    def sample(self, generator: Optional[torch.Generator] = None, *,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Draw from the posterior: mean + std · noise, with ``noise`` as
+        given (of the mean's shape; a test hands in the JAX package's
+        draws) or N(0, 1) from ``generator``, which lives on the mean's
+        device.  A generator does not reproduce the JAX package's
+        draws."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device,
+                                dtype=self.mean.dtype)
+        elif tuple(noise.shape) != tuple(self.mean.shape):
+            raise ValueError(f"noise {tuple(noise.shape)} is not of the "
+                             f"posterior's shape {tuple(self.mean.shape)}")
+        return self.mean + self.std * noise.to(self.mean)
 
     def mode(self) -> torch.Tensor:
         return self.mean

@@ -38,8 +38,11 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _I,
-                         _I, _I, _I, _L, _I, _I, _P],
+    "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I,
+                         _I, _I, _I, _I, _L, _I, _I, _P],
+    "cvvae_group_norm_bwd": [_P] * 11 + [_I, _L, _I, _I, _I, _I, _I, _I, _L,
+                                         _I, _I, _P],
+    "cvvae_subpixel_interleave_bwd": [_P] * 7 + [_L] + [_I] * 12 + [_P],
     "cvvae_subpixel_interleave": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cvvae_stem_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -191,3 +194,16 @@ def require_cuda_layout(name: str, t: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: input is not contiguous in (B,T,H,W,C) "
                          f"order (strides {t.stride()}); call .contiguous() "
                          f"where it is produced")
+
+
+def refuse_gradient(name: str, backward: str, *tensors) -> None:
+    """Raise where a kernel without a backward kernel would be asked for
+    a gradient: grad mode on and any of ``tensors`` requiring one.  The
+    kernel's output would carry no ``grad_fn`` and the gradient would be
+    lost without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no backward kernel ({backward}) yet, so its output "
+            f"cannot carry a gradient on the card; run it under "
+            f"torch.no_grad(), or see ROADMAP.md queue B for {backward}")

@@ -55,6 +55,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
+    _build.refuse_gradient("flash_attention (K4)", "K4.bwd", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require_cuda_layout(f"flash_attention {name}", t, 3)
     if q.dtype != torch.bfloat16:

@@ -241,6 +241,8 @@ def stage(x: torch.Tensor, scale_x: torch.Tensor, pads, modes,
     if x.device.type == "cpu":
         return Staged(stage_plain(x, scale_x, pads, modes, sw),
                       tuple(x.shape), pads, modes, x.dtype)
+    _build.refuse_gradient("int8_stage (K5.stage)", "none: int8 is "
+                           "inference-only", x, scale_x)
     _build.require_cuda_layout("int8_stage", x, 5)
     if (any(p < 0 for pad in pads for p in pad) or sw < 1
             or any(m not in ("zero", "edge") for m in modes)
@@ -275,6 +277,8 @@ def gemm(staged: Staged, weight_q: torch.Tensor, scale_w: torch.Tensor,
     if staged.xq.device.type == "cpu":
         return gemm_plain(staged, weight_q, scale_w, scale_x, bias, stride,
                           pads)
+    _build.refuse_gradient("int8_gemm (K5)", "none: int8 is inference-only",
+                           scale_w, scale_x, bias)
     _check_conv(staged.shape, weight_q, scale_w, scale_x, bias, stride, pads,
                 staged.modes)
     (t0, h0, w0), _ = _window(staged, pads)
@@ -324,6 +328,8 @@ def conv3d_int8(x: torch.Tensor, weight_q: torch.Tensor,
     if x.device.type == "cpu":
         return conv3d_int8_plain(x, weight_q, scale_w, scale_x, bias, stride,
                                  pads, modes)
+    _build.refuse_gradient("conv3d_int8 (K5)", "none: int8 is "
+                           "inference-only", x, scale_w, scale_x, bias)
     _build.require_cuda_layout("conv3d_int8", x, 5)
     _check_conv(x.shape, weight_q, scale_w, scale_x, bias, stride, pads,
                 modes)

@@ -17,6 +17,15 @@ four independent loads in flight before their stores, and a persistent
 grid over output rows.  The bias add is one fp32 add rounded to the dtype,
 which is what torch's own add does, so the kernel is bit-exact against
 the plain version.
+
+K2.bwd (``csrc/shuffle_bwd.cu``), the gradient, which the TPU package
+leaves to XLA's autodiff of its interleave: ``subpixel_interleave`` is a
+``torch.autograd.Function`` whose backward launches K2.bwd on the card
+(``subpixel_interleave_backward_plain`` on a CPU tensor): the inverse
+permutation of dy into the four phases, bit-exact, zero where a frame was
+dropped, and d(bias) summed per thread in fp32 and merged over the threads
+in a fixed order in double.  Bound: device memory, one read of dy and one
+write of the phases.
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ import torch
 
 from cvvae_tpu_torch.ops.kernels import _build
 
-#: launches of the CUDA kernel (the CPU path does not count)
+#: launches of the CUDA kernel K2 and of its backward K2.bwd (the CPU path
+#: does not count)
 launches = 0
+bwd_launches = 0
 
 #: threads a block at most, and loads a thread issues before their stores
 #: (kThreads, kUnroll of csrc/shuffle.cu)
@@ -76,21 +87,64 @@ def launch_plan(phases: Sequence[torch.Tensor],
                 grid=max(1, -(-rows // per_block)))
 
 
+def subpixel_interleave_backward_plain(dy: torch.Tensor, *, n: int,
+                                       t: int, drop_first: bool = True,
+                                       with_bias: bool = True):
+    """K2.bwd's plain version: the four phase gradients (B, T, H, W, n·c)
+    of ``dy`` (B, n·T − drop, 2H, 2W, c), zero where a frame was dropped,
+    and d(bias) (n·c,) in fp32 (None ``with_bias`` False)."""
+    b, _, h2, w2, c = dy.shape
+    h, w = h2 // 2, w2 // 2
+    if n > 1 and drop_first:
+        dy = torch.cat([dy.new_zeros((b, 1, h2, w2, c)), dy], dim=1)
+    y = dy.reshape(b, t, n, h, 2, w, 2, c).permute(0, 1, 3, 5, 4, 6, 2, 7)
+    y = y.reshape(b, t, h, w, 4, n * c)
+    phases = [y[..., k, :].contiguous() for k in range(4)]
+    dbias = (y.to(torch.promote_types(y.dtype, torch.float32))
+             .sum(dim=(0, 1, 2, 3, 4)) if with_bias else None)
+    return phases, dbias
+
+
 def subpixel_interleave(phases: Sequence[torch.Tensor],
                         bias: Optional[torch.Tensor], *, n: int,
                         drop_first: bool = True) -> torch.Tensor:
     """Interleave four phase tensors ordered (h_even,w_even),
-    (h_even,w_odd), (h_odd,w_even), (h_odd,w_odd).
+    (h_even,w_odd), (h_odd,w_even), (h_odd,w_odd), differentiable in the
+    phases and the bias.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
-    global launches
+    A CPU tensor takes the plain version forward and backward; a CUDA
+    tensor launches K2 forward and K2.bwd backward, or raises."""
     if len(phases) != 4:
         raise ValueError(f"expected 4 phase tensors, got {len(phases)}")
+    return _Interleave.apply(n, drop_first, bias, *phases)
+
+
+class _Interleave(torch.autograd.Function):
+    """K2 and K2.bwd, or their plain versions on a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, n, drop_first, bias, *phases):
+        ctx.opts = (n, drop_first, phases[0].shape[1], bias is not None,
+                    None if bias is None else bias.dtype)
+        if phases[0].device.type == "cpu":
+            return subpixel_interleave_plain(phases, bias, n=n,
+                                             drop_first=drop_first)
+        return _launch(phases, bias, n, drop_first)
+
+    @staticmethod
+    def backward(ctx, dy):
+        n, drop_first, t, with_bias, bias_dtype = ctx.opts
+        with_bias = with_bias and ctx.needs_input_grad[2]
+        phases, dbias = subpixel_interleave_backward(
+            dy, n=n, t=t, drop_first=drop_first, with_bias=with_bias)
+        if dbias is not None:
+            dbias = dbias.to(bias_dtype)
+        return (None, None, dbias, *phases)
+
+
+def _launch(phases, bias, n, drop_first):
+    global launches
     p0 = phases[0]
-    if p0.device.type == "cpu":
-        return subpixel_interleave_plain(phases, bias, n=n,
-                                         drop_first=drop_first)
     for p in phases:
         _build.require_cuda_layout("subpixel_interleave", p, 5)
         if p.shape != p0.shape or p.dtype != p0.dtype or p.device != p0.device:
@@ -123,3 +177,46 @@ def subpixel_interleave(phases: Sequence[torch.Tensor],
     _build.check(rc, "subpixel_interleave")
     launches += 1
     return out
+
+
+def subpixel_interleave_backward(dy: torch.Tensor, *, n: int, t: int,
+                                 drop_first: bool = True,
+                                 with_bias: bool = True):
+    """K2.bwd (``csrc/shuffle_bwd.cu``): the four phase gradients and
+    d(bias) (fp32, or None) of a contiguous CUDA ``dy``; a CPU tensor takes
+    the plain version."""
+    global bwd_launches
+    if dy.device.type == "cpu":
+        return subpixel_interleave_backward_plain(
+            dy, n=n, t=t, drop_first=drop_first, with_bias=with_bias)
+    dy = dy.contiguous()
+    _build.require_cuda_layout("subpixel_interleave_backward", dy, 5)
+    if n not in (1, 2):
+        raise ValueError(f"subpixel_interleave_backward: n={n} not supported")
+    b, t_out, h2, w2, c = dy.shape
+    drop = 1 if (n > 1 and drop_first) else 0
+    if t_out != n * t - drop or h2 % 2 or w2 % 2:
+        raise ValueError(f"subpixel_interleave_backward: dy {tuple(dy.shape)} "
+                         f"is no output of T={t}, n={n}, drop={drop}")
+    h, w = h2 // 2, w2 // 2
+    phases = [torch.empty((b, t, h, w, n * c), device=dy.device,
+                          dtype=dy.dtype) for _ in range(4)]
+    rows = b * n * t * h2
+    plan = launch_plan([dy] + phases, None, c, rows,
+                       torch.cuda.get_device_properties(
+                           dy.device).multi_processor_count)
+    part = dbias = None
+    if with_bias:
+        part = torch.empty((plan["grid"], plan["by"], n * c),
+                           device=dy.device, dtype=torch.float32)
+        dbias = torch.empty(n * c, device=dy.device, dtype=torch.float32)
+    rc = _build.library().cvvae_subpixel_interleave_bwd(
+        dy.data_ptr(), *(p.data_ptr() for p in phases),
+        None if part is None else part.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), b, t, h, w, c, n, drop,
+        plan["vec"], plan["bx"], plan["by"], plan["grid"],
+        _build.DTYPE_CODES[dy.dtype], dy.device.index or 0,
+        _build.stream_of(dy))
+    _build.check(rc, "subpixel_interleave_backward")
+    bwd_launches += 1
+    return phases, dbias

@@ -152,6 +152,7 @@ def stem_conv3d(x: torch.Tensor, weight: torch.Tensor,
     global launches
     if x.device.type == "cpu":
         return stem_conv3d_plain(x, weight, bias, spec)
+    _build.refuse_gradient("stem_conv3d (K3)", "K3.bwd", x, weight, bias)
     _build.require_cuda_layout("stem_conv3d", x, 5)
     b, t, h, w, cin = x.shape
     if (tuple(spec.kernel) != (3, 3, 3) or tuple(spec.stride) != (1, 1, 1)

@@ -42,11 +42,13 @@ def group_norm(x: torch.Tensor, params, *, num_groups: int = 32,
 
 
 def group_norm_per_frame(x: torch.Tensor, params, *, num_groups: int = 32,
-                         eps: float = 1e-6) -> torch.Tensor:
+                         eps: float = 1e-6, silu: bool = False) -> torch.Tensor:
     """GroupNorm with T folded into batch: statistics per (batch, frame,
-    group) over (H, W, C/G), as the reference attention blocks compute."""
+    group) over (H, W, C/G), as the reference attention blocks and the 2D
+    constraint nets compute; ``silu`` as in ``group_norm``."""
     return group_norm_silu(x, params.weight, params.bias,
-                           num_groups=num_groups, eps=eps, per_frame=True)
+                           num_groups=num_groups, eps=eps, silu=silu,
+                           per_frame=True)
 
 
 def layer_norm(x: torch.Tensor, params, *, eps: float = 1e-5) -> torch.Tensor:
@@ -54,3 +56,34 @@ def layer_norm(x: torch.Tensor, params, *, eps: float = 1e-5) -> torch.Tensor:
     out = F.layer_norm(x.float(), (x.shape[-1],), params.weight.float(),
                        params.bias.float(), eps)
     return out.to(x.dtype)
+
+
+def batch_norm_inference(x: torch.Tensor, params, *,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm with the running statistics (``params.mean``,
+    ``params.var``), in fp32, cast back to x's dtype."""
+    out = (x.float() - params.mean.float()) * torch.rsqrt(
+        params.var.float() + eps)
+    out = out * params.weight.float() + params.bias.float()
+    return out.to(x.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, params, *, eps: float = 1e-5,
+                     momentum: float = 0.1):
+    """BatchNorm in training mode: batch statistics over every axis but
+    the channel.  Returns (y, {"mean", "var"}): the running statistics
+    advanced by torch's momentum rule (biased variance normalises,
+    unbiased goes into the running update), for the caller to store."""
+    xf = x.float()
+    axes = tuple(range(xf.ndim - 1))
+    mean = xf.mean(dim=axes)
+    var = xf.var(dim=axes, unbiased=False)
+    n = xf.numel() // xf.shape[-1]
+    unbiased = var * n / max(n - 1, 1)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    out = out * params.weight.float() + params.bias.float()
+    new_stats = {
+        "mean": (1 - momentum) * params.mean.float() + momentum * mean,
+        "var": (1 - momentum) * params.var.float() + momentum * unbiased,
+    }
+    return out.to(x.dtype), new_stats

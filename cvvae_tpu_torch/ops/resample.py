@@ -6,6 +6,7 @@ reference for the fused upsample (``ops/upsample_conv.py``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def nearest_upsample_2x_spatial(x: torch.Tensor) -> torch.Tensor:
@@ -28,3 +29,9 @@ def temporal_interleave(x: torch.Tensor, n: int,
     if drop_first:
         x = x[:, 1:]
     return x
+
+
+def avg_pool3d(x: torch.Tensor, window, stride) -> torch.Tensor:
+    """Average pooling on (B,T,H,W,C), VALID padding (torch default)."""
+    out = F.avg_pool3d(x.permute(0, 4, 1, 2, 3), window, stride)
+    return out.permute(0, 2, 3, 4, 1).contiguous()

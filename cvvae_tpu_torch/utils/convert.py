@@ -54,18 +54,26 @@ def _convert_leaf(leaf: str, value: np.ndarray):
     if leaf == "kernel":
         if value.ndim == 5:
             return "weight", value.transpose(4, 3, 0, 1, 2)
+        if value.ndim == 4:  # a 2D conv (kH, kW, I, O): LPIPS's VGG, heads
+            return "weight", value.transpose(3, 2, 0, 1)
         if value.ndim == 2:
             return "weight", value.T
         raise ValueError(f"kernel of rank {value.ndim} has no counterpart")
     if leaf == "kernel_q":
         return "weight_q", value.transpose(4, 3, 0, 1, 2)
-    if leaf in ("bias", "scale_w", "scale_x"):
+    if leaf in ("bias", "scale_w", "scale_x", "mean", "var", "loc",
+                "initialized", "logvar", "logvar_2d"):
         return leaf, value
     raise ValueError(f"unexpected leaf {leaf!r}")
 
 
 def from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
-    """{"encoder": ..., "decoder": ...} of array-likes -> state_dict."""
+    """A JAX params tree of array-likes -> state_dict: the VideoVAE's
+    {"encoder", "decoder"}, the training engine's generator tree (with
+    the 0-d ``logvar`` / ``logvar_2d``), a discriminator (Disc3D; Disc2D
+    with BatchNorm ``mean``/``var`` or ActNorm ``loc``/``initialized``),
+    LPIPS ({"vgg", "lins"}, 2D kernels) or a 2D constraint net.  An
+    optimizer's moments of any of these convert alike."""
     out: Dict[str, torch.Tensor] = {}
 
     def visit(node, path):
@@ -83,6 +91,45 @@ def from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
 
     visit(params, [])
     return out
+
+
+def _adam_state(opt_state):
+    """optax's ScaleByAdamState (count, mu, nu) inside a
+    ``chain(clip_by_global_norm, inject_hyperparams(adamw))`` state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    children = (opt_state if isinstance(opt_state, (tuple, list))
+                else [getattr(opt_state, "inner_state", None)])
+    for child in children:
+        if child is not None and not isinstance(child, (int, float)):
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_train_state(state) -> dict:
+    """A JAX ``TrainState`` (step, params, disc params, the two optax
+    clip + AdamW states, the EMA) -> the port's ``TrainState.state_dict()``
+    form: load it with ``TrainState.load_state_dict`` (strict).  optax's
+    moments ``mu``/``nu`` and its ``count`` become the port's AdamW state,
+    keyed and laid out like the parameters."""
+    def adam(opt_state):
+        a = _adam_state(opt_state)
+        if a is None:
+            raise ValueError("no ScaleByAdamState in the optimizer state")
+        return {"count": int(np.asarray(a.count)),
+                "mu": from_jax_params(a.mu), "nu": from_jax_params(a.nu)}
+
+    ema = None
+    if state.ema is not None:
+        ema = {"shadow": from_jax_params(state.ema.shadow),
+               "num_updates": int(np.asarray(state.ema.num_updates))}
+    return {"step": int(np.asarray(state.step)),
+            "params": from_jax_params(state.params),
+            "disc_params": from_jax_params(state.disc_params),
+            "opt_g": adam(state.opt_g), "opt_d": adam(state.opt_d),
+            "ema": ema}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K5 and of the edge-pad convs:
+"""Planted faults against the checks of K1-K5, K1.bwd, K2.bwd and of the
+edge-pad convs:
 do the bounds that ``chip_smoke.py`` and the card tests hold them to
 catch a broken kernel or decomposition?
 
@@ -23,7 +24,10 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   ``chip_smoke.K2_CHECK_SHAPES``, held bit-exact (``chip_smoke.k2_exact``);
 - K5 (K5.stage then K5.gemm), bf16 and fp32, at
   ``chip_smoke.k5_check_cases`` on ``chip_smoke.k5_inputs``, held
-  bit-exact to its plain version.
+  bit-exact to its plain version;
+- K1.bwd and K2.bwd, bf16 and fp32, at ``chip_smoke.K1_CHECK_SHAPES`` and
+  ``chip_smoke.K2_CHECK_SHAPES``, held by ``chip_smoke.k1_bwd_check``
+  (``K1_BWD_RMS``) and ``chip_smoke.k2_bwd_check``.
 
 The edge-pad decompositions of ``cvvae_tpu_torch/ops/conv.py`` are held
 the same way: the faults of EDGE_FAULTS are planted in copies of that
@@ -122,6 +126,34 @@ FAULTS = {
         "K5", "conv_int8.cu",
         "          int row0 = dw;",
         "          int row0 = 0;"),
+    "SiLU's derivative without its (1 + z(1 - s)) factor": (
+        "K1.bwd", "groupnorm_bwd.cu",
+        "  return d * s * (1.f + z * (1.f - s));",
+        "  return d * s;"),
+    "the last block's sums dropped from the backward merge": (
+        "K1.bwd", "groupnorm_bwd.cu",
+        "for (int k = lane; k < p.n_blocks; k += 32) {",
+        "for (int k = lane; k < p.n_blocks - 1; k += 32) {"),
+    "the B term (q * (x - mean)) left out of dx": (
+        "K1.bwd", "groupnorm_bwd.cu",
+        "fmaf(a[j], dz, fmaf(q[j], xf - m[j], r[j]))",
+        "fmaf(a[j], dz, r[j])"),
+    "dweight and dbias swapped": (
+        "K1.bwd", "groupnorm_bwd.cu",
+        "  dbias[c] = (float)t1;\n  dweight[c] = (float)t2;",
+        "  dbias[c] = (float)t2;\n  dweight[c] = (float)t1;"),
+    "odd output columns copied into the even phase": (
+        "K2.bwd", "shuffle_bwd.cu",
+        "          ((x & 1) ? po : pe)[(int64_t)(x >> 1) * (n * cv)] = v[u];",
+        "          pe[(int64_t)(x >> 1) * (n * cv)] = v[u];"),
+    "both channel groups' bias sums added into the first": (
+        "K2.bwd", "shuffle_bwd.cu",
+        "            for (int e = 0; e < E; ++e) acc[j][e] += to_f32(ve[e]);",
+        "            for (int e = 0; e < E; ++e) acc[0][e] += to_f32(ve[e]);"),
+    "the bias merge skips the last slot": (
+        "K2.bwd", "shuffle_bwd.cu",
+        "for (int64_t s = 0; s < slots; ++s)",
+        "for (int64_t s = 0; s < slots - 1; ++s)"),
 }
 
 
@@ -221,6 +253,39 @@ def _k2_cases():
                    f"bias={with_bias} {dtype}: bit-exact={exact}", not exact)
 
 
+def _k1_bwd_cases():
+    """(label, fails) of every K1.bwd case on the library now loaded: the
+    shapes of ``chip_smoke.K1_CHECK_SHAPES``, held to
+    ``chip_smoke.K1_BWD_RMS`` by ``chip_smoke.k1_bwd_check``."""
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, groups, silu, per_frame in chip_smoke.K1_CHECK_SHAPES:
+            x, dy, w, b = chip_smoke.k1_bwd_inputs(shape, dev, dtype)
+            rel, _, _ = chip_smoke.k1_bwd_check(x, dy, w, b, groups, 1e-5,
+                                                silu, per_frame)
+            tol = chip_smoke.K1_BWD_RMS[dtype]
+            yield (f"K1.bwd {shape} G={groups} silu={silu} {dtype}: "
+                   f"||d||/||ref|| {rel} (<= {tol})",
+                   not all(v <= tol for v in rel.values()))
+
+
+def _k2_bwd_cases():
+    """(label, fails) of every K2.bwd case on the library now loaded: the
+    cases of ``chip_smoke.K2_CHECK_SHAPES``, held by
+    ``chip_smoke.k2_bwd_check`` (phases bit-exact, d(bias) within the
+    summation bound)."""
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, n, drop, c, with_bias in chip_smoke.K2_CHECK_SHAPES:
+            dy = chip_smoke.randn((b, n * 3 - (n > 1 and drop), 10, 14, c),
+                                  7, dev, dtype)
+            exact, excess, _ = chip_smoke.k2_bwd_check(dy, n, 3, with_bias,
+                                                       drop)
+            yield (f"K2.bwd {tuple(dy.shape)} n={n} drop={drop} "
+                   f"bias={with_bias} {dtype}: phases bit-exact={exact}, "
+                   f"dbias excess {excess!r}", not exact or excess > 0.0)
+
+
 def _k5_cases():
     """(label, fails) of every K5 check case on the library now loaded."""
     dev = torch.device("cuda", 0)
@@ -284,7 +349,8 @@ def planted_conv(tmp: Path, i: int, replacements):
 
 #: each kernel's cases, and the edge convs'
 CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
-         "K5": _k5_cases, "edge": edge_cases}
+         "K5": _k5_cases, "K1.bwd": _k1_bwd_cases, "K2.bwd": _k2_bwd_cases,
+         "edge": edge_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:

@@ -167,10 +167,12 @@ def test_nothing_is_built_at_import():
     assert _build.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in _build._sources()} == {
         "attention.cu", "common.cuh", "conv_int8.cu", "groupnorm.cu",
-        "hopper.cuh", "shuffle.cu", "stem.cu"}
+        "groupnorm_bwd.cu", "hopper.cuh", "shuffle.cu", "shuffle_bwd.cu",
+        "stem.cu"}
     assert set(_build._SIGNATURES) == {
         "cvvae_group_norm", "cvvae_subpixel_interleave", "cvvae_stem_conv3d",
-        "cvvae_flash_attention", "cvvae_int8_stage", "cvvae_int8_gemm"}
+        "cvvae_flash_attention", "cvvae_int8_stage", "cvvae_int8_gemm",
+        "cvvae_group_norm_bwd", "cvvae_subpixel_interleave_bwd"}
 
 
 def test_layout_check_names_the_fix():
@@ -178,3 +180,64 @@ def test_layout_check_names_the_fix():
                               ndim=5)
     with pytest.raises(ValueError, match="dtype"):
         _build.require_cuda_layout("k", x, 5)
+
+
+def test_training_modules_pull_in_no_jax():
+    code = ("import sys\n"
+            "import cvvae_tpu_torch.train, cvvae_tpu_torch.training.engine\n"
+            "import cvvae_tpu_torch.training.trainer, "
+            "cvvae_tpu_torch.training.checkpoint\n"
+            "import cvvae_tpu_torch.losses.regularizers, "
+            "cvvae_tpu_torch.models.vae2d\n"
+            "import cvvae_tpu_torch.models.discriminator, "
+            "cvvae_tpu_torch.models.lpips\n"
+            "import cvvae_tpu_torch.data.decoders, "
+            "cvvae_tpu_torch.utils.config\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cvvae_tpu' or "
+            "m.startswith('cvvae_tpu.') or m == 'optax')\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def _targets(node):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k == "target":
+                yield v
+            else:
+                yield from _targets(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _targets(v)
+
+
+def test_shipped_config_targets_resolve_to_the_port():
+    from cvvae_tpu_torch.utils.config import (get_obj_from_str,
+                                              instantiate_from_config,
+                                              load_configs, resolve_target)
+    cfg = load_configs([os.path.join(ROOT, "configs",
+                                     "sd3_latent_constraint.yaml")])
+    targets = sorted(set(_targets(cfg)))
+    assert len(targets) >= 8
+    for t in targets:
+        assert t.startswith("cvvae_tpu."), t
+        obj = get_obj_from_str(t)
+        assert obj.__module__.startswith("cvvae_tpu_torch."), (t, obj)
+        assert resolve_target(t) == "cvvae_tpu_torch." + t[len("cvvae_tpu."):]
+    engine = instantiate_from_config(cfg["model"]["engine"])
+    assert type(engine).__module__ == "cvvae_tpu_torch.training.engine"
+    assert engine.net.block_out_channels == (128, 256, 512, 512)
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    from cvvae_tpu_torch.training.engine import EngineConfig, TrainingEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainingEngine(EngineConfig(constraint="none"))

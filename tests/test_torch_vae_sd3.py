@@ -114,11 +114,31 @@ def test_module_paths_follow_jax_tree(narrow):
 
 
 def test_dropout_is_refused():
-    cfg = tsd3.VAESD3Config(**dict(NARROW, dropout=0.1))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tsd3.Encoder(cfg)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tsd3.Decoder(cfg)
+    """Dropout is a training option: without a generator (serving) it is
+    refused and the net is the dropout-free one; with a generator the
+    mask is drawn outside the checkpointed block, so remat recomputes
+    with the same mask."""
+    cfg = tsd3.VAESD3Config(**dict(NARROW, dropout=0.5))
+    g = torch.Generator().manual_seed(0)
+    enc = tsd3.Encoder(cfg, g)
+    plain = tsd3.Encoder(tsd3.VAESD3Config(**NARROW))
+    plain.load_state_dict(enc.state_dict(), strict=True)
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (1, 5, 16, 16, 3)).astype(np.float32))
+    with torch.no_grad():
+        torch.testing.assert_close(enc(x), plain(x), rtol=0, atol=0)
+        dropped = enc(x, generator=torch.Generator().manual_seed(1))
+    assert not torch.allclose(dropped, plain(x).detach())
+    grads = []
+    for remat in (False, True):
+        enc.zero_grad()
+        out = enc(x, remat=remat, generator=torch.Generator().manual_seed(1))
+        out.square().sum().backward()
+        grads.append([p.grad.clone() for p in enc.parameters()])
+        if remat:
+            torch.testing.assert_close(out.detach(), dropped, rtol=0, atol=0)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 # serving-style rectangular tiles with per-axis ratios (exact 2-latent
