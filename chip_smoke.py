@@ -18,8 +18,11 @@ Phases (each prints its findings; any failure exits non-zero):
    largest shape and must be bit-identical; K1 and K3 in bf16 are also
    held to one rounding of fp32 arithmetic (``k1_check``, ``k3_check``);
    K2 is timed at its three shapes; K4 (bf16 only) is also checked on
-   logits that rise along S, so that its online softmax rescales, and
-   fp32 attention's exact path is timed beside SDPA fp32 as a record.
+   logits that rise along S, so that its online softmax rescales, with
+   the logsumexp it writes for a gradient held to its plain version
+   (``k4_lse_check``) and its serving launch timed in turns with the one
+   that writes it; fp32 attention's exact path is timed beside SDPA fp32
+   as a record.
    Then the edge-pad convs: at the v1 720p level-0 shape, a 720x672
    SD3 tile and v1's two small-Cout heads, the reference's
    decompositions (``_conv3d_edge_time_fast``, ``_conv3d_edge_fast``)
@@ -62,16 +65,23 @@ Phases (each prints its findings; any failure exits non-zero):
    to the one served from the same seed.
 8. train   -- K1.bwd and K2.bwd at the SD3 training path's shapes
    (``K1_BWD_SHAPES``, ``K2_BWD_SHAPES``) against their plain versions
-   in fp32 and bf16, twice bit-identical, timed in fp32 in turns (with
+   in fp32 and bf16, twice bit-identical, timed in both in turns (with
    ``native_group_norm_backward`` as K1.bwd's library call where there is
-   no SiLU); one G step then one D step of the full-width shipped recipe
-   (random LPIPS) on the card and on the CPU from one state and one set of
-   draws (losses, gradient norms, parameter updates; every parameter
-   with a nonzero gradient; K1, K1.bwd, K2, K2.bwd launched and K3, K4,
-   K5 not); ``train.main`` on the shipped YAML for ``TRAIN_MAIN_STEPS``
-   steps on seeded local data (a JPEG tar and cv2 mp4 clips): per-step
-   wall time by kind and batch shape, peak memory, finite losses,
-   launches a step, and a checkpoint written and reloaded.
+   no SiLU); K4.bwd at ``K4_BWD_SHAPES`` (``k4_bwd_check``, twice
+   bit-identical, timed beside SDPA's backward); one G step then one D
+   step of the full-width shipped recipe (random LPIPS) on the card and on
+   the CPU from one state and one set of draws (losses, gradient norms,
+   parameter updates; every parameter with a nonzero gradient; K1,
+   K1.bwd, K2, K2.bwd launched and K3, K4, K5 not); the card's G step
+   twice from that state, with cuDNN's default and deterministic
+   algorithms (bitwise reproducible or not); a bf16 G and D step at the
+   shipped clip against the same steps inside ``no_flash_attention()``
+   (K4 and K4.bwd launched as ``TRAIN_BF16_LAUNCHES`` says; ``loss/rec``
+   against fp32's); ``train.main`` on the shipped YAML for
+   ``TRAIN_MAIN_STEPS`` steps on seeded local data (a JPEG tar and cv2
+   mp4 clips), in fp32 and in bf16: per-step wall time by kind and batch
+   shape, peak memory, finite losses, launches a step, and a checkpoint
+   written and reloaded (fp32).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served and streamed paths, and at each
@@ -128,6 +138,22 @@ K4_BF16_RMS = 5e-3
 #: the bf16 kernel raises a row's running max only when a tile exceeds it
 #: by more than this, in log2 units (kSlack in csrc/attention.cu)
 K4_SLACK_LOG2 = 8.0
+#: K4's logsumexp (written for a gradient) against its plain version,
+#: |got - ref| <= K4_LSE_TOL * (1 + |ref|): both take fp32 sums of the same
+#: bf16 products in other orders, and the kernel's exp2 is within 2 ulps.
+#: A logsumexp taken against a stale running max is off by the raise,
+#: K4_SLACK_LOG2 * ln 2 = 5.5 and more
+K4_LSE_TOL = 1e-4
+#: K4.bwd against its plain version, each of dq, dk and dv: max|got - ref|
+#: <= K4_BWD_MAX * max|ref| and ||got - ref|| / ||ref|| <= K4_BWD_RMS.  The
+#: kernel rounds P and dS to bf16 as product operands, the plain version
+#: keeps them fp32; both round the outputs once.  The CPU tests hold the
+#: plain version to the stock Pallas backward by the same bounds
+#: (tests/test_torch_attention_bwd.py, 6.3e-3 and 2.6e-3 there).  D left
+#: out moves dq and dk by some 5%, a key tile skipped by 10% and more, the
+#: scale applied twice by 80% and more
+K4_BWD_MAX = 1.5e-2
+K4_BWD_RMS = 1e-2
 #: K4 checks with rising logits scale k by 1 at key 0 to K4_RAMP at key
 #: S - 1: each row's max then rises past the slack on later tiles, and the
 #: kernel's rescale of its output and sum runs (on N(0, 1) inputs the max
@@ -387,6 +413,14 @@ KERNELS = {
     "K2.bwd": dict(name="subpixel_interleave_backward", route="cuda",
                    source="cvvae_tpu_torch/csrc/shuffle_bwd.cu",
                    replaces="cvvae_tpu/ops/pallas/shuffle.py:148"),
+    # the stock flash attention's backward: its custom_vjp's two Pallas
+    # kernels, _flash_attention_bwd_dkv (pallas_call
+    # jax/experimental/pallas/ops/tpu/flash_attention.py:1121) and
+    # _flash_attention_bwd_dq (:1456), which cvvae_tpu/ops/attention.py:82
+    # reaches
+    "K4.bwd": dict(name="flash_attention_backward", route="cuda",
+                   source="cvvae_tpu_torch/csrc/attention_bwd.cu",
+                   replaces="cvvae_tpu/ops/attention.py:82"),
 }
 
 
@@ -401,7 +435,8 @@ def kernel_modules():
 COUNTERS = {**{k: (k, "launches") for k in ("K1", "K2", "K3", "K4", "K5")},
             "K5.stage": ("K5", "stage_launches"),
             "K1.bwd": ("K1", "bwd_launches"),
-            "K2.bwd": ("K2", "bwd_launches")}
+            "K2.bwd": ("K2", "bwd_launches"),
+            "K4.bwd": ("K4", "bwd_launches")}
 
 
 def launch_counts():
@@ -530,6 +565,14 @@ def k4_inputs(shape, dev, dtype, rising=False):
         ramp = torch.linspace(1.0, K4_RAMP, shape[1], device=dev)
         k = (k.float() * ramp[:, None]).to(dtype)
     return q, k, v
+
+
+def k4_lse_check(got, ref):
+    """(max |got - ref|, excess, text) of K4's logsumexp against its plain
+    version: |got - ref| <= K4_LSE_TOL * (1 + |ref|)."""
+    err, excess, ref_max, _ = compare(got, ref, K4_LSE_TOL)
+    return err, excess, (f"lse max|ref|={ref_max!r} tol={K4_LSE_TOL}*(1+"
+                         f"|ref|)")
 
 
 def compare(got, ref, tol=0.0, rtol=None):
@@ -758,7 +801,9 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     output drops the first of its n*T frames; one add an output element.  K3 shape (B, T,
     H, W, Cin) -> ``cout`` channels at the same extent; 2*27*Cin FLOP an
     output element.  K4 shape (B, S, D): q, k, v in, out out; 4*B*S^2*D
-    FLOP.  K5 shape (B, T, H, W, Cin), a ``kernel`` at ``stride`` with
+    FLOP.  K4.bwd shape (B, S, D): q, k, v, o and dO in, dq, dk and dv
+    out, and each row's fp32 logsumexp and D; 10*B*S^2*D FLOP (the logits,
+    dO*V^T, dV, dK and dQ products).  K5 shape (B, T, H, W, Cin), a ``kernel`` at ``stride`` with
     ``pads`` to ``cout`` channels: x in and the output out in x's dtype,
     the int8 kernel, fp32 scales and bias; 2*taps*Cin int8 operations an
     output element.  K5.stage shape (B, T, H, W, Cin) with ``pads`` and
@@ -783,6 +828,9 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     if key == "K4":
         b, s, d = shape
         return 4 * b * s * d * e, 4 * b * s * s * d
+    if key == "K4.bwd":
+        b, s, d = shape
+        return 8 * b * s * d * e + 2 * b * s * 4, 10 * b * s * s * d
     if key == "K5":
         from cvvae_tpu_torch.ops.kernels.conv_int8 import out_extents
         out = math.prod(out_extents(shape, kernel, stride, pads)) \
@@ -937,17 +985,27 @@ def _check_kernels(dev):
         del x
         torch.cuda.empty_cache()
 
-    # K4 at K4_CASES; the timed ones also against SDPA
+    # K4 at K4_CASES, the serving launch and the one that also writes the
+    # logsumexp; the timed ones also against SDPA, and the two launches in
+    # turns
     dtype = torch.bfloat16
     for shape, timed, rising in K4_CASES:
         q, k, v = k4_inputs(shape, dev, dtype, rising)
         scale = shape[-1] ** -0.5
         got = attention.flash_attention(q, k, v, scale)
+        with_lse, lse = attention._launch(q, k, v, scale, True)
         ref = attention.flash_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         if got.shape != q.shape or got.dtype != dtype:
             raise SystemExit(f"K4 output {tuple(got.shape)} {got.dtype}")
         err, excess, tol_text = k4_check(got, ref)
+        same = torch.equal(got, with_lse)
+        lse_err, lse_excess, lse_text = k4_lse_check(
+            lse, attention.flash_attention_lse_plain(q, k, scale))
+        tol_text += (f"; output with the logsumexp written bit-equal {same}"
+                     f"; {lse_text} max_abs_err {lse_err!r}")
+        excess = max(excess, lse_excess, 0.0 if same else math.inf)
+        del with_lse, lse
         # the rising inputs must make the kernel rescale its output
         raises = k4_max_raises(q, k, scale)
         tol_text += f"; max raised {raises!r} times a row after tile 0"
@@ -962,10 +1020,15 @@ def _check_kernels(dev):
             k_ms, p_ms, l_ms = in_turns(
                 lambda: attention.flash_attention_plain(q, k, v, scale),
                 lambda: attention.flash_attention(q, k, v, scale), lib)
+            lse_ms = turns({
+                "serving": lambda: attention.flash_attention(q, k, v, scale),
+                "lse": lambda: attention._launch(q, k, v, scale, True)})
             timing = (shape, dtype, k_ms, p_ms, l_ms, {})
+            extra = dict(serving_ms_in_turns=lse_ms["serving"],
+                         with_lse_ms=lse_ms["lse"])
             del lib
         record("K4", f"{shape} {dtype}{' rising logits' if rising else ''}",
-               err, excess, tol_text, timing)
+               err, excess, tol_text, timing, extra if timed else None)
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -1768,6 +1831,85 @@ K2_BWD_SHAPES = [((1, 5, 32, 32, 1024), 2), ((1, 9, 64, 64, 512), 1),
 #: in fp32 and round dx once to bf16; a few ulps apart where the sums
 #: differ)
 K1_BWD_RMS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+#: K4.bwd's shapes on the bf16 training path (shape, rising logits): the
+#: SD3 mid-blocks and the 2D constraint decoder's on the shipped clip's
+#: 5 latent frames of 32x32, on the shipped images' 8 of 40x40, and a
+#: ragged S on rising logits (the forward's running max raised)
+K4_BWD_SHAPES = [((5, 1024, 512), False), ((8, 1600, 512), False),
+                 ((1, 1100, 512), True)]
+#: K4.bwd's small checks (shape, rising), held to the same bounds by the
+#: card tests and by planted_faults.py: every head width, ragged S, a
+#: scale of 0.125 at C = 64
+K4_BWD_CHECK_SHAPES = [((2, 600, 64), False), ((1, 1100, 128), True),
+                       ((1, 100, 256), False), ((3, 33, 512), True),
+                       ((1, 1100, 512), True)]
+
+
+def attention_module():
+    from cvvae_tpu_torch.ops.kernels import attention
+    return attention
+
+
+def k4_bwd_inputs(shape, dev, rising=False):
+    """q, k, v as ``k4_inputs`` makes them (bf16), K4's output and
+    logsumexp on them (the plain versions' on the CPU), dO ~ N(0, 1), and
+    the scale."""
+    attention = attention_module()
+    q, k, v = k4_inputs(shape, dev, torch.bfloat16, rising)
+    scale = shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        out = attention.flash_attention_plain(q, k, v, scale)
+        lse = attention.flash_attention_lse_plain(q, k, scale)
+    else:
+        out, lse = attention._launch(q, k, v, scale, True)
+    return q, k, v, out, randn(shape, 45, dev, torch.bfloat16), lse, scale
+
+
+def k4_bwd_check(q, k, v, o, do, lse, scale):
+    """K4.bwd against its plain version on the same inputs: (worst max
+    |d|, excess over K4_BWD_MAX * max|ref| and K4_BWD_RMS, text, the
+    kernel's (dq, dk, dv))."""
+    attention = attention_module()
+    got = attention.flash_attention_backward(q, k, v, o, do, lse, scale)
+    ref = attention.flash_attention_backward_plain(q, k, v, o, do, lse,
+                                                   scale)
+    worst, excess, parts = 0.0, -math.inf, []
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        if g.shape != r.shape or g.dtype != torch.bfloat16:
+            return math.inf, math.inf, f"{name} {tuple(g.shape)} {g.dtype}", got
+        err, _, ref_max, rms = compare(g, r)
+        worst = max(worst, err)
+        excess = max(excess, err - K4_BWD_MAX * ref_max, rms - K4_BWD_RMS)
+        parts.append(f"{name} max|d|/max|ref| {err / ref_max!r} rms {rms!r}")
+    return worst, excess, ("; ".join(parts) + f" (<= {K4_BWD_MAX}, "
+                           f"{K4_BWD_RMS})"), got
+
+
+def library_attention_backward(q, k, v, do, scale):
+    """A callable of SDPA's backward on K4.bwd's inputs viewed as (B, 1
+    head, S, C) (the forward made here, untimed), and the name of the
+    SDPA backend whose kernels ran it (from a profile of one call)."""
+    leaves = [t[:, None].detach().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           scale=scale)
+    grad = do[:, None]
+
+    def call():
+        return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    call()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    backend = next((b for b, tag in (("flash", "flash"),
+                                     ("efficient", "fmha"),
+                                     ("efficient", "efficient"),
+                                     ("cudnn", "cudnn")) if tag in names),
+                   "math" if "gemm" in names or "sm90" in names else
+                   f"unknown ({names[:120]})")
+    return call, backend
 
 
 def k1_bwd_inputs(shape, dev, dtype):
@@ -1839,10 +1981,11 @@ def library_group_norm_backward(dy, x, mean, inv, w, groups, per_frame):
 
 def _train_kernels(dev, summary):
     """K1.bwd and K2.bwd at the training path's shapes against their plain
-    versions, fp32 and bf16; twice bit-identical; timed in fp32 (the
-    path's dtype) in turns (plain, kernel, kernel, plain, then the library
-    call where there is one)."""
-    from cvvae_tpu_torch.ops.kernels import groupnorm, shuffle
+    versions, fp32 and bf16; twice bit-identical; timed in both dtypes in
+    turns (plain, kernel, kernel, plain, then the library call where there
+    is one).  K4.bwd (bf16) at K4_BWD_SHAPES the same way, with SDPA's
+    backward as its library call."""
+    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle
 
     def put(key, label, err, ok, text, timing=None):
         summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"], err)
@@ -1877,17 +2020,15 @@ def _train_kernels(dev, summary):
             text = (f"||d||/||ref|| dx {rel['dx']!r} dweight "
                     f"{rel['dweight']!r} dbias {rel['dbias']!r} (<= {tol}); "
                     f"twice bit-identical {same}")
-            timing = None
-            if dtype == torch.float32:
-                lib = (None if silu else library_group_norm_backward(
-                    dy, x, *stats, w, groups, per_frame))
-                k_ms, p_ms, l_ms = in_turns(
-                    lambda: groupnorm.group_norm_silu_backward_plain(
-                        dy, x, w, b, *stats, **kw),
-                    lambda: groupnorm.group_norm_silu_backward(
-                        dy, x, w, b, *stats, **kw), lib)
-                timing = (shape, dtype, k_ms, p_ms, l_ms, dict(silu=silu))
-                del lib
+            lib = (None if silu else library_group_norm_backward(
+                dy, x, *stats, w, groups, per_frame))
+            k_ms, p_ms, l_ms = in_turns(
+                lambda: groupnorm.group_norm_silu_backward_plain(
+                    dy, x, w, b, *stats, **kw),
+                lambda: groupnorm.group_norm_silu_backward(
+                    dy, x, w, b, *stats, **kw), lib)
+            timing = (shape, dtype, k_ms, p_ms, l_ms, dict(silu=silu))
+            del lib
             put("K1.bwd", f"{where} {tuple(shape)} {dtype}", rel["dx"], ok,
                 text, timing)
             del x, dy, stats
@@ -1905,18 +2046,36 @@ def _train_kernels(dev, summary):
             ok = exact and excess <= 0.0 and same
             text = (f"phases bit-exact {exact}; dbias excess over its fp32 "
                     f"summation bound {excess!r}; twice bit-identical {same}")
-            timing = None
-            if dtype == torch.float32:
-                k_ms, p_ms, _ = in_turns(
-                    lambda: shuffle.subpixel_interleave_backward_plain(
-                        dy, n=n, t=t),
-                    lambda: shuffle.subpixel_interleave_backward(
-                        dy, n=n, t=t))
-                timing = (shape, dtype, k_ms, p_ms, None, dict(n=n))
+            k_ms, p_ms, _ = in_turns(
+                lambda: shuffle.subpixel_interleave_backward_plain(
+                    dy, n=n, t=t),
+                lambda: shuffle.subpixel_interleave_backward(dy, n=n, t=t))
             put("K2.bwd", f"upsample tail {tuple(shape)} n={n} {dtype}",
-                0.0, ok, text, timing)
+                0.0, ok, text, (shape, dtype, k_ms, p_ms, None, dict(n=n)))
             del dy
             torch.cuda.empty_cache()
+    for shape, rising in K4_BWD_SHAPES:
+        args = k4_bwd_inputs(shape, dev, rising)
+        err, excess, text, got = k4_bwd_check(*args)
+        again = attention.flash_attention_backward(*args)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        del got, again
+        text += f"; twice bit-identical {same}"
+        if rising:
+            q, k = args[:2]
+            text += (f"; the forward's max raised {k4_max_raises(q, k, args[-1])!r}"
+                     f" times a row after tile 0")
+        lib, backend = library_attention_backward(*args[:3], args[4], args[6])
+        k_ms, p_ms, l_ms = in_turns(
+            lambda: attention.flash_attention_backward_plain(*args),
+            lambda: attention.flash_attention_backward(*args), lib)
+        put("K4.bwd", f"{tuple(shape)} {torch.bfloat16}"
+            f"{' rising logits' if rising else ''}", err,
+            excess <= 0.0 and same,
+            text + f"; library: SDPA's backward, backend {backend}",
+            (shape, torch.bfloat16, k_ms, p_ms, l_ms, {}))
+        del args, lib
+        torch.cuda.empty_cache()
 
 
 #: phase 8's card-against-CPU training clip (B, T, H, W, 3)
@@ -1972,7 +2131,8 @@ def _train_card_vs_cpu(dev):
     after a G step (the gate closed) and a D step from the seeded init, so
     both optimizers hold moments; the D step starts from the CPU's state
     after its G step on both.  Returns the card's launches in the two
-    compared steps."""
+    compared steps, and (the card's engine, its state, the carried-over
+    state dict, the clip, the draws) for the checks after it."""
     import warnings
     from cvvae_tpu_torch.training.engine import TrainingEngine, named_params
 
@@ -2001,7 +2161,7 @@ def _train_card_vs_cpu(dev):
     for i in range(2):  # a G step, then a D step: the carried-over state
         st, _ = eng.train_step(st, {"frames": x.to(dev)},
                                torch.Generator(dev).manual_seed(i))
-    start = _cpu(st.state_dict())
+    start = carried = _cpu(st.state_dict())
     say(f"[train] card-vs-cpu: engines, states and the card's two carried-"
         f"over steps in {time.perf_counter() - t_setup:.2f}s")
 
@@ -2084,10 +2244,189 @@ def _train_card_vs_cpu(dev):
     if any(counts.get(k, 0) == 0 for k in need) or any(
             counts.get(k, 0) for k in ("K3", "K4", "K5", "K5.stage")):
         failures.append(f"launches {counts}")
-    del engines, eng, states, st
+    card_state = states[str(dev)]
+    del engines, states, st
     if failures:
         raise SystemExit(f"training card against CPU: {failures}")
-    return counts
+    return counts, (eng, card_state, carried, x, draws)
+
+
+def _train_repeat(dev, ctx):
+    """The card's fp32 G step twice from the same state and draws, with
+    cuDNN's default algorithms, then with
+    ``torch.backends.cudnn.deterministic``, then with PyTorch's
+    deterministic algorithms too (``use_deterministic_algorithms(True,
+    warn_only=True)``, which names each operation that has no
+    deterministic version): whether the card's step is bitwise
+    reproducible (metrics, gradients, parameters after), and the largest
+    differences where it is not."""
+    import warnings
+    from cvvae_tpu_torch.training.engine import named_params
+
+    eng, st, start, x, draws = ctx
+    out = {}
+    for det in ("default", "cudnn", "all"):
+        torch.backends.cudnn.deterministic = det != "default"
+        torch.use_deterministic_algorithms(det == "all", warn_only=True)
+        runs = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                st.load_state_dict(start)
+                _, m = eng.train_step(st, {"frames": x.to(dev)},
+                                      draws={k: v.to(dev)
+                                             for k, v in draws[0].items()})
+                runs.append(({k: float(v) for k, v in m.items()},
+                             {k: g.detach().clone()
+                              for k, g in eng.last_grads.items()},
+                             {k: p.detach().clone() for k, p in
+                              named_params(st.params).items()}))
+        ops = sorted({str(w.message).split(" does not have")[0][:160]
+                      for w in caught if "deterministic" in str(w.message)})
+        (m0, g0, p0), (m1, g1, p1) = runs
+        dm = max(abs(m0[k] - m1[k]) / (abs(m0[k]) + 1e-12) for k in m0)
+        dg = max((g0[k] - g1[k]).abs().max().item() for k in g0)
+        n_g = sum(not torch.equal(g0[k], g1[k]) for k in g0)
+        n_p = sum(not torch.equal(p0[k], p1[k]) for k in p0)
+        out[det] = (dm, n_g, n_p)
+        say(f"[train] card G step twice from one state, deterministic "
+            f"algorithms: {det}: metrics bit-equal {dm == 0.0} (largest "
+            f"relative difference {dm!r}); gradients differ in {n_g} of "
+            f"{len(g0)} tensors (largest |d| {dg!r}); parameters after "
+            f"differ in {n_p}; operations without a deterministic version "
+            f"{ops}")
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+#: phase 8's bf16 steps: the shipped clip, from the fp32 check's carried-
+#: over state (the optimizers hold moments)
+TRAIN_BF16_CLIP = (1, 17, 256, 256, 3)
+#: the bf16 G and D steps (K4, K4.bwd) against the same steps inside
+#: ``no_flash_attention()`` (the exact path and autograd through it), same
+#: state and draws: each metric within TRAIN_BF16_RTOL * |ref| (+1e-6), and
+#: each parameter tensor's update in the direction of the reference's,
+#: cos >= TRAIN_BF16_COS.  K4 and the exact path round the attention's
+#: output to bf16 at other places, a few ulps, which the nets carry on
+TRAIN_BF16_RTOL = 1e-2
+TRAIN_BF16_COS = 0.99
+#: bf16 against fp32 ``loss/rec`` from the same state and draws, relative
+#: (the bound of the JAX package's own bf16 test)
+TRAIN_BF16_REC = 0.1
+#: K4 and K4.bwd launches a bf16 step at TRAIN_BF16_CLIP: a G step runs
+#: the SD3 encoder's and decoder's mid-block attention and the 2D
+#: constraint decoder's (each 5 frames of 32x32 = 1024 tokens, all three
+#: needing a gradient: the decoder's is frozen, but z needs one); a D
+#: step the SD3 two, without a gradient
+TRAIN_BF16_LAUNCHES = {"g": {"K4": 3, "K4.bwd": 3},
+                       "d": {"K4": 2, "K4.bwd": 0}}
+
+
+def bf16_engine(eng):
+    """A copy of the TrainingEngine ``eng`` computing in bf16 (its config
+    with ``compute_dtype="bfloat16"``, its frozen nets copied on the card
+    and cast as the engine casts them), so that no second full-width
+    engine is built on the host."""
+    import copy
+    import dataclasses
+    from cvvae_tpu_torch.training import engine
+    bf = copy.copy(eng)
+    bf.cfg = dataclasses.replace(eng.cfg, compute_dtype="bfloat16")
+    bf.compute_dtype = torch.bfloat16
+    bf.frozen = {k: None if n is None else copy.deepcopy(n)
+                 for k, n in eng.frozen.items()}
+    for n in bf.frozen.values():
+        if n is not None:
+            engine._cast_params_(n, torch.bfloat16)
+    return bf
+
+
+def _train_bf16(dev, ctx):
+    """One bf16 G step then one D step of the full-width shipped recipe at
+    TRAIN_BF16_CLIP, from the fp32 check's carried-over state, against the
+    same steps inside ``no_flash_attention()``; K4 and K4.bwd launched as
+    TRAIN_BF16_LAUNCHES says, none in the reference; the G step's
+    ``loss/rec`` against fp32's.  Returns the launches of the two kernel
+    steps."""
+    import contextlib
+    from cvvae_tpu_torch.ops.attention import no_flash_attention
+    from cvvae_tpu_torch.training.engine import named_params
+
+    eng32, st, start = ctx
+    eng = bf16_engine(eng32)
+    x = torch.from_numpy(np.random.RandomState(11).uniform(
+        -1, 1, TRAIN_BF16_CLIP).astype(np.float32)).to(dev)
+    b, t, h, w, _ = TRAIN_BF16_CLIP
+    g = torch.Generator().manual_seed(12)
+    shape = (b, (t - 1) // 4 + 1, h // 8, w // 8, eng.cfg.latent_channels)
+    draws = {"g": {"noise": torch.randn(shape, generator=g).to(dev),
+                   "offsets": torch.randint(1, 5, ((t - 1) // 4,),
+                                            generator=g).to(dev)},
+             "d": {"noise": torch.randn(shape, generator=g).to(dev)}}
+
+    def run(e, kind, state, reference=False):
+        st.load_state_dict(state)
+        mod = st.params if kind == "g" else st.disc_params
+        before = {k: v.detach().clone() for k, v in named_params(mod).items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with no_flash_attention() if reference else contextlib.nullcontext():
+            _, m = e.train_step(st, {"frames": x}, draws=draws[kind])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        delta = {k: (v.detach() - before[k]).float()
+                 for k, v in named_params(mod).items()}
+        return {k: float(v) for k, v in m.items()}, delta, counts, seconds
+
+    failures, launches = [], {}
+    state = start
+    for kind in "gd":
+        got, d_got, counts, s_got = run(eng, kind, state)
+        after = _cpu(st.state_dict())  # the D step's start
+        ref, d_ref, counts_ref, s_ref = run(eng, kind, state, True)
+        worst, worst_k = max((abs(got[k] - ref[k]) / (abs(ref[k]) + 1e-6), k)
+                             for k in ref)
+        cos = []
+        for k, dr in d_ref.items():
+            dg = d_got[k]
+            if not dr.any() and not dg.any():
+                continue
+            cos.append((float((dg * dr).sum() / (dg.norm() * dr.norm()
+                                                  + 1e-30)), k))
+        cos.sort()
+        want = TRAIN_BF16_LAUNCHES[kind]
+        mine = {k: counts[k] for k in want}
+        say(f"[train] bf16 {kind.upper()} step {state['step']} at "
+            f"{TRAIN_BF16_CLIP}: {s_got:.3f}s (exact-path reference "
+            f"{s_ref:.3f}s); losses {json.dumps(got)}; worst |kernel - "
+            f"reference| / |reference| {worst!r} ({worst_k}, <= "
+            f"{TRAIN_BF16_RTOL}); updates' cos, lowest {cos[:4]} of "
+            f"{len(cos)} tensors (>= {TRAIN_BF16_COS}); launches "
+            f"{ {k: v for k, v in counts.items() if v} } (K4, K4.bwd "
+            f"expected {want}; reference "
+            f"{ {k: v for k, v in counts_ref.items() if v} })")
+        if worst > TRAIN_BF16_RTOL or not cos or cos[0][0] < TRAIN_BF16_COS:
+            failures.append(f"{kind} against the exact path")
+        if mine != want or counts_ref["K4"] or counts_ref["K4.bwd"]:
+            failures.append(f"{kind} launches {mine}, reference {counts_ref}")
+        if not all(math.isfinite(v) for v in got.values()):
+            failures.append(f"{kind} non-finite losses")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        if kind == "g":
+            f32, _, _, s32 = run(eng32, "g", state)
+            rel = abs(got["loss/rec"] - f32["loss/rec"]) / abs(f32["loss/rec"])
+            say(f"[train] bf16 G step loss/rec {got['loss/rec']!r} against "
+                f"fp32's {f32['loss/rec']!r} ({s32:.3f}s): relative {rel!r} "
+                f"(<= {TRAIN_BF16_REC})")
+            if rel > TRAIN_BF16_REC:
+                failures.append("bf16 loss/rec against fp32")
+        state = after
+    if failures:
+        raise SystemExit(f"bf16 training: {failures}")
+    return launches
 
 
 def write_train_data(root, seed=0, n_images=16, image_hw=(360, 400),
@@ -2131,9 +2470,10 @@ def write_train_data(root, seed=0, n_images=16, image_hw=(360, 400),
 TRAIN_MAIN_STEPS = 6
 
 
-def _train_main(dev, smi):
+def _train_main(dev, smi, compute="float32"):
     """``cvvae_tpu_torch.train.main`` on the shipped YAML at full width
-    with the shipped batches, on seeded local data: per-step wall time by
+    with the shipped batches, in ``compute`` ("float32" or "bfloat16",
+    through the dotlist), on seeded local data: per-step wall time by
     kind and batch shape, peak memory, finite losses, launches a step, and
     a checkpoint written and reloaded.  Returns the run's launches."""
     import tempfile
@@ -2155,6 +2495,7 @@ def _train_main(dev, smi):
         argv = ["--base", SHIPPED_CONFIG, "--train", "--max_steps",
                 str(TRAIN_MAIN_STEPS), "--logdir", logdir,
                 "model.allow_random_lpips=true",
+                f"model.engine.params.compute_dtype={compute}",
                 f"data.train.datasets.image_webdata.urls_or_dir={tar_dir}",
                 f"data.train.datasets.webvid.urls_or_dir={csv_dir}",
                 f"data.train.datasets.webvid.decoder.params.video_root="
@@ -2179,14 +2520,16 @@ def _train_main(dev, smi):
         finite = all(math.isfinite(v) for e in trainer.step_log
                      for v in e["metrics"].values())
         for e, launches in zip(trainer.step_log, per_step):
-            say(f"[train] main step {e['step']} {e['kind'].upper()} "
+            say(f"[train] main {compute} step {e['step']} "
+                f"{e['kind'].upper()} "
                 f"{e['shape']}: {e['seconds']:.3f}s; loss/total "
                 f"{e['metrics']['loss/total']!r} loss/rec "
                 f"{e['metrics']['loss/rec']!r} loss/disc "
                 f"{e['metrics']['loss/disc']!r}; launches "
                 f"{ {k: v for k, v in launches.items() if v} }")
         later = {k: (v[1:] if len(v) > 1 else v) for k, v in by.items()}
-        say(f"[train] main: {TRAIN_MAIN_STEPS} steps in {wall:.2f}s; wall s "
+        say(f"[train] main {compute}: {TRAIN_MAIN_STEPS} steps in "
+            f"{wall:.2f}s; wall s "
             f"per step by kind and batch shape, after the first of each: "
             f"{json.dumps({k: statistics.mean(v) for k, v in later.items()})}"
             f" (all: {json.dumps(by)}); peak memory {peak:.2f} GiB; finite "
@@ -2206,14 +2549,19 @@ def _train_main(dev, smi):
                 + list(fresh.disc_params.state_dict().values()),
                 list(state.params.state_dict().values())
                 + list(state.disc_params.state_dict().values())))
-        say(f"[train] main: checkpoint at step {step} written and reloaded "
-            f"bit-equal into a zeroed state: {same}")
+        fp32 = all(t.dtype == torch.float32 for t in
+                   list(fresh.params.parameters())
+                   + list(fresh.disc_params.parameters()))
+        say(f"[train] main {compute}: checkpoint at step {step} written and "
+            f"reloaded bit-equal into a zeroed state: {same}; fp32 {fp32}")
         kinds = {e["kind"] for e in trainer.step_log}
-        if not (finite and same and step == TRAIN_MAIN_STEPS
+        if not (finite and same and fp32 and step == TRAIN_MAIN_STEPS
                 and kinds == {"g", "d"}):
             raise SystemExit("train.main: non-finite losses, a missing step "
                              "kind or a checkpoint that does not reload")
-    if any(counts[k] == 0 for k in ("K1", "K1.bwd", "K2", "K2.bwd")):
+    need = ("K1", "K1.bwd", "K2", "K2.bwd") + (
+        ("K4", "K4.bwd") if compute == "bfloat16" else ())
+    if any(counts[k] == 0 for k in need):
         raise SystemExit(f"train.main: a training kernel never ran {counts}")
     return counts
 
@@ -2300,27 +2648,34 @@ def main() -> int:
     # (its launches counted from 0 just before)
     t8 = time.perf_counter()
     timed("train_kernels", _train_kernels, dev, summary)
-    train_check = timed("train_card_vs_cpu", _train_card_vs_cpu, dev)
+    train_check, ctx = timed("train_card_vs_cpu", _train_card_vs_cpu, dev)
+    timed("train_repeat", _train_repeat, dev, ctx)
+    bf16_check = timed("train_bf16", _train_bf16, dev, ctx[:3])
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
     train_main = timed("train_main", _train_main, dev, smi)
+    train_bf16 = timed("train_main_bf16", _train_main, dev, smi, "bfloat16")
     say(f"[train] phase 8 in {time.perf_counter() - t8:.1f}s; launches in "
-        f"the card's G + D check {train_check}")
+        f"the card's G + D check {train_check}, in the bf16 G + D check "
+        f"{bf16_check}")
 
     kernels = []
     for k in KERNELS:
         # the top-level numbers are those of the kernel's bf16 shape with
-        # the largest bound (its largest shape on the serving path); the
-        # backward kernels are timed in fp32, the training path's dtype
+        # the largest bound (its largest shape on a path); the backward
+        # kernels are timed in both dtypes since the training path runs both
         timed_k = summary[k]["timed"]
         main_shape = max([e for e in timed_k if e["dtype"] == "bfloat16"]
                          or timed_k, key=lambda e: e["bound_ms"])
         kernels.append(dict(
             KERNELS[k],
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
-                      + train_main[k]),
+                      + train_main[k] + train_bf16[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
-                   "train": train_main[k]}),
+                   "train": train_main[k], "train-bf16": train_bf16[k]}),
             launches_per_reconstruct={p: r[k]
                                       for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],

@@ -45,6 +45,11 @@
 //     logit -inf; query rows >= S are computed on zeros and not stored.
 //   Shared memory at D = 512: Q 64 KB + K 2 x 32 KB + V 2 x 32 KB + the
 //   logit exchange 32 KB (two tiles in flight) = 224 KB.
+//   - For a gradient (K4.bwd, attention_bwd.cu) each valid row's
+//     logsumexp of its scaled logits is written too, natural log, fp32:
+//     (m + log2 l) ln 2 with m the running max that l was summed against
+//     (not the row's true max, which the lazy raise may leave up to 2^8
+//     above m).  The serving launch passes no buffer and writes nothing.
 // bf16 only, as the reference's flash is: fp32 attention takes the
 // exact path (cvvae_tpu_torch/ops/attention.py).
 #include "common.cuh"
@@ -54,6 +59,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------ bf16: wgmma and TMA --
 
@@ -470,8 +476,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
         flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
-                        __nv_bfloat16* __restrict__ out, int S,
-                        float scale_log2) {
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int S, float scale_log2) {
   using L = Layout<D>;
   constexpr int DH = L::DH;
   extern __shared__ unsigned char smem_raw[];
@@ -607,7 +613,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     release(&empty_v[st], lane);
   }
 
-  // out = O / l, rows < S only; l summed over the row's four threads
+  // out = O / l, rows < S only; l summed over the row's four threads; the
+  // logsumexp against the max l was summed with, where asked for
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -617,6 +624,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + 16 * warp + g + 8 * h;
     if (row >= S) continue;
+    if (lse != nullptr && wg == 0 && t4 == 0)
+      lse[(int64_t)b * S + row] = (m[h] + log2f(l[h])) * kLn2;
     const float inv = 1.f / l[h];
     __nv_bfloat16* orow = out + ((int64_t)b * S + row) * D + wg * DH + 2 * t4;
 #pragma unroll
@@ -649,8 +658,8 @@ bool make_map(CUtensorMap* map, const void* base, int B, int S, int D,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, float scale_log2, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, float scale_log2, cudaStream_t stream) {
   using L = Layout<D>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, S, D, kBM, D / kBox) ||
@@ -665,23 +674,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const int tiles = (S + kBM - 1) / kBM;
   const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, B);
   flash_fwd_wgmma<D><<<grid, kThreads, L::bytes, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, S, scale_log2);
+      mq, mk, mv, (__nv_bfloat16*)out, lse, S, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int D, float scale_log2, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int D, float scale_log2,
+             cudaStream_t s) {
   switch (D) {
     case 64:
-      return wg::launch<64>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<64>(q, k, v, out, lse, B, S, scale_log2, s);
     case 128:
-      return wg::launch<128>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<128>(q, k, v, out, lse, B, S, scale_log2, s);
     case 256:
-      return wg::launch<256>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<256>(q, k, v, out, lse, B, S, scale_log2, s);
     case 512:
-      return wg::launch<512>(q, k, v, out, B, S, scale_log2, s);
+      return wg::launch<512>(q, k, v, out, lse, B, S, scale_log2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -689,15 +699,16 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// q, k, v, out: (B, S, D) contiguous, 16-byte aligned, dtype bf16.
+// q, k, v, out: (B, S, D) contiguous, 16-byte aligned, dtype bf16; lse:
+// (B, S) fp32 for the rows' logsumexp, or NULL.
 CVVAE_EXPORT int cvvae_flash_attention(const void* q, const void* k,
-                                       const void* v, void* out, int B, int S,
-                                       int D, float scale, int dtype,
-                                       int device, void* stream) {
+                                       const void* v, void* out, void* lse,
+                                       int B, int S, int D, float scale,
+                                       int dtype, int device, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   cudaStream_t s = (cudaStream_t)stream;
   const float scale_log2 = scale * kLog2e;
   if (dtype != CVVAE_BF16) return (int)cudaErrorInvalidValue;
-  return dispatch(q, k, v, out, B, S, D, scale_log2, s);
+  return dispatch(q, k, v, out, (float*)lse, B, S, D, scale_log2, s);
 }

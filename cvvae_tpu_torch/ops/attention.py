@@ -10,11 +10,15 @@ runs the hand-written flash kernel K4 (``ops/kernels/attention.py``).
 Everything else -- fp32 on the card too, the CPU, the temporal pass (S =
 T' <= 5), short sequences -- takes the exact path, the counterpart of the
 reference's ``_attention_block`` / ``_me_attention``
-(``ops/exact_attention.py``).
+(``ops/exact_attention.py``).  ``no_flash_attention()`` sends every call
+in its block to the exact path: the JAX package's switch of that name, on
+the card used only as a reference for K4 and K4.bwd (``chip_smoke.py``,
+the tests).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -49,12 +53,27 @@ def dense(x: torch.Tensor, params) -> torch.Tensor:
 #: bf16 sequences at least this long go to K4 on the card
 FLASH_MIN_TOKENS = 1024
 
+#: False inside ``no_flash_attention()``
+_flash_on = True
+
+
+@contextlib.contextmanager
+def no_flash_attention():
+    """Every attention call in the block takes the exact path (the JAX
+    package's ``no_flash_attention``, ``cvvae_tpu/ops/attention.py:101``)."""
+    global _flash_on
+    prev, _flash_on = _flash_on, False
+    try:
+        yield
+    finally:
+        _flash_on = prev
+
 
 def flash_usable(device_type: str, dtype: torch.dtype, s: int) -> bool:
     """Whether (B, S, C) attention on ``device_type`` in ``dtype`` runs K4:
     the reference's ``_flash_usable``, a bf16 tensor on the card with S >=
-    FLASH_MIN_TOKENS."""
-    return (device_type == "cuda" and dtype == torch.bfloat16
+    FLASH_MIN_TOKENS, outside ``no_flash_attention()``."""
+    return (_flash_on and device_type == "cuda" and dtype == torch.bfloat16
             and s >= FLASH_MIN_TOKENS)
 
 

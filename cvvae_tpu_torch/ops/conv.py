@@ -202,7 +202,13 @@ def _window_conv(x: torch.Tensor, weight: torch.Tensor, pads, strides,
     T' frames is already contiguous for B = 1).  Where hi > lo (the v1
     downsample's (0, 1) at stride 2, which no symmetric pad and slice
     reproduces) the missing hi - lo zeros are materialised with ``F.pad``
-    on the (B,T,H,W,C) tensor, one copy of it."""
+    on the (B,T,H,W,C) tensor, one copy of it.  On the CPU a one-frame
+    bf16 input's time pad is materialised too: there oneDNN's bf16 conv3d
+    returns garbage for T = 1 with a time pad (torch 2.13's CPU build)."""
+    if (x.device.type == "cpu" and x.dtype == torch.bfloat16
+            and x.shape[1] == 1 and any(pads[0])):
+        x = F.pad(x, (0, 0, 0, 0, 0, 0) + tuple(pads[0]))
+        pads = ((0, 0),) + tuple(pads[1:])
     keep = [(n + lo + hi - k) // s + 1 for n, (lo, hi), k, s in
             zip(x.shape[1:4], pads, weight.shape[2:], strides)]
     extra = [(0, max(hi - lo, 0)) for lo, hi in pads]

@@ -22,15 +22,25 @@ moments are updated in place.  Random draws (the posterior's noise, the
 random constraint frames' offsets) come from a ``torch.Generator``, or are
 passed in as ``draws`` so a test can hand in the JAX package's.  On the
 card the engine runs K1/K1.bwd (every GroupNorm, forward and backward) and
-K2/K2.bwd (the SD3 decoder's upsamplers); in fp32 it reaches no K3, K4 or
-K5 (SD3's ``conv_in`` edge-pads W and Disc3D's stem has 64 outputs; fp32
-attention takes the exact path).  Only fp32 compute is ported (the JAX
-default, ``compute_dtype="float32"``); bf16 training waits for K4.bwd.
+K2/K2.bwd (the SD3 decoder's upsamplers); it reaches no K3 or K5 (SD3's
+``conv_in`` edge-pads W and Disc3D's stem has 64 outputs).  In fp32 it
+reaches no K4 either (fp32 attention takes the exact path).
+
+``compute_dtype="bfloat16"`` is the JAX package's mixed precision: the
+parameters, AdamW's moments and the EMA stay fp32; the frozen nets are
+cast to bf16 once; the 3D VAE's parameters are cast inside each forward
+(``_cast_view``), so the fp32 masters take the gradient through the
+casts; x is cast; 0-d leaves (the learned logvars) stay fp32; the KL is
+taken on fp32 moments.  The discriminator's parameters stay fp32, its
+convs run in the dtype that reaches them (bf16).  On the card the SD3
+mid-blocks and the 2D constraint decoder's reach K4 at S >= 1024, and its
+gradient K4.bwd.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import warnings
 from typing import Any, Dict, Optional, Tuple
@@ -66,8 +76,8 @@ class EngineConfig:
     constraint_encoder: Optional[VAE2DConfig] = None
     ema_decay: Optional[float] = None
     remat: bool = True
-    #: "float32" only (the reference trains fp32); bf16 training needs
-    #: K4.bwd (ROADMAP queue A)
+    #: "float32" (the reference trains fp32) or "bfloat16": parameters,
+    #: optimizer and EMA stay fp32, the nets compute in bf16
     compute_dtype: str = "float32"
     frozen_modules: Tuple[str, ...] = ()
 
@@ -186,10 +196,10 @@ class TrainingEngine:
                  constraint_encoder_params: Optional[dict] = None,
                  allow_random_lpips: bool = False, seed: int = 0,
                  device: Any = "cuda"):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port trains in "
-                f"float32; bf16 training needs K4.bwd (ROADMAP queue A)")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 "
+                             f"or bfloat16")
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TrainingEngine: no CUDA device; pass "
@@ -229,6 +239,8 @@ class TrainingEngine:
         for net in self.frozen.values():
             if net is not None:
                 net.to(self.device).eval().requires_grad_(False)
+                # inference only: stored in the compute dtype once
+                _cast_params_(net, self.compute_dtype)
         self.opt_g = AdamW(cfg.optim)
         self.opt_d = AdamW(cfg.optim)
         self.lr_schedule_g = make_schedule(cfg.optim, cfg.optim.lr_g_factor)
@@ -277,6 +289,9 @@ class TrainingEngine:
         time-sliced frames join the batch, against the input twice.
         Returns (posterior, z, h, xrec, x_target)."""
         cfg = self.cfg
+        if self.compute_dtype != torch.float32:
+            params = _cast_view(params, self.compute_dtype)
+            x = x.to(self.compute_dtype)
         moments = params.encoder(x, remat=cfg.remat)
         x_target = x
         if cfg.constraint in ("encoder", "all"):
@@ -464,6 +479,33 @@ class TrainingEngine:
                             for k in ("loss/rec2d", "scalars/logvar_2d")})
         metrics.update(log)
         return state, metrics
+
+
+def _cast_view(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module``'s tree that shares all but its float parameters
+    of rank > 0, which it holds cast to ``dtype``: graph nodes of the
+    masters, so a gradient reaches the masters through the casts (the JAX
+    package casts its params tree inside the loss the same way).  The
+    copy lives as long as the graph does, so a checkpointed block's
+    recompute reads the same cast tensors.  0-d parameters stay as they
+    are."""
+    view = copy.copy(module)
+    view.__dict__["_parameters"] = {
+        k: (p.to(dtype) if p is not None and p.is_floating_point()
+            and p.ndim > 0 else p)
+        for k, p in module._parameters.items()}
+    view.__dict__["_modules"] = {
+        k: None if m is None else _cast_view(m, dtype)
+        for k, m in module._modules.items()}
+    return view
+
+
+def _cast_params_(module: nn.Module, dtype: torch.dtype) -> None:
+    """Cast ``module``'s float parameters of rank > 0 to ``dtype`` in
+    place (0-d ones stay)."""
+    for p in module.parameters():
+        if p.is_floating_point() and p.ndim > 0:
+            p.data = p.data.to(dtype)
 
 
 def _snapshot(log: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K5, K1.bwd, K2.bwd and of the
-edge-pad convs:
+"""Planted faults against the checks of K1-K5, K1.bwd, K2.bwd, K4.bwd and
+of the edge-pad convs:
 do the bounds that ``chip_smoke.py`` and the card tests hold them to
 catch a broken kernel or decomposition?
 
@@ -16,7 +16,8 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   ``chip_smoke.k1_check``;
 - K4 (bf16 only) at the shapes of ``chip_smoke.K4_CASES`` on
   ``chip_smoke.k4_inputs`` (N(0, 1) and rising logits), held by
-  ``chip_smoke.k4_check``;
+  ``chip_smoke.k4_check``, and the logsumexp it writes for a gradient by
+  ``chip_smoke.k4_lse_check``;
 - K3, bf16 and fp32, at ``chip_smoke.K3_SHAPE`` and
   ``chip_smoke.K3_CHECK_SHAPES`` (Cin 3) on ``chip_smoke.k3_inputs``, held
   by ``chip_smoke.k3_check``;
@@ -27,7 +28,12 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   bit-exact to its plain version;
 - K1.bwd and K2.bwd, bf16 and fp32, at ``chip_smoke.K1_CHECK_SHAPES`` and
   ``chip_smoke.K2_CHECK_SHAPES``, held by ``chip_smoke.k1_bwd_check``
-  (``K1_BWD_RMS``) and ``chip_smoke.k2_bwd_check``.
+  (``K1_BWD_RMS``) and ``chip_smoke.k2_bwd_check``;
+- K4.bwd at ``chip_smoke.K4_BWD_CHECK_SHAPES``, held by
+  ``chip_smoke.k4_bwd_check``.
+
+A fault is one replacement of text in a source, or several (tuples of
+texts and their replacements).
 
 The edge-pad decompositions of ``cvvae_tpu_torch/ops/conv.py`` are held
 the same way: the faults of EDGE_FAULTS are planted in copies of that
@@ -154,7 +160,38 @@ FAULTS = {
         "K2.bwd", "shuffle_bwd.cu",
         "for (int64_t s = 0; s < slots; ++s)",
         "for (int64_t s = 0; s < slots - 1; ++s)"),
+    "the logsumexp taken against the first tile's (stale) running max": (
+        "K4", "attention.cu",
+        ("    softmax_tile(s, 0, S, scale_log2, t4, m, l, alpha);\n"
+         "    to_fragments(s, pa);\n  }",
+         "(m[h] + log2f(l[h])) * kLn2"),
+        ("    softmax_tile(s, 0, S, scale_log2, t4, m, l, alpha);\n"
+         "    to_fragments(s, pa);\n  }\n"
+         "  const float m_first[2] = {m[0], m[1]};",
+         "(m_first[h] + log2f(l[h])) * kLn2")),
+    "D left out of dS": (
+        "K4.bwd", "attention_bwd.cu",
+        "    ds[e] = p[e] * (dp[e] - d_s[r]);",
+        "    ds[e] = p[e] * dp[e];"),
+    "the scale applied twice to dq": (
+        "K4.bwd", "attention_bwd.cu",
+        "            pack_bf16(acc_q[mt][nt][2 * h] * scale,\n"
+        "                      acc_q[mt][nt][2 * h + 1] * scale);",
+        "            pack_bf16(acc_q[mt][nt][2 * h] * scale * scale,\n"
+        "                      acc_q[mt][nt][2 * h + 1] * scale * scale);"),
+    "dq's last key tile skipped": (
+        "K4.bwd", "attention_bwd.cu",
+        "  const int n_key_tiles = (S + kT - 1) / kT;",
+        "  const int n_key_tiles = (S - 1) / kT;"),
 }
+
+
+def replacements(fault):
+    """[(text, replacement), ...] of a FAULTS entry."""
+    _, _, old, new = fault
+    if isinstance(old, str):
+        return [(old, new)]
+    return list(zip(old, new))
 
 
 #: faults planted in a copy of ops/conv.py: fault -> [(its text, the
@@ -203,10 +240,28 @@ def _k4_cases():
         ref = attention.flash_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         err, excess, text = chip_smoke.k4_check(got, ref)
-        del q, k, v, got, ref
+        _, lse = attention._launch(q, k, v, scale, True)
+        _, lse_excess, lse_text = chip_smoke.k4_lse_check(
+            lse, attention.flash_attention_lse_plain(q, k, scale))
+        del q, k, v, got, ref, lse
         torch.cuda.empty_cache()
         yield (f"K4 {shape}{' rising logits' if rising else ''}: "
-               f"max_abs_err={err!r} {text}", excess > 0.0)
+               f"max_abs_err={err!r} {text}; {lse_text} excess "
+               f"{lse_excess!r}", max(excess, lse_excess) > 0.0)
+
+
+def _k4_bwd_cases():
+    """(label, fails) of every K4.bwd case on the library now loaded: the
+    shapes of ``chip_smoke.K4_BWD_CHECK_SHAPES``, held by
+    ``chip_smoke.k4_bwd_check``."""
+    dev = torch.device("cuda", 0)
+    for shape, rising in chip_smoke.K4_BWD_CHECK_SHAPES:
+        args = chip_smoke.k4_bwd_inputs(shape, dev, rising)
+        _, excess, text, _ = chip_smoke.k4_bwd_check(*args)
+        del args
+        torch.cuda.empty_cache()
+        yield (f"K4.bwd {shape}{' rising logits' if rising else ''}: {text}",
+               excess > 0.0)
 
 
 def _k3_cases():
@@ -350,7 +405,7 @@ def planted_conv(tmp: Path, i: int, replacements):
 #: each kernel's cases, and the edge convs'
 CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
          "K5": _k5_cases, "K1.bwd": _k1_bwd_cases, "K2.bwd": _k2_bwd_cases,
-         "edge": edge_cases}
+         "K4.bwd": _k4_bwd_cases, "edge": edge_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:
@@ -358,12 +413,14 @@ def _build_copy(tmp: Path, i: int, fault) -> Path:
     src = tmp / f"csrc{i}"
     shutil.copytree(_build.CSRC, src)
     if fault is not None:
-        _, name, old, new = fault
+        name = fault[1]
         path = src / name
         text = path.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"{old!r} is not in {name} once")
-        path.write_text(text.replace(old, new))
+        for old, new in replacements(fault):
+            if text.count(old) != 1:
+                raise SystemExit(f"{old!r} is not in {name} once")
+            text = text.replace(old, new)
+        path.write_text(text)
     out = tmp / f"lib{i}" / _build.LIB_NAME
     _build.build(out, sorted(src.iterdir()))
     return out

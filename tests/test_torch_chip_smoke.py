@@ -54,6 +54,10 @@ def test_k1_check_takes_one_rounding_of_fp32(offset, silu, per_frame):
     ("K3", (1, 17, 720, 1280, 3), {}, 4.10, None, 1.23, "bytes"),
     ("K4", (5, 14400, 512), {}, None, 2.12, 2.15, "operations"),
     ("K4", (5, 7560, 512), {}, None, 0.585, 0.59, "operations"),
+    # K4.bwd, 10 B S^2 C FLOP: the shipped clip's mid-blocks (41.98 MB,
+    # 0.0271 ms) and the shipped images' (104.96 MB, 0.106 ms)
+    ("K4.bwd", (5, 1024, 512), {}, 0.04, 0.027, 0.03, "operations"),
+    ("K4.bwd", (8, 1600, 512), {}, 0.1, 0.105, 0.11, "operations"),
     # K5 at 1,979 TOP/s int8: the v1 level-0 causal conv (13.86 TOP) and
     # the v1 downsample at stride 2, which its bytes bound
     ("K5", (1, 17, 720, 1280, 128),
@@ -185,9 +189,12 @@ def test_planted_kernel_faults_apply_once(fault):
     """Each fault of ``planted_faults.FAULTS`` names text that its source
     holds once (else the planted build would fail or plant nothing), and
     changes it."""
-    _, name, old, new = planted_faults.FAULTS[fault]
+    name = planted_faults.FAULTS[fault][1]
     text = (planted_faults._build.CSRC / name).read_text()
-    assert text.count(old) == 1 and old != new
+    pairs = planted_faults.replacements(planted_faults.FAULTS[fault])
+    for old, new in pairs:
+        assert text.count(old) == 1 and old != new
+        text = text.replace(old, new)
 
 
 @pytest.mark.parametrize("case", range(len(chip_smoke.K5_CHECK_CASES)))
@@ -232,3 +239,43 @@ def test_kernel_variants_apply_once(variant):
     text = (planted_faults._build.CSRC / "conv_int8.cu").read_text()
     for old, new in kernel_variants.VARIANTS[variant]:
         assert text.count(old) == 1 and old != new
+
+
+def test_k4_lse_check_holds_the_logsumexp():
+    """The plain logsumexp passes ``k4_lse_check``; one off by the
+    kernel's slack (a stale running max), or a NaN, does not."""
+    q, k, _ = chip_smoke.k4_inputs((2, 300, 64), CPU, torch.bfloat16, True)
+    ref = chip_smoke.attention_module().flash_attention_lse_plain(
+        q, k, 0.125)
+    assert chip_smoke.k4_lse_check(ref.clone(), ref)[1] <= 0.0
+    stale = ref.clone()
+    stale[0, 5] -= chip_smoke.K4_SLACK_LOG2 * 0.6931471805599453
+    assert chip_smoke.k4_lse_check(stale, ref)[1] > 0.0
+    nan = ref.clone()
+    nan[1, 7] = float("nan")
+    assert chip_smoke.k4_lse_check(nan, ref)[1] == float("inf")
+
+
+@pytest.mark.parametrize("fault", [None, "scale", "nan", "dtype"])
+def test_k4_bwd_check_holds_the_gradients(monkeypatch, fault):
+    """``k4_bwd_check`` passes the plain version against itself (the CPU
+    route), and fails dq off by the scale, a NaN and a wrong dtype."""
+    att = chip_smoke.attention_module()
+    args = chip_smoke.k4_bwd_inputs((1, 200, 64), CPU, rising=True)
+    plain = att.flash_attention_backward_plain
+
+    def faulty(*a):
+        dq, dk, dv = plain(*a)
+        if fault == "scale":
+            dq = dq * 0.125
+        elif fault == "nan":
+            dk = dk.clone()
+            dk[0, 3, 1] = float("nan")
+        elif fault == "dtype":
+            dv = dv.float()
+        return dq, dk, dv
+
+    monkeypatch.setattr(att, "flash_attention_backward", faulty)
+    _, excess, text, got = chip_smoke.k4_bwd_check(*args)
+    assert len(got) == 3
+    assert (excess <= 0.0) == (fault is None), text

@@ -1,13 +1,13 @@
-"""The backward kernels K1.bwd and K2.bwd against their plain versions on
-the card, the autograd wiring of K1 and K2, and the refusal of K3, K4 and
-K5 to give an output without a gradient, at small shapes.
+"""The backward kernels K1.bwd, K2.bwd and K4.bwd against their plain
+versions on the card, K4's logsumexp, the autograd wiring of K1, K2 and
+K4, and the refusal of K3 and K5 to give an output without a gradient.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.
 Run on a GPU machine with:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_train_kernels_cuda.py
 (``--noconftest``: the suite's conftest configures JAX; this file imports
 no JAX.)  The bounds are chip_smoke.py's (``K1_BWD_RMS``,
-``k2_bwd_check``).
+``k2_bwd_check``, ``K4_LSE_TOL``, ``K4_BWD_MAX`` and ``K4_BWD_RMS``).
 """
 
 import pytest
@@ -107,8 +107,88 @@ def test_subpixel_interleave_autograd_reaches_the_kernels(dev):
     assert torch.allclose(bias.grad, db, rtol=1e-6, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape,rising", [((2, 600, 64), False),
+                                          ((1, 1100, 512), False),
+                                          ((5, 7560, 512), True),
+                                          ((1, 1100, 128), True)])
+def test_flash_attention_writes_its_logsumexp(dev, shape, rising):
+    """K4 with the logsumexp: the same output as the serving launch, and
+    the rows' logsumexp within K4_LSE_TOL of the plain version's, on
+    rising logits too (the running max raised after tile 0)."""
+    q, k, v = chip_smoke.k4_inputs(shape, dev, torch.bfloat16, rising)
+    scale = shape[-1] ** -0.5
+    out, lse = attention._launch(q, k, v, scale, True)
+    assert torch.equal(out, attention.flash_attention(q, k, v, scale))
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == shape[:2]
+    _, excess, text = chip_smoke.k4_lse_check(
+        lse, attention.flash_attention_lse_plain(q, k, scale))
+    assert excess <= 0.0, text
+    if rising:
+        assert chip_smoke.k4_max_raises(q, k, scale) >= 1.0
+
+
+@pytest.mark.parametrize("shape,rising",
+                         [s for s in chip_smoke.K4_BWD_SHAPES]
+                         + [((2, 600, 64), False)])
+def test_flash_attention_backward_kernel(dev, shape, rising):
+    args = chip_smoke.k4_bwd_inputs(shape, dev, rising)
+    before = attention.bwd_launches
+    _, excess, text, got = chip_smoke.k4_bwd_check(*args)
+    torch.cuda.synchronize()
+    assert attention.bwd_launches == before + 1
+    assert excess <= 0.0, text
+    again = attention.flash_attention_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape,rising", chip_smoke.K4_BWD_CHECK_SHAPES)
+def test_flash_attention_backward_small_cases(dev, shape, rising):
+    _, excess, text, _ = chip_smoke.k4_bwd_check(
+        *chip_smoke.k4_bwd_inputs(shape, dev, rising))
+    assert excess <= 0.0, text
+
+
+def test_flash_attention_backward_refuses_what_it_does_not_take(dev):
+    args = list(chip_smoke.k4_bwd_inputs((1, 64, 64), dev))
+    with pytest.raises(ValueError, match="dtype"):
+        attention.flash_attention_backward(
+            *[a.float() for a in args[:5]], args[5], args[6])
+    bad = list(args)
+    bad[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention_backward(*bad)
+    bad = list(args)
+    bad[5] = args[5].double()
+    with pytest.raises(ValueError, match="lse"):
+        attention.flash_attention_backward(*bad)
+    with pytest.raises(ValueError, match="C="):
+        attention.flash_attention_backward(
+            *[a[..., :48].contiguous() for a in args[:5]], args[5], args[6])
+
+
+def test_flash_attention_autograd_reaches_the_kernels(dev):
+    """A gradient through K4 launches K4 (with the logsumexp) and K4.bwd
+    and reaches q, k and v; it matches the plain Function's on the CPU
+    within K4.bwd's bounds."""
+    q, k, v = chip_smoke.k4_inputs((2, 1024, 64), dev, torch.bfloat16, True)
+    do = chip_smoke.randn(tuple(q.shape), 46, dev, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (attention.launches, attention.bwd_launches)
+    y = attention.flash_attention(*leaves, 0.125)
+    assert y.grad_fn is not None
+    y.backward(do)
+    assert (attention.launches, attention.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    cpu = [t.cpu().requires_grad_() for t in (q, k, v)]
+    attention.flash_attention(*cpu, 0.125).backward(do.cpu())
+    for got, ref in zip(leaves, cpu):
+        err, _, ref_max, rms = chip_smoke.compare(got.grad.cpu(), ref.grad)
+        assert err <= chip_smoke.K4_BWD_MAX * ref_max
+        assert rms <= chip_smoke.K4_BWD_RMS
+
+
 def test_kernels_without_a_backward_refuse_gradients(dev):
-    """K3, K4 and K5 raise when grad mode is on and an input needs a
+    """K3 and K5 raise when grad mode is on and an input needs a
     gradient, and run under no_grad."""
     spec = Conv3DSpec((3, 3, 3), (1, 1, 1), ((2, 0), (1, 1), (1, 1)),
                       ("edge", "zero", "zero"))
@@ -118,10 +198,6 @@ def test_kernels_without_a_backward_refuse_gradients(dev):
         stem.stem_conv3d(x, w, None, spec)
     with torch.no_grad():
         assert stem.stem_conv3d(x, w, None, spec).shape == (1, 3, 8, 8, 128)
-    q = torch.randn(1, 1024, 64, device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K4.bwd"):
-        attention.flash_attention(q, q.detach(), q.detach(), 0.125)
     xq = torch.randn(1, 3, 8, 8, 16, device=dev, requires_grad=True)
     wq = torch.randint(-127, 128, (16, 16, 3, 3, 3), dtype=torch.int8,
                        device=dev)

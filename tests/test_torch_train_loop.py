@@ -147,9 +147,45 @@ def test_single_frame_image_batch():
     assert np.isfinite(float(m["loss/total"]))
 
 
-def test_bf16_compute_is_refused():
-    with pytest.raises(NotImplementedError, match="K4.bwd"):
-        tiny_engine("none", compute_dtype="bfloat16")
+def test_bf16_state_stays_fp32():
+    """compute_dtype="bfloat16": parameters, AdamW's moments and the EMA
+    stay fp32 through a G and a D step (as ``tests/test_training.py``'s
+    bf16 test holds the JAX package), the frozen nets are stored in bf16
+    but for their 0-d leaves, and the masters take the gradient."""
+    eng = tiny_engine("latent", compute_dtype="bfloat16", ema_decay=0.9)
+    assert {p.dtype for p in eng.frozen["constraint_decoder"].parameters()} \
+        == {torch.bfloat16}
+    st = eng.init_state(0)
+    p0 = snapshot(st.params)
+    for i in range(2):
+        st, m = eng.train_step(st, batch(), torch.Generator().manual_seed(i))
+        assert all(np.isfinite(float(v)) for v in m.values())
+        leaves = (list(st.params.parameters())
+                  + list(st.disc_params.parameters())
+                  + [v for o in (st.opt_g, st.opt_d)
+                     for v in list(o.mu.values()) + list(o.nu.values())]
+                  + list(st.ema.shadow.values()))
+        assert {t.dtype for t in leaves} == {torch.float32}
+    assert not same(snapshot(st.params), p0)
+
+
+def test_bf16_loss_tracks_fp32():
+    """The JAX package's ``test_bf16_compute_mode``: from the same seed and
+    weights a bf16 G step's ``loss/rec`` is within 0.1 relative of the fp32
+    engine's (bf16 rounding only), and the D step runs."""
+    batch_ = {"frames": torch.from_numpy(np.random.RandomState(1).normal(
+        size=(1, 5, 32, 32, 3)).astype(np.float32) * 0.5)}
+    out = {}
+    for compute in ("float32", "bfloat16"):
+        eng = tiny_engine("latent", compute_dtype=compute,
+                          loss=dict(disc_start=0))
+        st = eng.init_state(0)
+        g = torch.Generator().manual_seed(2)
+        st, out[compute] = eng.train_step(st, batch_, g)
+        st, m = eng.train_step(st, batch_, g)
+        assert all(np.isfinite(float(v)) for v in m.values())
+    r32, r16 = (float(out[c]["loss/rec"]) for c in ("float32", "bfloat16"))
+    assert abs(r16 - r32) <= 0.1 * abs(r32), (r16, r32)
 
 
 @pytest.mark.parametrize("name", ["cosine", "linear", "polynomial",
@@ -352,6 +388,79 @@ def test_train_main_on_the_shipped_yaml(tmp_path):
     CheckpointManager(str(tmp_path / "run")).restore(fresh)
     assert fresh.step == 4 and same(snapshot(fresh.params),
                                     snapshot(state.params))
+
+
+def test_train_main_in_bf16(tmp_path):
+    """``train.main`` with ``model.engine.params.compute_dtype=bfloat16`` on
+    the CPU (the plain versions): two steps, finite losses, an fp32 state
+    in the checkpoint."""
+    import chip_smoke
+    from cvvae_tpu_torch import train
+    tar_dir, csv_dir, video_root = chip_smoke.write_train_data(
+        str(tmp_path / "data"), seed=4, n_images=4, image_hw=(40, 48),
+        n_videos=1, video_frames=12, video_hw=(40, 48))
+    e = "model.engine.params."
+    argv = ["--base", os.path.join(ROOT, "configs",
+                                   "sd3_latent_constraint.yaml"),
+            "--train", "--max_steps", "2", "--device", "cpu",
+            "--logdir", str(tmp_path / "run"),
+            f"{e}compute_dtype=bfloat16",
+            f"{e}net.params.block_out_channels=[8,8,8,8]",
+            f"{e}net.params.layers_per_block=1",
+            f"{e}net.params.norm_num_groups=4",
+            f"{e}disc.params.ndf=8", f"{e}disc.params.n_layers=2",
+            f"{e}disc.params.norm_groups=4",
+            f"{e}constraint_decoder.params.block_out_channels=[8,8,8,8]",
+            f"{e}constraint_decoder.params.layers_per_block=1",
+            f"{e}constraint_decoder.params.norm_num_groups=4",
+            f"{e}loss.params.perceptual_weight=0.0", f"{e}remat=false",
+            f"data.train.datasets.image_webdata.urls_or_dir={tar_dir}",
+            "data.train.datasets.image_webdata.batch_size=2",
+            "data.train.datasets.image_webdata.decoder.params.size=32",
+            f"data.train.datasets.webvid.urls_or_dir={csv_dir}",
+            "data.train.datasets.webvid.decoder.params.num_frames=5",
+            "data.train.datasets.webvid.decoder.params.resize=40",
+            "data.train.datasets.webvid.decoder.params.crop_size=32",
+            f"data.train.datasets.webvid.decoder.params.video_root="
+            f"{video_root}",
+            "trainer.ckpt_every=2", "trainer.image_every=0"]
+    trainer, state = train.main(argv)
+    assert trainer.engine.cfg.compute_dtype == "bfloat16"
+    assert state.step == 2
+    assert all(np.isfinite(v) for e in trainer.step_log
+               for v in e["metrics"].values())
+    fresh = trainer.engine.init_state(9)
+    CheckpointManager(str(tmp_path / "run")).restore(fresh)
+    assert {t.dtype for t in fresh.params.state_dict().values()} == \
+        {torch.float32}
+    assert same(snapshot(fresh.params), snapshot(state.params))
+
+
+def test_cpu_step_is_bitwise_reproducible():
+    """A G step and a D step run twice from one state with one set of
+    draws, at one thread count, give the same bits: metrics, gradients and
+    parameters (the CPU side of a card-against-CPU comparison does not
+    move between runs)."""
+    eng = tiny_engine("latent", loss=dict(disc_start=0))
+    eng.keep_grads = True
+    st = eng.init_state(0)
+    st, _ = eng.train_step(st, batch(), torch.Generator().manual_seed(0))
+    blob = st.state_dict()
+    g = torch.Generator().manual_seed(5)
+    draws = {"noise": torch.randn((1, 2, 2, 2, 4), generator=g),
+             "offsets": torch.randint(1, 5, (1,), generator=g)}
+    for step in (2, 3):
+        runs = []
+        for _ in range(2):
+            st = eng.init_state(1).load_state_dict(blob)
+            st.step = step
+            st, m = eng.train_step(st, batch(), draws=draws)
+            runs.append((m, eng.last_grads, snapshot(st.params),
+                         snapshot(st.disc_params)))
+        (m0, g0, p0, d0), (m1, g1, p1, d1) = runs
+        assert all(torch.equal(m0[k], m1[k]) for k in m0)
+        assert all(torch.equal(g0[k], g1[k]) for k in g0)
+        assert same(p0, p1) and same(d0, d1)
 
 
 def test_loading_a_state_copies_it():

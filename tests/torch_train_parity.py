@@ -16,6 +16,20 @@ Tolerances: losses and metrics relative 1e-4 (LOSS_RTOL, atol 1e-6);
 parameter updates |Δport − Δjax| <= 1e-2 * lr elementwise (UPDATE_TOL):
 both run fp32 with sums in other orders, and an Adam update divides by
 sqrt(v) + eps, which scales a gradient's relative error into its update.
+With ``compute_dtype="bfloat16"`` both engines run the JAX package's
+mixed precision, the posterior's noise is drawn in bf16 as the JAX step
+draws it, and the two round to bf16 at other places.  This narrow random
+net carries a change at bf16's rounding level through to several percent
+of its outputs: JAX's own decoder moves 4.9% (rms) when a fifth of z moves
+by one bf16 ulp, and the port's decoder on JAX's z is 5.4% from JAX's; a
+G step's update moves 14-17% (L2) from JAX's own under a 2^-9 change of
+the input.  So the port is held to JAX's own spread (``Pair.spread``: the
+JAX step again from the same state and key on BF16_SPREAD_SEEDS inputs
+x·(1 + 2^-9·N(0, 1))): each metric within BF16_LOSS_RTOL relative + atol
+BF16_LOSS_ATOL, or within BF16_SPREAD_FACTOR times JAX's largest distance
+from itself, whichever is larger; the updates of all parameters together
+within BF16_SPREAD_FACTOR times JAX's largest L2 distance from itself
+(``check_updates_bf16``).
 """
 
 import numpy as np
@@ -51,31 +65,41 @@ NET2D = dict(naming="sd3", latent_channels=4, block_out_channels=(8, 8, 8, 8),
              layers_per_block=1, norm_num_groups=4)
 DISC = dict(ndf=8, n_layers=2, norm_groups=4)
 OPTIM = dict(base_lr=BASE_LR, num_warmup_steps=0, num_training_steps=100)
+BF16_LOSS_RTOL = 2e-2
+BF16_LOSS_ATOL = 1e-3
+BF16_SPREAD_SEEDS = (10, 11, 12, 13, 14)
+BF16_SPREAD_FACTOR = 2.0
 
 
-def _cfg(pkg, constraint, perceptual, remat):
+def _cfg(pkg, constraint, perceptual, remat, compute_dtype):
     Net, Disc, Loss, Optim, V2, E = pkg
     v2 = V2(**NET2D)
     return E(family="sd3", net=Net(**NET), disc=Disc(**DISC),
              loss=Loss(perceptual_weight=perceptual, time_n_compress=4),
              optim=Optim(**OPTIM), constraint=constraint,
-             constraint_decoder=v2, constraint_encoder=v2, remat=remat)
+             constraint_decoder=v2, constraint_encoder=v2, remat=remat,
+             compute_dtype=compute_dtype)
 
 
 class Pair:
     """The JAX engine with its states at steps 2 and 3, and the port's
     engine on the same frozen nets."""
 
-    def __init__(self, constraint, perceptual=0.0, port_remat=True):
+    def __init__(self, constraint, perceptual=0.0, port_remat=True,
+                 compute_dtype="float32"):
         self.constraint = constraint
+        self.compute_dtype = compute_dtype
         jcfg = _cfg((JNet, JDisc, JLoss, JOptim, J2D, JEngineConfig),
-                    constraint, perceptual, False)
+                    constraint, perceptual, False, compute_dtype)
         self.jeng = JEngine(jcfg, seed=0, allow_random_lpips=True)
+        # the frozen nets as fp32 numpy (bf16 widens exactly); the port
+        # casts them to its compute dtype as the JAX engine did
         frozen = {k: None if v is None else from_jax_params(
-            jax.tree.map(np.asarray, v)) for k, v in self.jeng.frozen.items()}
+            jax.tree.map(lambda a: np.asarray(a, np.float32), v))
+            for k, v in self.jeng.frozen.items()}
         tcfg = _cfg((VAESD3Config, Disc3DConfig, LossConfig, OptimConfig,
                      VAE2DConfig, EngineConfig), constraint, perceptual,
-                    port_remat)
+                    port_remat, compute_dtype)
         self.teng = TrainingEngine(
             tcfg, device="cpu", allow_random_lpips=True,
             lpips_params=frozen["lpips"],
@@ -84,12 +108,30 @@ class Pair:
         self.x = np.random.RandomState(1).uniform(-1, 1, CLIP).astype(
             np.float32)
         batch = {"frames": jnp.asarray(self.x)}
+        self._spread = {}
         self.states = [self.jeng.init_state(jax.random.PRNGKey(0))]
         self.metrics = [None]
         for i in range(4):
             s, m = self.jeng.train_step(self.states[-1], batch, self.key(i))
             self.states.append(s)
             self.metrics.append({k: float(v) for k, v in m.items()})
+
+    def spread(self, step):
+        """JAX's step ``step`` again from the same state and key on the
+        inputs x·(1 + 2^-9·N(0, 1)) of BF16_SPREAD_SEEDS: [(metrics,
+        state after), ...]."""
+        if step not in self._spread:
+            out = []
+            for seed in BF16_SPREAD_SEEDS:
+                x = self.x * (1 + 2.0 ** -9 * np.random.RandomState(seed)
+                              .standard_normal(self.x.shape)).astype(
+                                  np.float32)
+                s, m = self.jeng.train_step(self.states[step],
+                                            {"frames": jnp.asarray(x)},
+                                            self.key(step))
+                out.append(({k: float(v) for k, v in m.items()}, s))
+            self._spread[step] = out
+        return self._spread[step]
 
     @staticmethod
     def key(step):
@@ -98,8 +140,13 @@ class Pair:
     def draws(self, step):
         """What the JAX step draws from its key: the G step splits it into
         the posterior's and the constraint targets' keys, the D step uses
-        it for the posterior."""
+        it for the posterior, whose noise is drawn in the compute dtype."""
         cfg = self.jeng.cfg
+        dtype = jnp.dtype(self.compute_dtype)
+
+        def normal(k):
+            return torch.from_numpy(np.asarray(
+                jax.random.normal(k, lat, dtype), np.float32))
         b, t, h, w, _ = CLIP
         lat = (b * (2 if cfg.constraint in ("encoder", "all") else 1),
                (t - 1) // 4 + 1, h // 8, w // 8, cfg.latent_channels)
@@ -107,11 +154,9 @@ class Pair:
         if step % 2 == 0:
             k_s, k_t = jax.random.split(key)
             offs = jax.random.randint(k_t, ((t - 1) // 4,), 1, 5)
-            return {"noise": torch.from_numpy(np.array(
-                        jax.random.normal(k_s, lat, jnp.float32))),
+            return {"noise": normal(k_s),
                     "offsets": torch.from_numpy(np.array(offs))}
-        return {"noise": torch.from_numpy(np.array(
-            jax.random.normal(key, lat, jnp.float32)))}
+        return {"noise": normal(key)}
 
     def port_step(self, step):
         """The port's step ``step`` from the JAX state before it: (its
@@ -149,3 +194,45 @@ def check_updates(state, jbefore, jafter, which, lr):
         assert err <= UPDATE_TOL * lr, (k, err / lr)
         moved = max(moved, d_jax.abs().max().item() / lr)
     return moved
+
+
+
+def check_metrics_bf16(got, ref, spread):
+    """Each metric within BF16_LOSS_RTOL * |ref| + BF16_LOSS_ATOL of JAX's,
+    or within BF16_SPREAD_FACTOR times JAX's largest distance from itself
+    over ``spread`` (``Pair.spread``)."""
+    assert set(got) == set(ref), (set(got) ^ set(ref))
+    for k, r in ref.items():
+        own = max(abs(m[k] - r) for m, _ in spread)
+        tol = max(BF16_LOSS_RTOL * abs(r) + BF16_LOSS_ATOL,
+                  BF16_SPREAD_FACTOR * own)
+        assert abs(got[k] - r) <= tol, (k, got[k], r, own)
+
+
+def _deltas(before, after, keys):
+    return torch.cat([(after[k].double() - before[k].double()).reshape(-1)
+                      for k in keys])
+
+
+def check_updates_bf16(state, jbefore, jafter, which, spread):
+    """The updates of every leaf of ``which`` together within
+    BF16_SPREAD_FACTOR times JAX's largest L2 distance from itself over
+    ``spread``; a leaf JAX leaves unchanged is unchanged.  Returns the
+    number of leaves that moved."""
+    tree = lambda st: from_jax_params(  # noqa: E731
+        jax.tree.map(np.asarray, getattr(st, which)))
+    before, after = tree(jbefore), tree(jafter)
+    module = state.params if which == "params" else state.disc_params
+    got = dict(module.state_dict())
+    moved = [k for k in before if not torch.equal(after[k], before[k])]
+    for k in before:
+        if k not in moved:
+            assert torch.equal(got[k], before[k]), k
+    if not moved:
+        return 0
+    d_jax = _deltas(before, after, moved)
+    dist = float((_deltas(before, got, moved) - d_jax).norm() / d_jax.norm())
+    own = max(float((_deltas(before, tree(s), moved) - d_jax).norm()
+                    / d_jax.norm()) for _, s in spread)
+    assert dist <= BF16_SPREAD_FACTOR * own, (dist, own)
+    return len(moved)
