@@ -81,7 +81,9 @@ Phases (each prints its findings; any failure exits non-zero):
    ``TRAIN_MAIN_STEPS`` steps on seeded local data (a JPEG tar and cv2
    mp4 clips), in fp32 and in bf16: per-step wall time by kind and batch
    shape, peak memory, finite losses, launches a step, and a checkpoint
-   written and reloaded (fp32).
+   written and reloaded (fp32); for the first G and D step of each batch
+   kind, K1.bwd's launches by (B', S, C, SiLU, dtype) and their sum of
+   launches x the kernel's time at each of those shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served and streamed paths, and at each
@@ -448,6 +450,7 @@ def reset_launch_counts():
     mods = kernel_modules()
     for m, attr in COUNTERS.values():
         setattr(mods[m], attr, 0)
+    mods["K1"].bwd_launches_by_shape.clear()
 
 
 def say(*parts):
@@ -2470,6 +2473,41 @@ def write_train_data(root, seed=0, n_images=16, image_hw=(360, 400),
 TRAIN_MAIN_STEPS = 6
 
 
+def k1_bwd_shape_ms(key, dev):
+    """K1.bwd's CUDA-event ms at one (B', S, C, SiLU, dtype) of
+    ``bwd_launches_by_shape``, on ``k1_bwd_inputs`` of shape (B', S, C)
+    with gcd(32, C) groups and K1's statistics."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
+    b, s, c, silu, dtype = key
+    x, dy, w, bias = k1_bwd_inputs((b, s, c), dev, getattr(torch, dtype))
+    _, mean, inv = groupnorm._launch(x, w, bias, math.gcd(32, c), 1e-6, silu,
+                                     False, True)
+    return time_ms(lambda: groupnorm.group_norm_silu_backward(
+        dy, x, w, bias, mean, inv, silu=silu))
+
+
+def _k1_bwd_by_step(dev, compute, step_log, per_shape, smi):
+    """For the first G and D step of each batch kind: K1.bwd's launches by
+    (B', S, C, SiLU, dtype), and the sum over them of launches x the
+    kernel's time at that shape (``k1_bwd_shape_ms``)."""
+    seen, ms = set(), {}
+    for e, shapes in zip(step_log, per_shape):
+        if (e["kind"], e["shape"]) in seen:
+            continue
+        seen.add((e["kind"], e["shape"]))
+        for key in shapes:
+            if key not in ms:
+                ms[key] = k1_bwd_shape_ms(key, dev)
+        total = sum(n * ms[k] for k, n in shapes.items())
+        rows = sorted(([list(k), n, ms[k]] for k, n in shapes.items()),
+                      key=lambda r: -r[1] * r[2])
+        say(f"[train] main {compute} {e['kind'].upper()} {e['shape']}: "
+            f"K1.bwd {sum(shapes.values())} launches at {len(shapes)} "
+            f"shapes, sum of launches x ms {total:.3f} ms of the step's "
+            f"{1e3 * e['seconds']:.1f} ms; by [B', S, C, SiLU, dtype], "
+            f"launches, ms: {json.dumps(rows)}; card {smi}")
+
+
 def _train_main(dev, smi, compute="float32"):
     """``cvvae_tpu_torch.train.main`` on the shipped YAML at full width
     with the shipped batches, in ``compute`` ("float32" or "bfloat16",
@@ -2484,13 +2522,16 @@ def _train_main(dev, smi, compute="float32"):
     with tempfile.TemporaryDirectory() as tmp:
         tar_dir, csv_dir, video_root = write_train_data(tmp, seed=8)
         logdir = os.path.join(tmp, "run")
-        per_step = []
-        last = [launch_counts()]
+        per_step, per_shape = [], []
+        by_shape = kernel_modules()["K1"].bwd_launches_by_shape
+        last = [launch_counts(), by_shape.copy()]
 
         def on_step(entry):
             now = launch_counts()
             per_step.append({k: now[k] - last[0][k] for k in now})
+            per_shape.append(by_shape - last[1])
             last[0] = now
+            last[1] = by_shape.copy()
 
         argv = ["--base", SHIPPED_CONFIG, "--train", "--max_steps",
                 str(TRAIN_MAIN_STEPS), "--logdir", logdir,
@@ -2505,7 +2546,7 @@ def _train_main(dev, smi, compute="float32"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        last[0] = launch_counts()
+        last[:] = [launch_counts(), by_shape.copy()]
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -2513,6 +2554,7 @@ def _train_main(dev, smi, compute="float32"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        _k1_bwd_by_step(dev, compute, trainer.step_log, per_shape, smi)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         by = {}
         for e in trainer.step_log:

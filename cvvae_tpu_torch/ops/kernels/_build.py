@@ -37,11 +37,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+
+
+class GroupNormBwdPlan(ctypes.Structure):
+    """K1.bwd's plan as ``csrc/groupnorm_bwd.cu``'s ``Plan`` lays it out,
+    passed by value."""
+    _fields_ = [("S", _L), ("rows_per_chunk", _L)] + [
+        (name, _I) for name in ("B", "C", "G", "V", "threads", "n_chunks",
+                                "grid", "silu", "dtype", "wdtype",
+                                "stat_stride", "device")]
+
+
 _SIGNATURES = {
     "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I,
                          _I, _I, _I, _I, _L, _I, _I, _P],
-    "cvvae_group_norm_bwd": [_P] * 11 + [_I, _L, _I, _I, _I, _I, _I, _I, _L,
-                                         _I, _I, _P],
+    "cvvae_group_norm_bwd": [_P] * 9 + [GroupNormBwdPlan, _P],
     "cvvae_subpixel_interleave_bwd": [_P] * 7 + [_L] + [_I] * 12 + [_P],
     "cvvae_subpixel_interleave": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -176,7 +186,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda_layout(name: str, t: torch.Tensor, ndim: int) -> None:

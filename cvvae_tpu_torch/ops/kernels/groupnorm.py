@@ -26,12 +26,20 @@ is a ``torch.autograd.Function`` whose forward keeps each (row, group)'s
 mean and 1/std (K1 writes them from its merge when an input needs a
 gradient, and not otherwise) and whose backward launches K1.bwd on the
 card, or runs ``group_norm_silu_backward_plain`` on a CPU tensor.  Bound:
-device memory, like K1.  K1.bwd reads x and dy twice (per-channel sums of
-dz and dz·x̂ over K1's row blocks, merged in a fixed order in double, then
-dx) and writes dx once, and is deterministic.
+device memory, like K1.  K1.bwd is one cooperative launch of a grid that
+the card holds at once (``backward_plan``, its own plan): per-channel sums
+of dz and dz·x̂ over chunks of rows, a grid-wide barrier, a merge in a
+fixed order in double, a second barrier, then dγ, dβ and dx.  It reads x
+and dy twice (the second time from L2 where they fit), writes dx once, and
+is deterministic.  It reads the forward's (B', G, 2) statistics and γ, β
+as they are (no copies), and writes dγ, dβ in γ's dtype.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
+import math
 
 import torch
 
@@ -43,6 +51,9 @@ from cvvae_tpu_torch.ops.kernels import _build
 #: counts again)
 launches = 0
 bwd_launches = 0
+#: K1.bwd's launches by (B', S, C, SiLU, dtype name)
+bwd_launches_by_shape: collections.Counter = collections.Counter()
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 def _group_stats(x: torch.Tensor, num_groups: int, eps: float,
@@ -148,6 +159,46 @@ def launch_plan(b: int, s: int, c: int, g: int, elem_size: int) -> dict:
                 n_blocks=-(-s // rows_per_block))
 
 
+#: K1.bwd's threads an SM holds at once, and its rows a tile at the least
+#: (``csrc/groupnorm_bwd.cu``)
+BWD_RESIDENT_THREADS, BWD_MIN_ROWS = _build.constants(
+    "groupnorm_bwd.cu", "kResidentThreads", "kMinRows")
+
+
+def backward_plan(b: int, s: int, c: int, g: int, elem_size: int,
+                  sms: int) -> dict:
+    """K1.bwd's plan for (b, s, c) with g groups on a card of ``sms`` SMs.
+
+    The vector width v (16 bytes, else 2 or 1 elements: the widest that
+    divides C), the threads a block (one thread a vector column, 256 at
+    the least), the blocks the card holds at once (``capacity``: SMs ×
+    max(1, BWD_RESIDENT_THREADS / threads), which the kernel's
+    ``__launch_bounds__`` guarantees) and the tiles: each batch row in
+    ``n_chunks`` chunks of ``rows_per_chunk`` rows (chunk k: rows [k ·
+    rows_per_chunk, min(s, (k + 1) · rows_per_chunk))), at least
+    BWD_MIN_ROWS rows where s has them, no more tiles than the capacity
+    where b allows.  The grid is min(tiles, capacity); block i takes tiles
+    i, i + grid, ... (tile t is chunk t % n_chunks of batch row t //
+    n_chunks), and its apply pass takes them in reverse.  ``part_bytes``:
+    the tiles' fp32 sums (2 a channel), at most 8 / (BWD_MIN_ROWS ·
+    elem_size) of x where s ≥ BWD_MIN_ROWS, else one tile a batch row.
+    ``scratch_floats``: those sums, then each (row, channel)'s two float64
+    sums."""
+    v = next(v for v in (16 // elem_size, 2, 1) if c % v == 0)
+    nvc = c // v
+    threads = 256 if nvc <= 256 else -(-nvc // 32) * 32
+    capacity = sms * max(1, BWD_RESIDENT_THREADS // threads)
+    n_chunks = max(1, min(s // BWD_MIN_ROWS, capacity // b))
+    rows = -(-s // n_chunks)
+    n_chunks = -(-s // rows)
+    tiles = b * n_chunks
+    return dict(v=v, threads=threads, rows_per_iter=threads // nvc,
+                capacity=capacity, n_chunks=n_chunks, rows_per_chunk=rows,
+                tiles=tiles, grid=min(tiles, capacity),
+                part_bytes=tiles * c * 2 * 4,
+                scratch_floats=tiles * c * 2 + b * c * 4)
+
+
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     *, num_groups: int, eps: float, silu: bool = False,
                     per_frame: bool = False) -> torch.Tensor:
@@ -193,16 +244,22 @@ def _check_shape(name: str, x: torch.Tensor, num_groups: int,
                  per_frame: bool):
     """(B', S, C) of a K1 launch on ``x``, or raise."""
     _build.require_cuda_layout(name, x, x.ndim)
-    if x.ndim < 3 or (per_frame and x.ndim < 4):
-        raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
-    c = x.shape[-1]
+    return _dims(name, x.shape, num_groups, per_frame)
+
+
+def _dims(name: str, shape, num_groups: int, per_frame: bool):
+    """(B', S, C) of a K1 or K1.bwd launch on a tensor of ``shape``, or
+    raise."""
+    if len(shape) < 3 or (per_frame and len(shape) < 4):
+        raise ValueError(f"{name}: bad shape {tuple(shape)}")
+    c = shape[-1]
     if c % num_groups or c > 1024 or num_groups > 1024:
         raise ValueError(f"{name}: C={c}, G={num_groups} not "
                          f"supported (C % G == 0, C <= 1024)")
-    b = x.shape[0] * (x.shape[1] if per_frame else 1)
-    s = x.numel() // (b * c)
+    b = shape[0] * (shape[1] if per_frame else 1)
+    s = math.prod(shape) // (b * c) if b * c else 0
     if not 0 < b <= 65535 or s == 0:
-        raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
+        raise ValueError(f"{name}: bad shape {tuple(shape)}")
     return b, s, c
 
 
@@ -243,39 +300,99 @@ def group_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
                              silu: bool = False, per_frame: bool = False):
     """K1.bwd (``csrc/groupnorm_bwd.cu``): (dx, dweight, dbias) of a
     contiguous CUDA ``x`` from ``dy`` and the forward's (mean, 1/std),
-    each (B', G) fp32; dweight and dbias in fp32.  A CPU tensor takes the
-    plain version."""
+    each (B', G) fp32; dweight and dbias in weight's dtype (fp32 sums,
+    rounded once).  A CPU tensor takes the plain version.
+
+    Nothing is copied on the path: the statistics are read where they lie
+    (the forward's (B', G, 2) buffer, or any (B', G) view whose groups are
+    evenly spaced), and weight and bias in their own dtype.  What depends
+    on the shapes alone (checks, plan, the kernel's struct) is made once a
+    shape, so a small call spends little host time before its launch."""
     global bwd_launches
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return group_norm_silu_backward_plain(dy, x, weight, bias, mean, inv,
                                               silu=silu, per_frame=per_frame)
-    g = mean.shape[1]
-    b, s, c = _check_shape("group_norm_silu_backward", x, g, per_frame)
-    dy = dy.contiguous()
+    if not x.is_contiguous() or x.dtype not in _DTYPE_NAMES:
+        _build.require_cuda_layout("group_norm_silu_backward", x, x.ndim)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"group_norm_silu_backward: dy {tuple(dy.shape)} "
                          f"{dy.dtype} against x {tuple(x.shape)} {x.dtype}")
-    plan = launch_plan(b, s, c, g, x.element_size())
-    if (x.data_ptr() | dy.data_ptr()) % (plan["v"] * x.element_size()):
-        raise ValueError("group_norm_silu_backward: x or dy is not aligned "
-                         f"to its {plan['v']}-element loads")
-    stats = torch.stack([mean, inv], -1).float().contiguous()
-    w32 = weight.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    b32 = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    device = x.get_device()
+    mean, inv, stride = _stats_layout(mean, inv, device)
+    weight, bias = _param_layout(weight, bias, device)
+    align, scratch_floats, key, cplan = _backward_launch(
+        x.shape, mean.shape, weight.shape, x.dtype, weight.dtype, bool(silu),
+        bool(per_frame), stride, device)
+    if x.data_ptr() % align:
+        raise ValueError("group_norm_silu_backward: x is not aligned to its "
+                         f"{align // x.element_size()}-element loads")
+    if dy.data_ptr() % align or not dy.is_contiguous():
+        dy = dy.clone(memory_format=torch.contiguous_format)
     dx = torch.empty_like(x)
-    dw = torch.empty(c, device=x.device, dtype=torch.float32)
-    db = torch.empty(c, device=x.device, dtype=torch.float32)
-    part = torch.empty((b, plan["n_blocks"], c, 2), device=x.device,
-                       dtype=torch.float32)
-    rowsum = torch.empty((b, c, 2), device=x.device, dtype=torch.float64)
-    coef = torch.empty((b, 5, c), device=x.device, dtype=torch.float32)
+    dparams = x.new_empty((2, key[2]), dtype=weight.dtype)
+    scratch = x.new_empty(scratch_floats, dtype=torch.float32)
     rc = _build.library().cvvae_group_norm_bwd(
-        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), w32.data_ptr(),
-        b32.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        part.data_ptr(), rowsum.data_ptr(), coef.data_ptr(), b, s, c, g,
-        int(silu), _build.DTYPE_CODES[x.dtype], plan["v"], plan["threads"],
-        plan["rows_per_block"], plan["n_blocks"], x.device.index or 0,
+        x.data_ptr(), dy.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+        dparams.data_ptr(), scratch.data_ptr(), cplan,
         _build.stream_of(x))
     _build.check(rc, "group_norm_silu_backward")
     bwd_launches += 1
-    return dx, dw, db
+    bwd_launches_by_shape[key] += 1
+    dweight, dbias = dparams.unbind(0)
+    return dx, dweight, dbias
+
+
+@functools.lru_cache(maxsize=512)
+def _backward_launch(shape, stats_shape, param_shape, dtype, wdtype, silu,
+                     per_frame, stride, device):
+    """What K1.bwd's launch on these shapes needs, made once: (the loads'
+    alignment in bytes, the scratch's floats, the (B', S, C, SiLU, dtype)
+    key of ``bwd_launches_by_shape``, the kernel's plan struct); raises on
+    a shape the kernel does not take."""
+    name = "group_norm_silu_backward"
+    g = stats_shape[1]
+    b, s, c = _dims(name, shape, g, per_frame)
+    if tuple(stats_shape) != (b, g) or tuple(param_shape) != (c,):
+        raise ValueError(f"{name}: statistics {tuple(stats_shape)} and "
+                         f"parameters {tuple(param_shape)} against x "
+                         f"{tuple(shape)} ({b} rows, {g} groups, C={c})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = backward_plan(b, s, c, g, dtype.itemsize, sms)
+    cplan = _build.GroupNormBwdPlan(
+        s, plan["rows_per_chunk"], b, c, g, plan["v"], plan["threads"],
+        plan["n_chunks"], plan["grid"], int(silu), _build.DTYPE_CODES[dtype],
+        _build.DTYPE_CODES[wdtype], stride, device)
+    return (plan["v"] * dtype.itemsize, plan["scratch_floats"],
+            (b, s, c, silu, _DTYPE_NAMES[dtype]), cplan)
+
+
+def _stats_layout(mean, inv, device):
+    """(mean, 1/std, stride): fp32 on card ``device`` with the groups of a
+    row ``stride`` elements apart, as the kernel reads them; the forward's
+    views of its (B', G, 2) buffer pass as they are (stride 2)."""
+    if not (mean.dtype == inv.dtype == torch.float32 and mean.is_cuda
+            and inv.is_cuda and mean.get_device() == inv.get_device()
+            == device):
+        mean = mean.to(device=device, dtype=torch.float32)
+        inv = inv.to(device=device, dtype=torch.float32)
+    if mean.dim() == 2 and inv.dim() == 2:
+        k = mean.stride(1)
+        if (k > 0 and inv.stride(1) == k
+                and mean.stride(0) == inv.stride(0) == mean.shape[1] * k):
+            return mean, inv, k
+    return mean.contiguous(), inv.contiguous(), 1
+
+
+def _param_layout(weight, bias, device):
+    """weight and bias as the kernel reads them: contiguous on card
+    ``device``, both fp32 or both bf16 (else both in fp32)."""
+    dtype = weight.dtype
+    if (dtype == bias.dtype and dtype in _DTYPE_NAMES and weight.is_cuda
+            and bias.is_cuda and weight.get_device() == bias.get_device()
+            == device and weight.is_contiguous() and bias.is_contiguous()):
+        return weight, bias
+    if dtype != bias.dtype or dtype not in _DTYPE_NAMES:
+        dtype = torch.float32
+    return (weight.to(device=device, dtype=dtype).contiguous(),
+            bias.to(device=device, dtype=dtype).contiguous())

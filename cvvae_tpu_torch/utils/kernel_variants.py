@@ -1,22 +1,31 @@
 """Time variants of a hand-written kernel's source on the card.
 
-    python -m cvvae_tpu_torch.utils.kernel_variants
+    python -m cvvae_tpu_torch.utils.kernel_variants [--kernel K5|K1.bwd]
 
 Each variant is ``csrc/`` copied into a temporary directory with some
 text of one source replaced, built (all side by side) and made the
-library the wrappers launch (``_build.library(path)``).  Every variant is
-first held bit-exact to K5's plain version on ``chip_smoke``'s check
-cases, then timed (K5.stage then K5.gemm, the packed weight made
-beforehand) at each of ``chip_smoke.K5_PATH_SHAPES`` in bf16, in turns,
-twice.  Prints the registers and spills ptxas reports for K5's bf16 GEMM.
-Needs a CUDA card and nvcc; imports nothing of JAX.
+library the wrappers launch (``_build.library(path)``).
 
-``VARIANTS`` holds the design choices of ``csrc/conv_int8.cu`` undone one
-at a time, so that each choice's effect is measured in one call.
+- K5 (the default): every variant is first held bit-exact to K5's plain
+  version on ``chip_smoke``'s check cases, then timed (K5.stage then
+  K5.gemm, the packed weight made beforehand) at each of
+  ``chip_smoke.K5_PATH_SHAPES`` in bf16, in turns, twice.  Prints the
+  registers and spills ptxas reports for K5's bf16 GEMM.
+- K1.bwd: every variant is first held to ``chip_smoke.K1_BWD_RMS`` of
+  the plain version on ``chip_smoke.K1_CHECK_SHAPES`` (fp32 and bf16),
+  then timed at each of ``chip_smoke.K1_BWD_SHAPES`` in fp32 and bf16, in
+  turns, twice.  Prints the registers and spills of its bf16 and fp32
+  kernels with SiLU.
+
+Needs a CUDA card and nvcc; imports nothing of JAX.  ``VARIANTS`` (K5,
+``csrc/conv_int8.cu``) and ``K1_BWD_VARIANTS`` (``csrc/groupnorm_bwd.cu``)
+hold each kernel's design choices undone one at a time, so that each
+choice's effect is measured in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import shutil
 import statistics
@@ -42,16 +51,41 @@ VARIANTS = {
 }
 
 
-def _build_variant(tmp: Path, i: int, replacements):
+#: name -> [(text of csrc/groupnorm_bwd.cu, its replacement), ...]
+K1_BWD_VARIANTS = {
+    "as committed": [],
+    "the SiLU derivative by an IEEE division, both dtypes": [
+        ("    const float s = __frcp_rn(1.f + __expf(-z));",
+         "    const float s = 1.f / (1.f + __expf(-z));"),
+        ("    const float h = 0.5f * z;\n"
+         "    const float t = tanh_approx(h);\n"
+         "    return d * fmaf(0.5f, t, 0.5f) * fmaf(h, 1.f - t, 1.f);",
+         "    const float s = 1.f / (1.f + __expf(-z));\n"
+         "    return d * s * (1.f + z * (1.f - s));")],
+    "bf16 on the fp32 form (one rounded reciprocal)": [
+        ("  if constexpr (std::is_same<T, float>::value) {",
+         "  if constexpr (true) {")],
+    "4 loads in flight in bf16": [
+        ("constexpr int kUnrollBf16 = 2;", "constexpr int kUnrollBf16 = 4;")],
+    "the apply pass forwards": [
+        ("    for_rows<T, V, true>(", "    for_rows<T, V, false>(")],
+}
+
+#: each kernel's variants: (source, variants)
+KERNEL_VARIANTS = {"K5": ("conv_int8.cu", VARIANTS),
+                   "K1.bwd": ("groupnorm_bwd.cu", K1_BWD_VARIANTS)}
+
+
+def _build_variant(tmp: Path, i: int, replacements, source="conv_int8.cu"):
     from cvvae_tpu_torch.ops.kernels import _build
 
     src = tmp / f"csrc{i}"
     shutil.copytree(_build.CSRC, src)
-    path = src / "conv_int8.cu"
+    path = src / source
     text = path.read_text()
     for old, new in replacements:
         if text.count(old) != 1:
-            raise SystemExit(f"{old!r} is not in conv_int8.cu once")
+            raise SystemExit(f"{old!r} is not in {source} once")
         text = text.replace(old, new)
     path.write_text(text)
     out = tmp / f"lib{i}" / _build.LIB_NAME
@@ -59,15 +93,79 @@ def _build_variant(tmp: Path, i: int, replacements):
     return out
 
 
-def main() -> int:
+def _k1_bwd(libs, dev) -> int:
+    """K1.bwd's variants: held to K1_BWD_RMS on K1_CHECK_SHAPES, then
+    timed at K1_BWD_SHAPES in turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, groupnorm
+
+    dtypes = (torch.float32, torch.bfloat16)
+    for name, lib in libs.items():
+        log = (lib.parent / "build.log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling" in line and (
+                    "gn_bwdI13__nv_bfloat16fLi8ELb1E" in line
+                    or "gn_bwdIffLi4ELb1E" in line):
+                info = [s for s in log[i:i + 4]
+                        if "spill" in s or "Used" in s][:2]
+                kernel = line.split("gn_bwd")[1][:20]
+                print(f"[{name}] {kernel}: " + " | ".join(
+                    s.split(":", 1)[-1].strip() for s in info))
+        _build.library(lib)
+        bad = []
+        for dtype in dtypes:
+            for shape, groups, silu, per_frame in chip_smoke.K1_CHECK_SHAPES:
+                x, dy, w, b = chip_smoke.k1_bwd_inputs(shape, dev, dtype)
+                rel, _, _ = chip_smoke.k1_bwd_check(x, dy, w, b, groups, 1e-5,
+                                                    silu, per_frame)
+                if max(rel.values()) > chip_smoke.K1_BWD_RMS[dtype]:
+                    bad.append((shape, str(dtype), rel))
+        print(f"[{name}] check cases past K1_BWD_RMS: {bad}", flush=True)
+        if bad:
+            return 1
+    order = list(libs) + list(libs)[::-1]
+    for where, shape, groups, eps, silu, per_frame in chip_smoke.K1_BWD_SHAPES:
+        for dtype in dtypes:
+            x, dy, w, b = chip_smoke.k1_bwd_inputs(shape, dev, dtype)
+            _, mean, inv = groupnorm._launch(x, w, b, groups, eps, silu,
+                                             per_frame, True)
+            times = {n: [] for n in libs}
+            for n in order:
+                _build.library(libs[n])
+                times[n].append(chip_smoke.time_ms(
+                    lambda: groupnorm.group_norm_silu_backward(
+                        dy, x, w, b, mean, inv, silu=silu,
+                        per_frame=per_frame)))
+            for n, t in times.items():
+                print(f"[{n}] {where} {shape} {dtype}: median ms "
+                      f"{statistics.median(t)!r} (in turns: {t})", flush=True)
+            del x, dy, w, b, mean, inv
+            torch.cuda.empty_cache()
+    return 0
+
+
+def main(argv=None) -> int:
     import chip_smoke
     from cvvae_tpu_torch.ops.kernels import _build, conv_int8
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNEL_VARIANTS),
+                    default="K5")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device")
         return 1
     dev = torch.device("cuda", 0)
     print(f"[card] {chip_smoke.nvidia_smi_line()}")
+    source, variants = KERNEL_VARIANTS[args.kernel]
+    if args.kernel == "K1.bwd":
+        with tempfile.TemporaryDirectory() as tmp:
+            with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+                jobs = {n: pool.submit(_build_variant, Path(tmp), i, r,
+                                       source)
+                        for i, (n, r) in enumerate(variants.items())}
+                libs = {n: j.result() for n, j in jobs.items()}
+            return _k1_bwd(libs, dev)
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
             jobs = {n: pool.submit(_build_variant, Path(tmp), i, r)

@@ -134,20 +134,28 @@ FAULTS = {
         "          int row0 = 0;"),
     "SiLU's derivative without its (1 + z(1 - s)) factor": (
         "K1.bwd", "groupnorm_bwd.cu",
-        "  return d * s * (1.f + z * (1.f - s));",
-        "  return d * s;"),
+        ("    return d * s * (1.f + z * (1.f - s));",
+         "    return d * fmaf(0.5f, t, 0.5f) * fmaf(h, 1.f - t, 1.f);"),
+        ("    return d * s;",
+         "    return d * fmaf(0.5f, t, 0.5f);")),
     "the last block's sums dropped from the backward merge": (
         "K1.bwd", "groupnorm_bwd.cu",
-        "for (int k = lane; k < p.n_blocks; k += 32) {",
-        "for (int k = lane; k < p.n_blocks - 1; k += 32) {"),
+        "for (int k = lane; k < p.n_chunks; k += 32) {",
+        "for (int k = lane; k < p.n_chunks - 1; k += 32) {"),
     "the B term (q * (x - mean)) left out of dx": (
         "K1.bwd", "groupnorm_bwd.cu",
-        "fmaf(a[j], dz, fmaf(q[j], xf - m[j], r[j]))",
-        "fmaf(a[j], dz, r[j])"),
+        "      q[j] = qr[2 * ((c0 + j) / cg)];",
+        "      q[j] = 0.f;"),
     "dweight and dbias swapped": (
         "K1.bwd", "groupnorm_bwd.cu",
-        "  dbias[c] = (float)t1;\n  dweight[c] = (float)t2;",
-        "  dbias[c] = (float)t2;\n  dweight[c] = (float)t1;"),
+        "    A.dparams[c] = from_f32<W>((float)t2);\n"
+        "    A.dparams[p.C + c] = from_f32<W>((float)t1);",
+        "    A.dparams[c] = from_f32<W>((float)t1);\n"
+        "    A.dparams[p.C + c] = from_f32<W>((float)t2);"),
+    "the apply pass reading the rows' sums before the grid barrier": (
+        "K1.bwd", "groupnorm_bwd.cu",
+        "  grid.sync();  // the rows' sums are complete",
+        "  // (no barrier: the rows' sums are read as they stand)"),
     "odd output columns copied into the even phase": (
         "K2.bwd", "shuffle_bwd.cu",
         "          ((x & 1) ? po : pe)[(int64_t)(x >> 1) * (n * cv)] = v[u];",

@@ -56,6 +56,33 @@ def test_group_norm_backward_kernel_is_deterministic(dev, dtype):
     assert all(torch.equal(a, c) for a, c in zip(first, again))
 
 
+def test_group_norm_backward_reads_its_inputs_in_place(dev):
+    """K1.bwd reads the forward's statistics at stride 2 and bf16 weight
+    and bias as they are: the same bits from contiguous copies of the
+    statistics, dweight and dbias in bf16 within K1_BWD_RMS of the plain
+    version; a launch is counted by its (B', S, C, SiLU, dtype)."""
+    x, dy, w, b = chip_smoke.k1_bwd_inputs((1, 4, 30, 41, 256), dev,
+                                           torch.bfloat16)
+    w, b = w.bfloat16(), b.bfloat16()
+    _, mean, inv = groupnorm._launch(x, w, b, 32, 1e-6, True, False, True)
+    assert mean.stride() == (64, 2)
+    key = (1, 4 * 30 * 41, 256, True, "bfloat16")
+    before = groupnorm.bwd_launches_by_shape[key]
+    got = groupnorm.group_norm_silu_backward(dy, x, w, b, mean, inv,
+                                             silu=True)
+    again = groupnorm.group_norm_silu_backward(
+        dy, x, w, b, mean.contiguous(), inv.contiguous(), silu=True)
+    torch.cuda.synchronize()
+    assert groupnorm.bwd_launches_by_shape[key] == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3
+    ref = groupnorm.group_norm_silu_backward_plain(dy, x, w, b, mean, inv,
+                                                   silu=True)
+    for g, r in zip(got, ref):
+        assert chip_smoke.compare(g, r)[3] <= \
+            chip_smoke.K1_BWD_RMS[torch.bfloat16]
+
+
 @pytest.mark.parametrize("silu", [False, True])
 def test_group_norm_autograd_reaches_the_kernels(dev, silu):
     """A gradient through K1 launches K1.bwd and reaches x, weight and
