@@ -68,7 +68,9 @@ Phases (each prints its findings; any failure exits non-zero):
    in fp32 and bf16, twice bit-identical, timed in both in turns (with
    ``native_group_norm_backward`` as K1.bwd's library call where there is
    no SiLU); K4.bwd at ``K4_BWD_SHAPES`` (``k4_bwd_check``, twice
-   bit-identical, timed beside SDPA's backward); one G step then one D
+   bit-identical, timed beside SDPA's backward) and at
+   ``K4_BWD_CHECK_SHAPES`` (every width, ragged S; checked, twice
+   bit-identical); one G step then one D
    step of the full-width shipped recipe (random LPIPS) on the card and on
    the CPU from one state and one set of draws (losses, gradient norms,
    parameter updates; every parameter with a nonzero gradient; K1,
@@ -1987,7 +1989,8 @@ def _train_kernels(dev, summary):
     versions, fp32 and bf16; twice bit-identical; timed in both dtypes in
     turns (plain, kernel, kernel, plain, then the library call where there
     is one).  K4.bwd (bf16) at K4_BWD_SHAPES the same way, with SDPA's
-    backward as its library call."""
+    backward as its library call, then checked (not timed) at
+    K4_BWD_CHECK_SHAPES."""
     from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle
 
     def put(key, label, err, ok, text, timing=None):
@@ -2079,6 +2082,15 @@ def _train_kernels(dev, summary):
             (shape, torch.bfloat16, k_ms, p_ms, l_ms, {}))
         del args, lib
         torch.cuda.empty_cache()
+    for shape, rising in K4_BWD_CHECK_SHAPES:
+        args = k4_bwd_inputs(shape, dev, rising)
+        err, excess, text, got = k4_bwd_check(*args)
+        again = attention.flash_attention_backward(*args)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        put("K4.bwd", f"check {tuple(shape)} {torch.bfloat16}"
+            f"{' rising logits' if rising else ''}", err,
+            excess <= 0.0 and same, f"{text}; twice bit-identical {same}")
+        del args, got, again
 
 
 #: phase 8's card-against-CPU training clip (B, T, H, W, 3)

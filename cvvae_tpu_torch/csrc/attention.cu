@@ -104,32 +104,6 @@ struct Layout {
   static constexpr int bytes = x_off + 4 * kBM * kBK * 4 + 1024;
 };
 
-// arrive on the barrier at the same offset in block ``cta`` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
-          "r"(smem_u32(bar)),
-      "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
 // one box of a (D, S, B) tensor seen as (64, S, D/64, B) (make_map): rows
 // [row, row + box rows) of 64-column groups [group, group + box groups)
 // of batch row ``batch``, group after group

@@ -13,25 +13,59 @@
 // and dq products; 0.027 ms at (5, 1024, 512) at 989 TFLOP/s bf16), well
 // above the bytes (q, k, v, o, do in, dq, dk, dv out, 12.5 us there).
 //
-// Simple and right first: bf16 mma.sync m16n8k16 with fp32 accumulators,
-// cp.async double buffering, three launches as the reference has:
-//   1. rowdot: D = rowsum(do∘o) in fp32, one warp a row (a fixed
-//      shuffle tree);
-//   2. dkv: one block of 8 warps per 32-key tile walks every 32-query tile:
-//      each warp recomputes one 16x8 block of the 32x32 tile's logits q·kᵀ
-//      and of do·vᵀ (the whole head width), P = exp2(s·log2e·q·kᵀ −
-//      lse·log2e) and dS = P∘(dP − D) in fp32, rounded to bf16 into shared
-//      memory transposed; then every warp adds Pᵀ·do into dv and dSᵀ·q into
-//      dk over its own D/8 columns (fp32 registers; dk times s at the end);
-//   3. dq: one block per 32-query tile walks every 32-key tile the same
-//      way and adds dS·k into dq over each warp's columns (times s).
-// The head width splits the accumulators by columns, as K4's forward does
-// over two warpgroups: at D = 512 each warp holds 2 x 32 x 64 fp32 of dk
-// and dv.  Shared rows are padded by 16 bytes, so the fragment loads and
-// ldmatrix reads hit 32 distinct banks.  Rows >= S are zero-filled on
-// load, and their P (query or key >= S) is set to 0, so they add nothing;
-// they are not written.  No atomics: each output element is summed by one
-// thread in a fixed order, so two calls give the same bits.
+// Three launches: rowdot (D = rowsum(do∘o) in fp32, one warp a row, a
+// fixed shuffle tree), dkv, then dq.  Unlike the reference, dq does not
+// recompute P and dP: dkv leaves dSᵀ in bf16 in the caller's scratch
+// (B x S' x S', S' = S rounded up to 64, zero where masked), and dq is the
+// product dS·k over it, so 10·B·S²·D FLOP are executed, no atomics.
+//
+// dkv.  Head dim 512 shapes it.  wgmma takes 64 rows a warpgroup, and a
+// 64-key tile's dk and dv at D = 512 are 2 x 64 x 512 fp32, 256 KB: an
+// SM's whole register file.  So D is split over a thread-block cluster:
+// each CTA owns a slice of kSliceCols head-dim columns (64 at D = 64), a
+// cluster has D / slice CTAs (4 at D = 512, 2 at 256, 1 at 128 or 64), and
+// each CTA loads by TMA only its slice of every operand (the forward's
+// 64-column, 128-byte-swizzled boxes of a (B, S, D) tensor seen as
+// (64, S, D/64, B); rows >= S read as zeros).  One cluster per 64-key tile
+// of a batch row walks the 64-query tiles:
+//   - each CTA forms its slice's partials Sᵀ = k·qᵀ and dPᵀ = v·doᵀ, two
+//     64x64 SS wgmma products over the slice, one a warpgroup;
+//   - the exchange (reduce-scatter): the fp32 partials go to the CTA's
+//     exchange buffer; after a cluster barrier rank r reads rows
+//     [64r/C, 64(r+1)/C) of every rank's partials through distributed
+//     shared memory (every load issued before the first sum: one round
+//     trip), sums them in rank order (so every CTA uses the same bits),
+//     forms P = exp2(s·scale·log2e − lse·log2e) and dS = P∘(dP − D) in
+//     fp32, rounds them to bf16, and stores them into every CTA's
+//     128-byte-swizzled operand tiles (and its dSᵀ rows into the scratch;
+//     16-byte stores after a transpose within each quad hit one bank group
+//     four times, so a thread stores its 4-byte pairs).  kReduceScatter
+//     false: every CTA reads all rows and stores only its own, an
+//     all-gather;
+//   - the update: warpgroup 0 adds Pᵀ·do into dv, 1 dSᵀ·q into dk, over
+//     the slice (64 x 128 fp32, 64 registers a thread), SS wgmma with the
+//     walk tile MN-major.
+// The exchange buffers are doubled and the update runs a tile behind, so
+// one cluster barrier a tile suffices: it publishes tile i's partials and
+// tile i-1's P and dS; tile i-1's update and tile i+1's partials then run
+// on the tensor cores while tile i is exchanged.  A walk tile is in use
+// from its partials to its update two tiles later, so the ring holds
+// kStages = 3 tiles, and tile i+2 is loaded as soon as tile i-1's update
+// retires.  Thread 0 issues the TMA loads; the two warpgroups release a
+// stage through an mbarrier.  Shared memory at D = 512: own tiles 32 KB +
+// the walk ring 3 x 32 KB + the exchange 2 x 32 KB + bf16 P and dS 2 x 16
+// KB = 224 KB, one CTA an SM.  What bounds it on the card: the exchange's
+// latency, not the tensor cores (PERF.md §6).
+//
+// dq.  One CTA per 64-query tile and kDqCols head-dim columns (2 at
+// D = 512) walks the key tiles: TMA brings dSᵀ's (64 keys x 64 queries)
+// tile and k's columns into a kDqStages ring, and each warpgroup adds
+// dS·k over half the columns (SS wgmma, dSᵀ read MN-major as A).
+//
+// Keys and queries >= S get P = 0 (the lse of a zero-filled query row is
+// not -inf, so the mask is needed); rows >= S are not written.  dk and dq
+// are multiplied by the scale once.  No atomics: each output element is
+// summed by one thread in a fixed order, so two calls give the same bits.
 #include "common.cuh"
 #include "hopper.cuh"
 #include <math.h>
@@ -39,22 +73,65 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kT = 32;               // queries or keys a tile
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;              // bf16 a shared row is padded by
-constexpr int kLdP = kT + kPad;      // row stride of a 32x32 P or dS tile
+constexpr int kTile = 64;         // rows a tile (wgmma's M), keys or queries
+constexpr int kSliceCols = 128;   // dkv: head-dim columns a CTA owns
+constexpr int kStages = 3;        // dkv: walk tiles in flight
+constexpr int kDqCols = 256;      // dq: head-dim columns a CTA owns
+constexpr int kDqStages = 4;      // dq: key tiles in flight
+constexpr int kThreads = 256;     // two warpgroups; thread 0 also loads
+constexpr int kBox = 64;          // columns a TMA group: 128 swizzled bytes
+// Rank r forms rows [64r/C, 64(r+1)/C) of P and dS for every CTA (false:
+// each CTA forms all of them for itself, an all-gather; a variant of
+// utils/kernel_variants.py --kernel K4.bwd, measured in PERF.md §6).
+constexpr bool kReduceScatter = true;
+
+// tile i+1's partials are issued before tile i-1's update retires, so
+// three walk tiles are in use at once
+static_assert(kStages >= 3, "the partials run a tile ahead of the update");
 
 typedef __nv_bfloat16 bf16;
 
-template <int D>
-struct Tile {
-  static constexpr int ld = D + kPad;      // row stride, elements
-  static constexpr int elems = kT * ld;    // one 32-row tile
+// dkv's shared memory (bytes from a 1024-aligned base).  An operand tile
+// is the slice of 64 rows: (64 x 64)-column groups of 128-byte swizzled
+// rows, group after group.
+template <int SL>
+struct Layout {
+  static constexpr int tile_bytes = kTile * SL * 2;
+  // the own tile's two operands: k, v
+  static constexpr int own_off = 0;
+  // the walk ring: two operands a stage, q and do
+  __host__ __device__ static constexpr int stage_off(int st) {
+    return (2 + 2 * st) * tile_bytes;
+  }
+  // two exchange buffers of fp32 partials of S and dP (xoff)
+  static constexpr int xch_off = (2 + 2 * kStages) * tile_bytes;
+  static constexpr int xch_bytes = 2 * kTile * kTile * 4;
+  // two buffers of the bf16 operand tiles P, then dS, [key][query]
+  static constexpr int pds_off = xch_off + 2 * xch_bytes;
+  static constexpr int pds_bytes = 2 * kTile * kTile * 2;
+  static constexpr int bytes = pds_off + 2 * pds_bytes + 1024;
 };
+static_assert(Layout<kSliceCols>::bytes <= 232448,
+              "more shared memory than a block may have");
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// dq's: a ring of (dSᵀ tile, k's 64 x CW columns) stages
+template <int CW>
+struct DqLayout {
+  static constexpr int ds_bytes = kTile * kTile * 2;
+  static constexpr int stage_bytes = ds_bytes + kTile * CW * 2;
+  static constexpr int bytes = kDqStages * stage_bytes + 1024;
+};
+static_assert(DqLayout<kDqCols>::bytes <= 232448,
+              "more shared memory than a block may have");
+
+// byte offset of slice column c in a (64-row x slice) operand tile
+__host__ __device__ constexpr int col_offset(int c) {
+  return (c / kBox) * kTile * 128 + (c % kBox) * 2;
+}
+
+// the scratch: D (B x S fp32), then dSᵀ (B x S' x S' bf16) from this byte
+__host__ __device__ constexpr int64_t ds_offset(int B, int S) {
+  return ((int64_t)B * S * 4 + 1023) / 1024 * 1024;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -62,106 +139,613 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-// A fragments (16x16) of a row-major shared tile at ``p`` (row 0, the
-// k-step's first column) with row stride ld
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* p,
-                                       int ld, int lane) {
-  const bf16* r = p + (lane / 4) * ld + 2 * (lane % 4);
-  a[0] = ld32(r);
-  a[1] = ld32(r + 8 * ld);
-  a[2] = ld32(r + 8);
-  a[3] = ld32(r + 8 * ld + 8);
-}
-
-// B fragments (16x8) of a row-major [k][n] shared tile: rows k0..k0+15 from
-// ``p``, columns n0..n0+7, transposed by ldmatrix
-__device__ __forceinline__ void frag_b_trans(uint32_t& b0, uint32_t& b1,
-                                             const bf16* p, int ld, int lane) {
+// one box of a (D, S, B) tensor seen as (64, S, D/64, B): 64 rows from
+// ``row`` of the 64-column groups from ``group``, batch row ``batch``,
+// group after group
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int group,
+                                         int batch) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(smem_u32(p + (lane & 15) * ld))
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(row), "r"(group), "r"(batch)
       : "memory");
 }
 
-// rows [r0, r0 + kT) of a (S, D) bf16 matrix into a shared tile; rows >= S
-// read as zeros
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < kT * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r0 + r < S;
-    const bf16* g = src + (int64_t)(ok ? r0 + r : 0) * D + c;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst + r * Tile<D>::ld + c)),
-                 "l"(g), "r"(ok ? 16 : 0)
-                 : "memory");
-  }
+// one (64 queries x 64 keys) box of the scratch's dSᵀ, (S', S', B)
+__device__ __forceinline__ void tma_load_ds(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int query, int key,
+                                            int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(query),
+      "r"(key), "r"(batch)
+      : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// the same shared address in block ``cta`` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(cta));
+  return r;
 }
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+// order generic-proxy accesses of this CTA's shared memory before wgmma's
+// (async-proxy) reads of it: after a thread's stores, and after the
+// cluster barrier that made other CTAs' stores visible.  (The form without
+// a state space also orders global memory, and costs time: a variant of
+// utils/kernel_variants.py.)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of wgmma's registers across its
+// issue and its wait
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the tile's rows' lse (in log2 units) and D; 0 past S
-__device__ __forceinline__ void load_rows(float* lse2_s, float* d_s,
-                                          const float* lse, const float* dvec,
-                                          int r0, int S) {
-  if (threadIdx.x < kT) {
-    const int r = r0 + threadIdx.x;
-    lse2_s[threadIdx.x] = r < S ? lse[r] * kLog2e : 0.f;
-    d_s[threadIdx.x] = r < S ? dvec[r] : 0.f;
-  }
-}
-
-// This warp's 16x8 block of a 32x32 tile of P and dS: query rows
-// m0 + g and m0 + g + 8 of the tile (m0 = 16 * (warp / 4)), keys n0 +
-// 2*t4 and + 1 (n0 = 8 * (warp % 4)), in mma's accumulator order.  The
-// logits q·kᵀ and dP = do·vᵀ over the whole head width from the shared
-// tiles (query rows of qs and dos, key rows of ks and vs), then P =
-// exp2(s·log2e·q·kᵀ − lse·log2e) and dS = P∘(dP − D) in fp32; P is 0 for a
-// query or key past S.
-template <int D>
-__device__ __forceinline__ void probs_and_grads(
-    float (&p)[4], float (&ds)[4], const bf16* qs, const bf16* dos,
-    const bf16* ks, const bf16* vs, const float* lse2_s, const float* d_s,
-    int q0, int k0, int S, float scale_log2, int warp, int lane) {
-  constexpr int ld = Tile<D>::ld;
-  const int g = lane / 4, t4 = lane % 4;
-  const int m0 = 16 * (warp / 4), n0 = 8 * (warp % 4);
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-  const bf16* kb = ks + (n0 + g) * ld + 2 * t4;
-  const bf16* vb = vs + (n0 + g) * ld + 2 * t4;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 16) {
-    uint32_t a[4];
-    frag_a(a, qs + m0 * ld + c, ld, lane);
-    mma(s, a, ld32(kb + c), ld32(kb + c + 8));
-    frag_a(a, dos + m0 * ld + c, ld, lane);
-    mma(dp, a, ld32(vb + c), ld32(vb + c + 8));
-  }
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = m0 + g + 8 * (e >> 1), key = k0 + n0 + 2 * t4 + (e & 1);
-    p[e] = (q0 + r < S && key < S) ? exp2f(s[e] * scale_log2 - lse2_s[r])
-                                   : 0.f;
-    ds[e] = p[e] * (dp[e] - d_s[r]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64x64] (+)= A[64x16] B[16x64], both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64x32] (+)= A[64x16] B[16x32] from shared memory, B MN-major,
+// A K-major (TA 0) or MN-major (TA 1)
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n32_t(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+// D[64x64] (+)= A[64x16] B[16x64] from shared memory, B MN-major,
+// A K-major (TA 0) or MN-major (TA 1)
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n64_t(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+// D[64x128] (+)= A[64x16] B[16x128] from shared memory, B MN-major,
+// A K-major (TA 0) or MN-major (TA 1)
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+
+
+template <int N, int TA>
+__device__ __forceinline__ void wgmma_update(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (N == 32) wgmma_ss_n32_t<TA>(d, da, db, 1);
+  if constexpr (N == 64) wgmma_ss_n64_t<TA>(d, da, db, 1);
+  if constexpr (N == 128) wgmma_ss_n128_t<TA>(d, da, db, 1);
+}
+
+// part[64 x 64] = A·Bᵀ over the slice: A (own rows) and B (walk rows) are
+// operand tiles at shared addresses a and b, both K-major (a descriptor's
+// address field is the byte address / 16, so a column step is a constant
+// added to it)
+template <int SL>
+__device__ __forceinline__ void issue_partial(float (&part)[32], uint32_t a,
+                                              uint32_t b) {
+  uint64_t da = sw128_desc(a, 16, 1024), db = sw128_desc(b, 16, 1024);
+  // opaque to the compiler, which otherwise holds every step's descriptor
+  // in registers
+  asm volatile("" : "+l"(da), "+l"(db));
+#pragma unroll
+  for (int kk = 0; kk < SL / 16; ++kk)
+    wgmma_ss_n64(part, da + (col_offset(16 * kk) >> 4),
+                 db + (col_offset(16 * kk) >> 4), kk > 0);
+}
+
+// acc[64 x N] += A·B over 64 rows: A a bf16 64x64 tile at a, K-major
+// (TA 0: P or dS [key][query]) or MN-major (TA 1: dSᵀ read as dS), B an
+// operand tile from column n0 (at b), MN-major
+template <int N, int TA>
+__device__ __forceinline__ void issue_update(float (&acc)[N / 2], uint32_t a,
+                                             uint32_t b) {
+  uint64_t da = TA ? sw128_desc(a, kTile * 128, 1024) : sw128_desc(a, 16, 1024);
+  uint64_t db = sw128_desc(b, kTile * 128, 1024);
+  asm volatile("" : "+l"(da), "+l"(db));
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_update<N, TA>(acc, da + ((TA ? 16 * 128 * kk : 32 * kk) >> 4),
+                        db + ((16 * 128 * kk) >> 4));
+}
+
+// One of the float4s of the exchange a thread forms: the accumulator
+// registers 4i..4i+3 of lane ``lane`` of warp ``w`` of a warpgroup, i.e.
+// rows 16w + lane/4 (+ 8) and columns 8i + 2(lane%4) (+ 1) of the tile.
+// Item u of thread t is the (u·256 + t)-th of the W warps' float4s from
+// warp ``first``.
+struct Item {
+  int w, i, lane;
+};
+template <int W>
+__device__ __forceinline__ Item item(int u, int t, int first) {
+  const int l = u * kThreads + t;
+  return {first + (l / 32) % W, l / (32 * W), l % 32};
+}
+
+template <int C>
+struct Exchange {
+  // accumulator warps whose rows this CTA forms, and their float4s a thread
+  static constexpr int W = kReduceScatter ? 4 / C : 4;
+};
+
+// byte offset in an exchange buffer of the float4 of partial ``tensor``
+// (0: S, 1: dP) that lane ``lane`` of warp w holds in registers 4j..4j+3
+__device__ constexpr int xoff(int tensor, int w, int j, int lane) {
+  return (((tensor * 4 + w) * 8 + j) * 32 + lane) * 16;
+}
+
+// the logsumexp (log2 units) and D of the queries of this thread's
+// exchange items in the query tile from w0
+template <int C>
+__device__ __forceinline__ void item_rows(float (&lse2)[Exchange<C>::W][2],
+                                          float (&dv)[Exchange<C>::W][2],
+                                          const float* lse, const float* dvec,
+                                          int w0, int S, int first) {
+  constexpr int W = Exchange<C>::W;
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const Item it = item<W>(u, threadIdx.x, first);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int query = w0 + 8 * it.i + 2 * (it.lane % 4) + h;
+      const bool ok = query < S;
+      lse2[u][h] = ok ? __ldg(lse + query) * kLog2e : 0.f;
+      dv[u][h] = ok ? __ldg(dvec + query) : 0.f;
+    }
+  }
+}
+
+// Every rank's partials of this CTA's items from ``xch``: all the loads
+// issued at once (one round trip, waited for where the values are first
+// used)
+template <int C>
+struct Partials {
+  float4 s[Exchange<C>::W][C], dp[Exchange<C>::W][C];
+};
+template <int C>
+__device__ __forceinline__ void load_partials(Partials<C>& x, uint32_t xch,
+                                              int first) {
+  constexpr int W = Exchange<C>::W;
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const Item it = item<W>(u, threadIdx.x, first);
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const uint32_t at = xch + xoff(0, it.w, it.i, it.lane);
+      x.s[u][q] = ld_cluster(cluster_addr(at, q));
+      x.dp[u][q] = ld_cluster(cluster_addr(at + xoff(1, 0, 0, 0), q));
+    }
+  }
+}
+
+// This CTA's share of one tile's exchange, in registers: for each item,
+// the bf16 pairs of P and of dS in rows r and r + 8
+template <int C>
+struct Formed {
+  uint32_t p[Exchange<C>::W][2], ds[Exchange<C>::W][2];
+};
+
+// The loaded partials summed in rank order; P = exp2(s·scale·log2e −
+// lse·log2e), 0 for a key or query >= S, and dS = P∘(dP − D) in fp32,
+// rounded to bf16.
+template <int C>
+__device__ __forceinline__ void form(Formed<C>& f, const Partials<C>& x,
+                                     const float (&lse2)[Exchange<C>::W][2],
+                                     const float (&dv)[Exchange<C>::W][2],
+                                     int r0, int w0, int S, float scale_log2,
+                                     int first) {
+  constexpr int W = Exchange<C>::W;
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const Item it = item<W>(u, threadIdx.x, first);
+    const float4 s0 = x.s[u][0], d0 = x.dp[u][0];
+    float sv[4] = {s0.x, s0.y, s0.z, s0.w};
+    float dpv[4] = {d0.x, d0.y, d0.z, d0.w};
+#pragma unroll
+    for (int q = 1; q < C; ++q) {
+      sv[0] += x.s[u][q].x; sv[1] += x.s[u][q].y;
+      sv[2] += x.s[u][q].z; sv[3] += x.s[u][q].w;
+      dpv[0] += x.dp[u][q].x; dpv[1] += x.dp[u][q].y;
+      dpv[2] += x.dp[u][q].z; dpv[3] += x.dp[u][q].w;
+    }
+    const int row = 16 * it.w + it.lane / 4, col = 8 * it.i + 2 * (it.lane % 4);
+    float pv[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + 8 * (e >> 1), c = col + (e & 1);
+      const bool ok = r0 + r < S && w0 + c < S;
+      pv[e] = ok ? exp2f(sv[e] * scale_log2 - lse2[u][e & 1]) : 0.f;
+      ds[e] = pv[e] * (dpv[e] - dv[u][e & 1]);
+    }
+    f.p[u][0] = pack_bf16(pv[0], pv[1]);
+    f.p[u][1] = pack_bf16(pv[2], pv[3]);
+    f.ds[u][0] = pack_bf16(ds[0], ds[1]);
+    f.ds[u][1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// The formed pairs into the ``pds`` tiles of every CTA of the cluster
+// (all-gather: of this one) at their byte offset in the 128-byte-swizzled
+// operand tiles (16-byte chunk k of row r at k ^ (r % 8); rows r and r + 8
+// share the pattern, and a warp's 32 pairs fall on 32 banks), and dS into
+// the scratch's dSᵀ (all-gather: by rank 0), whose row r0 of this batch
+// row starts at element ``ds_row``, rows S' = ``sp`` long.
+template <int C>
+__device__ __forceinline__ void scatter(const Formed<C>& f, uint32_t pds,
+                                        bf16* ds_t, int64_t ds_row, int sp,
+                                        int w0, int rank, int first) {
+  constexpr int W = Exchange<C>::W;
+  constexpr int kOp = kTile * kTile * 2;  // one bf16 operand tile, bytes
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const Item it = item<W>(u, threadIdx.x, first);
+    const int row = 16 * it.w + it.lane / 4, col = 8 * it.i + 2 * (it.lane % 4);
+#pragma unroll
+    for (int q = 0; q < (kReduceScatter ? C : 1); ++q) {
+      const uint32_t cta = kReduceScatter ? q : rank;
+      const uint32_t at =
+          pds + row * 128 + ((it.i ^ (row & 7)) << 4) + 4 * (it.lane % 4);
+      st_cluster(cluster_addr(at, cta), f.p[u][0]);
+      st_cluster(cluster_addr(at + 8 * 128, cta), f.p[u][1]);
+      st_cluster(cluster_addr(at + kOp, cta), f.ds[u][0]);
+      st_cluster(cluster_addr(at + kOp + 8 * 128, cta), f.ds[u][1]);
+    }
+    if (kReduceScatter || rank == 0) {
+      bf16* d = ds_t + ds_row + (int64_t)row * sp + w0 + col;
+      *reinterpret_cast<uint32_t*>(d) = f.ds[u][0];
+      *reinterpret_cast<uint32_t*>(d + 8 * sp) = f.ds[u][1];
+    }
+  }
+}
+
+// dk and dv of one 64-key tile (cluster x / C) of batch row y over slice
+// ``rank`` of the head dim, and the tile's rows of dSᵀ into the scratch
+template <int SL, int C>
+__global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv(const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_do,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dvec, bf16* __restrict__ ds_t,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                  float scale, float scale_log2) {
+  using L = Layout<SL>;
+  constexpr int D = SL * C;
+  constexpr int W = Exchange<C>::W;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_own, full[kStages], empty[kStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem);
+  const int rank = (int)cluster_rank();
+  const int r0 = (blockIdx.x / C) * kTile, b = blockIdx.y;
+  const int group = rank * SL / kBox;
+  const int n_tiles = (S + kTile - 1) / kTile, sp = n_tiles * kTile;
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int first = kReduceScatter ? rank * W : 0;
+  const float* lse_b = lse + (int64_t)b * S;
+  const float* dvec_b = dvec + (int64_t)b * S;
+  const int64_t ds_row = ((int64_t)b * sp + r0) * sp;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_own, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2);  // one arrival a warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the barriers exist, and every CTA of the cluster runs, before any load
+  // or access of another CTA's shared memory
+  cluster_sync();
+  // walk tile j into stage j % kStages (thread 0)
+  auto load_walk = [&](int j) {
+    const int st = j % kStages;
+    mbar_expect_tx(&full[st], 2 * L::tile_bytes);
+    tma_load(base + L::stage_off(st), &map_q, &full[st], j * kTile, group, b);
+    tma_load(base + L::stage_off(st) + L::tile_bytes, &map_do, &full[st],
+             j * kTile, group, b);
+  };
+  if (threadIdx.x == 0) {
+    prefetch_map(&map_k);
+    prefetch_map(&map_v);
+    prefetch_map(&map_q);
+    prefetch_map(&map_do);
+    mbar_expect_tx(&bar_own, 2 * L::tile_bytes);
+    tma_load(base + L::own_off, &map_k, &bar_own, r0, group, b);
+    tma_load(base + L::own_off + L::tile_bytes, &map_v, &bar_own, r0, group,
+             b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_walk(j);
+  }
+  __syncwarp();
+
+  float acc[SL / 2];
+#pragma unroll
+  for (int i = 0; i < SL / 2; ++i) acc[i] = 0.f;
+  float part[32], lse2[W][2], dvq[W][2];
+  Partials<C> x;
+  Formed<C> f;
+  // warpgroup wg forms the partial of own operand wg (k, v) against walk
+  // operand wg (q, do)
+  const uint32_t own = base + L::own_off + wg * L::tile_bytes;
+  auto xch = [&](int i) { return base + L::xch_off + (i & 1) * L::xch_bytes; };
+  auto pds = [&](int i) { return base + L::pds_off + (i & 1) * L::pds_bytes; };
+  // tile i's partials, issued
+  auto partials = [&](int i) {
+    const int st = i % kStages;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) part[e] = 0.f;
+    mbar_wait(&full[st], (i / kStages) & 1);
+    fence_regs(part);
+    wgmma_fence();
+    issue_partial<SL>(part, own, base + L::stage_off(st) + wg * L::tile_bytes);
+    wgmma_commit();
+  };
+  // tile i's partials, retired, into exchange buffer i % 2; the statistics
+  // of its exchange requested
+  auto publish = [&](int i) {
+    fence_regs(part);
+    unsigned char* x = smem + L::xch_off + (i & 1) * L::xch_bytes;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float4*>(x + xoff(wg, t128 / 32, j, t128 % 32)) =
+          make_float4(part[4 * j], part[4 * j + 1], part[4 * j + 2],
+                      part[4 * j + 3]);
+    item_rows<C>(lse2, dvq, lse_b, dvec_b, i * kTile, S, first);
+  };
+  // tile i's exchange: every rank's partials loaded, P and dS formed
+  auto exchange = [&](int i) {
+    load_partials<C>(x, xch(i), first);
+    form<C>(f, x, lse2, dvq, r0, i * kTile, S, scale_log2, first);
+  };
+  auto store = [&](int i) {
+    scatter<C>(f, pds(i), ds_t, ds_row, sp, i * kTile, rank, first);
+    fence_async();
+  };
+  // tile i's update, issued, once its P and dS are in: warpgroup 0 Pᵀ·do
+  // into dv, 1 dSᵀ·q into dk
+  auto update = [&](int i) {
+    const uint32_t walk = base + L::stage_off(i % kStages);
+    fence_async();
+    fence_regs(acc);
+    wgmma_fence();
+    issue_update<SL, 0>(acc, pds(i) + wg * (L::pds_bytes / 2),
+                        walk + (1 - wg) * L::tile_bytes);
+    wgmma_commit();
+  };
+  // tile i's update retired: its walk stage takes tile i + kStages
+  auto release = [&](int i) {
+    fence_regs(acc);
+    const int st = i % kStages;
+    if (t128 == 0) mbar_arrive(&empty[st]);
+    if (threadIdx.x == 0 && i + kStages < n_tiles) {
+      mbar_wait(&empty[st], (i / kStages) & 1);
+      load_walk(i + kStages);
+    }
+    __syncwarp();
+  };
+
+  // Each cluster barrier publishes tile i's partials and tile i-1's P and
+  // dS.  Then tile i-1's update and tile i+1's partials run on the tensor
+  // cores while tile i is exchanged.  (Each wgmma's issue and wait lie in
+  // one straight run of code: ptxas serialises wgmma where a path could
+  // skip the wait.)
+  mbar_wait(&bar_own, 0);
+  partials(0);
+  wgmma_wait<0>();
+  publish(0);
+  if (n_tiles == 1) {
+    cluster_sync();
+    exchange(0);
+    store(0);
+    cluster_sync();
+    update(0);
+    wgmma_wait<0>();
+    fence_regs(acc);
+  } else {
+    cluster_sync();
+    partials(1);
+    exchange(0);
+    store(0);
+    wgmma_wait<0>();
+    publish(1);
+    for (int i = 1; i + 1 < n_tiles; ++i) {
+      cluster_sync();
+      update(i - 1);
+      partials(i + 1);
+      exchange(i);
+      wgmma_wait<1>();  // tile i-1's update
+      release(i - 1);
+      store(i);
+      wgmma_wait<0>();
+      publish(i + 1);
+    }
+    cluster_sync();
+    update(n_tiles - 2);
+    exchange(n_tiles - 1);
+    store(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    cluster_sync();
+    update(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  // no CTA touches another's shared memory after the last barrier
+
+  // keys < S; warpgroup 0 holds dv, 1 dk (times the scale)
+  const int warp = t128 / 32, lane = threadIdx.x % 32;
+  bf16* out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= S) continue;
+    bf16* p = out + ((int64_t)b * S + row) * D + rank * SL + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < SL / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// dq of one 64-query tile (block x / (D / CW)) over CW head-dim columns
+// (part x % (D / CW)) of batch row y: dS·k over the key tiles from the
+// scratch's dSᵀ, warpgroup w on columns [w·CW/2, (w+1)·CW/2)
+template <int CW>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap map_ds,
+                 const __grid_constant__ CUtensorMap map_k,
+                 bf16* __restrict__ dq, int S, int D, float scale) {
+  using L = DqLayout<CW>;
+  constexpr int NW = CW / 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kDqStages], empty[kDqStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem);
+  const int parts = D / CW, part = blockIdx.x % parts;
+  const int q0 = (blockIdx.x / parts) * kTile, b = blockIdx.y;
+  const int n_tiles = (S + kTile - 1) / kTile;
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2);  // one arrival a warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // key tile j into stage j % kDqStages (thread 0)
+  auto load = [&](int j) {
+    const int st = j % kDqStages;
+    const uint32_t at = base + st * L::stage_bytes;
+    mbar_expect_tx(&full[st], L::stage_bytes);
+    tma_load_ds(at, &map_ds, &full[st], q0, j * kTile, b);
+    tma_load(at + L::ds_bytes, &map_k, &full[st], j * kTile, part * CW / kBox,
+             b);
+  };
+  if (threadIdx.x == 0) {
+    prefetch_map(&map_ds);
+    prefetch_map(&map_k);
+    for (int j = 0; j < kDqStages && j < n_tiles; ++j) load(j);
+  }
+  __syncwarp();
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  // one product in flight while the next is issued; a stage is released
+  // once its product has retired
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kDqStages;
+    const uint32_t at = base + st * L::stage_bytes;
+    mbar_wait(&full[st], (j / kDqStages) & 1);
+    wgmma_fence();
+    issue_update<NW, 1>(acc, at, at + L::ds_bytes + col_offset(wg * NW));
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (j > 0) {
+      const int pst = (j - 1) % kDqStages;
+      if (t128 == 0) mbar_arrive(&empty[pst]);
+      if (threadIdx.x == 0 && j - 1 + kDqStages < n_tiles) {
+        mbar_wait(&empty[pst], ((j - 1) / kDqStages) & 1);
+        load(j - 1 + kDqStages);
+      }
+      __syncwarp();
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int warp = t128 / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= S) continue;
+    bf16* p = dq + ((int64_t)b * S + row) * D + part * CW + wg * NW +
+              2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
   }
 }
 
@@ -170,8 +754,7 @@ __device__ __forceinline__ void probs_and_grads(
 __global__ void __launch_bounds__(kThreads)
     rowdot(const bf16* __restrict__ a, const bf16* __restrict__ b,
            float* __restrict__ out, int64_t rows, int D) {
-  const int64_t row =
-      (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const bf16* pa = a + row * D;
@@ -190,250 +773,104 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) out[row] = acc;
 }
 
-// dk and dv of one 32-key tile (block x) of batch row y
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ dvec, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int S, float scale,
-                  float scale_log2) {
-  constexpr int ld = Tile<D>::ld, elems = Tile<D>::elems;
-  constexpr int CW = D / kWarps, NT = CW / 8;  // a warp's columns, n8 tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + elems;
-  bf16* qs = vs + elems;       // two stages
-  bf16* dos = qs + 2 * elems;  // two stages
-  bf16* pt = dos + 2 * elems;  // P of the tile, [key][query]
-  bf16* dst = pt + kT * kLdP;  // dS of the tile, [key][query]
-  float* lse2_s = reinterpret_cast<float*>(dst + kT * kLdP);  // two stages
-  float* d_s = lse2_s + 2 * kT;                               // two stages
-  const int b = blockIdx.y, k0 = blockIdx.x * kT;
-  const int64_t off = (int64_t)b * S * D;
-  const float* lse_b = lse + (int64_t)b * S;
-  const float* dvec_b = dvec + (int64_t)b * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int n_query_tiles = (S + kT - 1) / kT;
-
-  load_tile<D>(ks, k + off, k0, S);
-  load_tile<D>(vs, v + off, k0, S);
-  load_tile<D>(qs, q + off, 0, S);
-  load_tile<D>(dos, dout + off, 0, S);
-  load_rows(lse2_s, d_s, lse_b, dvec_b, 0, S);
-  cp_commit();
-
-  float acc_v[2][NT][4], acc_k[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_v[mt][nt][e] = acc_k[mt][nt][e] = 0.f;
-
-  for (int it = 0; it < n_query_tiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_query_tiles) {  // the next query tile into the other stage
-      const int r0 = (it + 1) * kT;
-      load_tile<D>(qs + (st ^ 1) * elems, q + off, r0, S);
-      load_tile<D>(dos + (st ^ 1) * elems, dout + off, r0, S);
-      load_rows(lse2_s + (st ^ 1) * kT, d_s + (st ^ 1) * kT, lse_b, dvec_b,
-                r0, S);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qt = qs + st * elems;
-    const bf16* dot = dos + st * elems;
-    float p[4], ds[4];
-    probs_and_grads<D>(p, ds, qt, dot, ks, vs, lse2_s + st * kT,
-                       d_s + st * kT, it * kT, k0, S, scale_log2, warp, lane);
-    {  // transposed into shared memory, [key][query]
-      const int m0 = 16 * (warp / 4), n0 = 8 * (warp % 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + g + 8 * (e >> 1), key = n0 + 2 * t4 + (e & 1);
-        pt[key * kLdP + r] = __float2bfloat16_rn(p[e]);
-        dst[key * kLdP + r] = __float2bfloat16_rn(ds[e]);
-      }
-    }
-    __syncthreads();
-    // dv += Pᵀ·do and dk += dSᵀ·q over this warp's columns
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t ap[2][4], as[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        frag_a(ap[mt], pt + mt * 16 * kLdP + kk * 16, kLdP, lane);
-        frag_a(as[mt], dst + mt * 16 * kLdP + kk * 16, kLdP, lane);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = warp * CW + nt * 8;
-        uint32_t b0, b1;
-        frag_b_trans(b0, b1, dot + kk * 16 * ld + col, ld, lane);
-        mma(acc_v[0][nt], ap[0], b0, b1);
-        mma(acc_v[1][nt], ap[1], b0, b1);
-        frag_b_trans(b0, b1, qt + kk * 16 * ld + col, ld, lane);
-        mma(acc_k[0][nt], as[0], b0, b1);
-        mma(acc_k[1][nt], as[1], b0, b1);
-      }
-    }
-    __syncthreads();  // the stage and P / dS are free for the next tile
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int key = k0 + mt * 16 + g + 8 * h;
-      if (key >= S) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int64_t at = off + (int64_t)key * D + warp * CW + nt * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(dv + at) =
-            pack_bf16(acc_v[mt][nt][2 * h], acc_v[mt][nt][2 * h + 1]);
-        *reinterpret_cast<uint32_t*>(dk + at) =
-            pack_bf16(acc_k[mt][nt][2 * h] * scale,
-                      acc_k[mt][nt][2 * h + 1] * scale);
-      }
-    }
+// a (B, S, D) bf16 tensor seen as (64, S, D/64, B), innermost first, read
+// in boxes of (64, kTile, groups, 1): one load brings ``groups`` 64-column
+// groups of kTile rows, each swizzled in 128-byte rows, group after group;
+// rows past S read as zeros
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int D,
+              int groups) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kBox, (cuuint64_t)S,
+                              (cuuint64_t)D / kBox, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)kBox * 2,
+                                 (cuuint64_t)S * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)kTile,
+                             (cuuint32_t)groups, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// dq of one 32-query tile (block x) of batch row y
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ dvec,
-                 bf16* __restrict__ dq, int S, float scale,
-                 float scale_log2) {
-  constexpr int ld = Tile<D>::ld, elems = Tile<D>::elems;
-  constexpr int CW = D / kWarps, NT = CW / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + elems;
-  bf16* ks = dos + elems;      // two stages
-  bf16* vs = ks + 2 * elems;   // two stages
-  bf16* dss = vs + 2 * elems;  // dS of the tile, [query][key]
-  float* lse2_s = reinterpret_cast<float*>(dss + kT * kLdP);
-  float* d_s = lse2_s + kT;
-  const int b = blockIdx.y, q0 = blockIdx.x * kT;
-  const int64_t off = (int64_t)b * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int n_key_tiles = (S + kT - 1) / kT;
-
-  load_tile<D>(qs, q + off, q0, S);
-  load_tile<D>(dos, dout + off, q0, S);
-  load_rows(lse2_s, d_s, lse + (int64_t)b * S, dvec + (int64_t)b * S, q0, S);
-  load_tile<D>(ks, k + off, 0, S);
-  load_tile<D>(vs, v + off, 0, S);
-  cp_commit();
-
-  float acc_q[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_q[mt][nt][e] = 0.f;
-
-  for (int kt = 0; kt < n_key_tiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_key_tiles) {  // the next key tile into the other stage
-      load_tile<D>(ks + (st ^ 1) * elems, k + off, (kt + 1) * kT, S);
-      load_tile<D>(vs + (st ^ 1) * elems, v + off, (kt + 1) * kT, S);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt_s = ks + st * elems;
-    float p[4], ds[4];
-    probs_and_grads<D>(p, ds, qs, dos, kt_s, vs + st * elems, lse2_s, d_s,
-                       q0, kt * kT, S, scale_log2, warp, lane);
-    {  // into shared memory, [query][key]
-      const int m0 = 16 * (warp / 4), n0 = 8 * (warp % 4);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(dss + (m0 + g + 8 * h) * kLdP + n0 +
-                                     2 * t4) =
-            pack_bf16(ds[2 * h], ds[2 * h + 1]);
-    }
-    __syncthreads();
-    // dq += dS·k over this warp's columns
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        frag_a(a[mt], dss + mt * 16 * kLdP + kk * 16, kLdP, lane);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        frag_b_trans(b0, b1, kt_s + kk * 16 * ld + warp * CW + nt * 8, ld,
-                     lane);
-        mma(acc_q[0][nt], a[0], b0, b1);
-        mma(acc_q[1][nt], a[1], b0, b1);
-      }
-    }
-    __syncthreads();  // the stage and dS are free for the next tile
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + mt * 16 + g + 8 * h;
-      if (row >= S) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        *reinterpret_cast<uint32_t*>(dq + off + (int64_t)row * D + warp * CW +
-                                     nt * 8 + 2 * t4) =
-            pack_bf16(acc_q[mt][nt][2 * h] * scale,
-                      acc_q[mt][nt][2 * h + 1] * scale);
-    }
+// the scratch's dSᵀ, (S' queries, S' keys, B) innermost first, in
+// (64, 64, 1) boxes swizzled in 128-byte rows
+bool make_ds_map(CUtensorMap* map, const void* base, int B, int sp) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)sp, (cuuint64_t)sp, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)sp * 2,
+                                 (cuuint64_t)sp * sp * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kTile, (cuuint32_t)kTile, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// dkv with SL head-dim columns a CTA, C CTAs a cluster (D = SL·C), dq
+// with CW columns a CTA
+template <int SL, int C, int CW>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, const float* lse, float* dvec, bf16* dq,
+           const bf16* dout, const float* lse, void* scratch, bf16* dq,
            bf16* dk, bf16* dv, int B, int S, float scale, cudaStream_t s) {
-  constexpr int tiles_bytes = 6 * Tile<D>::elems * 2;
-  constexpr int dkv_bytes = tiles_bytes + 2 * kT * kLdP * 2 + 4 * kT * 4;
-  constexpr int dq_bytes = tiles_bytes + kT * kLdP * 2 + 2 * kT * 4;
+  using L = Layout<SL>;
+  using LQ = DqLayout<CW>;
+  constexpr int D = SL * C;
+  const int n_tiles = (S + kTile - 1) / kTile, sp = n_tiles * kTile;
+  float* dvec = static_cast<float*>(scratch);
+  bf16* ds_t = reinterpret_cast<bf16*>(static_cast<char*>(scratch) +
+                                       ds_offset(B, S));
+  CUtensorMap mq, mk, mv, mdo, mds, mkq;
+  if (!make_map(&mq, q, B, S, D, SL / kBox) ||
+      !make_map(&mk, k, B, S, D, SL / kBox) ||
+      !make_map(&mv, v, B, S, D, SL / kBox) ||
+      !make_map(&mdo, dout, B, S, D, SL / kBox) ||
+      !make_map(&mkq, k, B, S, D, CW / kBox) ||
+      !make_ds_map(&mds, ds_t, B, sp))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_bytes);
+      flash_bwd_dkv<SL, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::bytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_bwd_dq<D>,
+    e = cudaFuncSetAttribute(flash_bwd_dq<CW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_bytes);
+                             LQ::bytes);
   if (e != cudaSuccess) return (int)e;
   const int64_t rows = (int64_t)B * S;
-  rowdot<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+  constexpr int warps = kThreads / 32;
+  rowdot<<<(unsigned)((rows + warps - 1) / warps), kThreads, 0, s>>>(
       dout, o, dvec, rows, D);
-  const float scale_log2 = scale * kLog2e;
-  const dim3 grid((S + kT - 1) / kT, B);
-  flash_bwd_dkv<D><<<grid, kThreads, dkv_bytes, s>>>(
-      q, k, v, dout, lse, dvec, dk, dv, S, scale, scale_log2);
-  flash_bwd_dq<D><<<grid, kThreads, dq_bytes, s>>>(q, k, v, dout, lse, dvec,
-                                                   dq, S, scale, scale_log2);
+  flash_bwd_dkv<SL, C><<<dim3(C * n_tiles, B), kThreads, L::bytes, s>>>(
+      mk, mv, mq, mdo, lse, dvec, ds_t, dk, dv, S, scale, scale * kLog2e);
+  flash_bwd_dq<CW><<<dim3(D / CW * n_tiles, B), kThreads, LQ::bytes, s>>>(
+      mds, mkq, dq, S, D, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_width(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                 const bf16* dout, const float* lse, void* scratch, bf16* dq,
+                 bf16* dk, bf16* dv, int B, int S, float scale,
+                 cudaStream_t s) {
+  constexpr int SL = D < kSliceCols ? D : kSliceCols;
+  constexpr int CW = D < kDqCols ? D : kDqCols;
+  return launch<SL, D / SL, CW>(q, k, v, o, dout, lse, scratch, dq, dk, dv,
+                                B, S, scale, s);
 }
 
 }  // namespace
 
 // q, k, v, o, dout, dq, dk, dv: (B, S, D) contiguous, 16-byte aligned, bf16;
-// lse: (B, S) fp32, K4's logsumexp; dvec: (B, S) fp32 scratch for D.
+// lse: (B, S) fp32, K4's logsumexp; scratch: 1024-byte aligned, D's
+// B x S fp32, then from byte ceil(4·B·S / 1024)·1024 dSᵀ's B x S' x S'
+// bf16, S' = S rounded up to a multiple of 64.
 CVVAE_EXPORT int cvvae_flash_attention_bwd(const void* q, const void* k,
                                            const void* v, const void* o,
                                            const void* dout, const void* lse,
-                                           void* dvec, void* dq, void* dk,
+                                           void* scratch, void* dq, void* dk,
                                            void* dv, int B, int S, int D,
                                            float scale, int dtype, int device,
                                            void* stream) {
@@ -443,10 +880,10 @@ CVVAE_EXPORT int cvvae_flash_attention_bwd(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
 #define CVVAE_K4_BWD(W)                                                      \
   case W:                                                                    \
-    return launch<W>((const bf16*)q, (const bf16*)k, (const bf16*)v,        \
-                     (const bf16*)o, (const bf16*)dout, (const float*)lse,  \
-                     (float*)dvec, (bf16*)dq, (bf16*)dk, (bf16*)dv, B, S,   \
-                     scale, s);
+    return launch_width<W>((const bf16*)q, (const bf16*)k, (const bf16*)v,  \
+                           (const bf16*)o, (const bf16*)dout,               \
+                           (const float*)lse, scratch, (bf16*)dq,           \
+                           (bf16*)dk, (bf16*)dv, B, S, scale, s);
   switch (D) {
     CVVAE_K4_BWD(64)
     CVVAE_K4_BWD(128)

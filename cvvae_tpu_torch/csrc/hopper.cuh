@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the kernels that load with TMA into
-// mbarrier rings and multiply with wgmma (attention.cu, conv_int8.cu):
-// shared-memory addresses, mbarriers, tensor maps, wgmma descriptors and
-// the wgmma fence, commit and wait.
+// mbarrier rings and multiply with wgmma (attention.cu, attention_bwd.cu,
+// conv_int8.cu): shared-memory addresses, mbarriers, tensor maps, wgmma
+// descriptors, the wgmma fence, commit and wait, and the thread-block
+// cluster's rank, barrier and remote mbarrier arrival.
 #pragma once
 
 #include <cuda.h>
@@ -83,6 +84,32 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// arrive on the barrier at the same offset in block ``cta`` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
+          "r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library

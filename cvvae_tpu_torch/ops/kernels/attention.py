@@ -26,10 +26,16 @@ needs a gradient, K4 also writes each query row's logsumexp of its scaled
 logits (fp32, (B, S), natural log, taken against the running max its row
 sum was accumulated with); the serving launch passes no buffer for it.
 The backward launches K4.bwd (``csrc/attention_bwd.cu``): D =
-rowsum(dO∘O) in fp32, then one block per 32-key tile for dk and dv and
-one per 32-query tile for dq, P recomputed from the logsumexp, dS =
-P∘(dP − D) in fp32, bf16 ``mma.sync`` products accumulated in fp32, no
-atomics (two calls give the same bits).  Bound: 10·B·S²·C FLOP.
+rowsum(dO∘O) in fp32; dkv, a thread-block cluster per 64-key tile that
+splits C into slices of 128 columns (4 CTAs at C = 512,
+``backward_plan``), each CTA forming its slice's partial logits and dP
+with wgmma (operands by TMA into mbarrier rings), the
+partials summed across the cluster in rank order through distributed
+shared memory, P recomputed from the logsumexp and dS = P∘(dP − D) in
+fp32, dv += Pᵀ·dO and dk += dSᵀ·Q over the slice; dkv leaves dSᵀ in bf16
+in a scratch buffer, and dq is the wgmma product dS·K over it.  No
+atomics (two calls give the same bits).  Bound: 10·B·S²·C FLOP, which is
+also what it executes.
 
 The plain versions are the port's exact attention and its gradient
 (``ops/exact_attention.py``): fp32 logits and softmax, weights cast to
@@ -54,6 +60,47 @@ WIDTHS = (64, 128, 256, 512)
 #: launches of K4 and of its backward K4.bwd (the CPU path does not count)
 launches = 0
 bwd_launches = 0
+
+#: K4.bwd's schedule, read from its source: rows a tile; dkv's head-dim
+#: columns a CTA and walk tiles in flight; dq's columns a CTA and key tiles
+#: in flight; threads a CTA
+(BWD_TILE, BWD_SLICE, BWD_STAGES, BWD_DQ_COLS, BWD_DQ_STAGES,
+ BWD_THREADS) = _build.constants(
+    "attention_bwd.cu", "kTile", "kSliceCols", "kStages", "kDqCols",
+    "kDqStages", "kThreads")
+#: shared memory one block may have on an H100
+SMEM_LIMIT = 232448
+
+
+def backward_plan(b: int, s: int, c: int, slice_cols: int = BWD_SLICE,
+                  stages: int = BWD_STAGES) -> dict:
+    """K4.bwd's launches as ``csrc/attention_bwd.cu`` makes them for
+    (B, S, C) inputs.
+
+    dkv: each CTA owns ``slice`` head-dim columns (C where C <
+    ``slice_cols``), a cluster of ``cluster`` = C / slice CTAs takes one
+    64-key tile: grid (cluster · tiles, B), rank r = x mod cluster on
+    columns [r·slice, (r+1)·slice); ``smem``: its ``Layout`` (the own
+    tile, ``stages`` walk tiles, two fp32 exchange buffers, two bf16 P/dS
+    buffers, 1 KB for alignment).  dq: ``dq_cols`` columns a CTA, grid
+    (C / dq_cols · tiles, B), ``dq_smem`` its ring.  ``scratch_bytes``:
+    D (B·S fp32, rounded up to 1 KB), then dSᵀ (B·S'·S' bf16, S' = 64 ·
+    tiles), which dkv writes and dq reads."""
+    sl = min(c, slice_cols)
+    cw = min(c, BWD_DQ_COLS)
+    tiles = -(-s // BWD_TILE)
+    sp = tiles * BWD_TILE
+    tile_bytes = BWD_TILE * sl * 2
+    exchange = 2 * BWD_TILE * BWD_TILE * 4
+    operands = 2 * BWD_TILE * BWD_TILE * 2
+    return {"slice": sl, "cluster": c // sl, "tiles": tiles,
+            "grid": (c // sl * tiles, b), "threads": BWD_THREADS,
+            "smem": (2 + 2 * stages) * tile_bytes + 2 * exchange
+            + 2 * operands + 1024,
+            "dq_cols": cw, "dq_grid": (c // cw * tiles, b),
+            "dq_smem": BWD_DQ_STAGES * BWD_TILE * (BWD_TILE + cw) * 2
+            + 1024,
+            "scratch_bytes": -(-b * s * 4 // 1024) * 1024 + b * sp * sp * 2}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,7 +200,8 @@ def flash_attention_backward(q, k, v, o, do, lse, scale: float):
     """K4.bwd (``csrc/attention_bwd.cu``): (dq, dk, dv) in bf16 of
     contiguous CUDA (B, S, C) bf16 q, k, v, the forward's output ``o`` and
     its gradient ``do``, and the (B, S) fp32 logsumexp K4 wrote.  A CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.  The kernel's scratch (D, then dSᵀ:
+    B·S'² bf16, S' = S rounded up to 64) is allocated here."""
     global bwd_launches
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, do, lse, scale)
@@ -165,10 +213,11 @@ def flash_attention_backward(q, k, v, o, do, lse, scale: float):
         raise ValueError("flash_attention_backward: lse must be the "
                          "forward's contiguous (B, S) fp32 logsumexp")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dvec = torch.empty((b, s), device=q.device, dtype=torch.float32)
+    scratch = torch.empty(backward_plan(b, s, c)["scratch_bytes"],
+                          device=q.device, dtype=torch.uint8)
     rc = _build.library().cvvae_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, c, float(scale), _build.DTYPE_CODES[q.dtype],
         q.device.index or 0, _build.stream_of(q))
     _build.check(rc, "flash_attention_backward")

@@ -1,6 +1,6 @@
 """Time variants of a hand-written kernel's source on the card.
 
-    python -m cvvae_tpu_torch.utils.kernel_variants [--kernel K5|K1.bwd]
+    python -m cvvae_tpu_torch.utils.kernel_variants [--kernel K5|K1.bwd|K4.bwd]
 
 Each variant is ``csrc/`` copied into a temporary directory with some
 text of one source replaced, built (all side by side) and made the
@@ -16,11 +16,20 @@ library the wrappers launch (``_build.library(path)``).
   then timed at each of ``chip_smoke.K1_BWD_SHAPES`` in fp32 and bf16, in
   turns, twice.  Prints the registers and spills of its bf16 and fp32
   kernels with SiLU.
+- K4.bwd: every variant is first held to ``chip_smoke.K4_BWD_MAX`` and
+  ``K4_BWD_RMS`` of the plain version at ``chip_smoke.K4_BWD_CHECK_SHAPES``
+  and ``K4_BWD_SHAPES``, then timed at ``K4_BWD_SHAPES``, in turns,
+  twice.  Prints the registers and spills of its dkv and dq kernels at
+  every width, and the shared memory that a cluster of 2 at C = 512 and a
+  fourth walk stage would need (``attention.backward_plan``; neither fits,
+  and two stages deadlock: the partials run a tile ahead of the update,
+  so three walk tiles are in use at once; none of them is a variant).
 
 Needs a CUDA card and nvcc; imports nothing of JAX.  ``VARIANTS`` (K5,
-``csrc/conv_int8.cu``) and ``K1_BWD_VARIANTS`` (``csrc/groupnorm_bwd.cu``)
-hold each kernel's design choices undone one at a time, so that each
-choice's effect is measured in one call.
+``csrc/conv_int8.cu``), ``K1_BWD_VARIANTS`` (``csrc/groupnorm_bwd.cu``)
+and ``K4_BWD_VARIANTS`` (``csrc/attention_bwd.cu``) hold each kernel's
+design choices undone one at a time, so that each choice's effect is
+measured in one call.
 """
 
 from __future__ import annotations
@@ -71,9 +80,28 @@ K1_BWD_VARIANTS = {
         ("    for_rows<T, V, true>(", "    for_rows<T, V, false>(")],
 }
 
+#: name -> [(text of csrc/attention_bwd.cu, its replacement), ...]
+K4_BWD_VARIANTS = {
+    "as committed": [],
+    "the next partials after the exchange": [
+        ("      update(i - 1);\n      partials(i + 1);\n      exchange(i);\n"
+         "      wgmma_wait<1>();  // tile i-1's update\n      release(i - 1);\n"
+         "      store(i);\n",
+         "      update(i - 1);\n      exchange(i);\n"
+         "      wgmma_wait<0>();  // tile i-1's update\n      release(i - 1);\n"
+         "      store(i);\n      partials(i + 1);\n")],
+    "all-gather exchange": [
+        ("constexpr bool kReduceScatter = true;",
+         "constexpr bool kReduceScatter = false;")],
+    "proxy fences of every state space": [
+        ('  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");',
+         '  asm volatile("fence.proxy.async;\\n" ::: "memory");')],
+}
+
 #: each kernel's variants: (source, variants)
 KERNEL_VARIANTS = {"K5": ("conv_int8.cu", VARIANTS),
-                   "K1.bwd": ("groupnorm_bwd.cu", K1_BWD_VARIANTS)}
+                   "K1.bwd": ("groupnorm_bwd.cu", K1_BWD_VARIANTS),
+                   "K4.bwd": ("attention_bwd.cu", K4_BWD_VARIANTS)}
 
 
 def _build_variant(tmp: Path, i: int, replacements, source="conv_int8.cu"):
@@ -144,6 +172,57 @@ def _k1_bwd(libs, dev) -> int:
     return 0
 
 
+def _k4_bwd(libs, dev) -> int:
+    """K4.bwd's variants: held to K4_BWD_MAX / K4_BWD_RMS at
+    K4_BWD_CHECK_SHAPES and K4_BWD_SHAPES, then timed at K4_BWD_SHAPES in
+    turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, attention
+
+    for label, kw in (("cluster of 2 at C=512", dict(slice_cols=256)),
+                      ("4 walk stages", dict(stages=4))):
+        p = attention.backward_plan(8, 1600, 512, **kw)
+        print(f"[{label}] shared memory {p['smem']} bytes > "
+              f"{attention.SMEM_LIMIT}: does not fit")
+    for name, lib in libs.items():
+        log = (lib.parent / "build.log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling" in line and "flash_bwd_d" in line:
+                info = [s for s in log[i:i + 4]
+                        if "spill" in s or "Used" in s][:2]
+                kernel = line.split("flash_bwd_")[1].split("EEEv")[0]
+                print(f"[{name}] {kernel}: " + " | ".join(
+                    s.split(":", 1)[-1].strip() for s in info))
+        _build.library(lib)
+        bad = []
+        for shape, rising in (chip_smoke.K4_BWD_CHECK_SHAPES
+                              + chip_smoke.K4_BWD_SHAPES):
+            args = chip_smoke.k4_bwd_inputs(shape, dev, rising)
+            _, excess, text, _ = chip_smoke.k4_bwd_check(*args)
+            if excess > 0.0:
+                bad.append((shape, text))
+            del args
+            torch.cuda.empty_cache()
+        print(f"[{name}] cases past K4_BWD_MAX / K4_BWD_RMS: {bad}",
+              flush=True)
+        if bad:
+            return 1
+    order = list(libs) + list(libs)[::-1]
+    for shape, rising in chip_smoke.K4_BWD_SHAPES:
+        args = chip_smoke.k4_bwd_inputs(shape, dev, rising)
+        times = {n: [] for n in libs}
+        for n in order:
+            _build.library(libs[n])
+            times[n].append(chip_smoke.time_ms(
+                lambda: attention.flash_attention_backward(*args), 10))
+        for n, t in times.items():
+            print(f"[{n}] {shape}{' rising' if rising else ''}: median ms "
+                  f"{statistics.median(t)!r} (in turns: {t})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
     import chip_smoke
     from cvvae_tpu_torch.ops.kernels import _build, conv_int8
@@ -158,14 +237,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"[card] {chip_smoke.nvidia_smi_line()}")
     source, variants = KERNEL_VARIANTS[args.kernel]
-    if args.kernel == "K1.bwd":
+    if args.kernel in ("K1.bwd", "K4.bwd"):
         with tempfile.TemporaryDirectory() as tmp:
             with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
                 jobs = {n: pool.submit(_build_variant, Path(tmp), i, r,
                                        source)
                         for i, (n, r) in enumerate(variants.items())}
                 libs = {n: j.result() for n, j in jobs.items()}
-            return _k1_bwd(libs, dev)
+            run = _k1_bwd if args.kernel == "K1.bwd" else _k4_bwd
+            return run(libs, dev)
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
             jobs = {n: pool.submit(_build_variant, Path(tmp), i, r)

@@ -179,18 +179,28 @@ FAULTS = {
          "(m_first[h] + log2f(l[h])) * kLn2")),
     "D left out of dS": (
         "K4.bwd", "attention_bwd.cu",
-        "    ds[e] = p[e] * (dp[e] - d_s[r]);",
-        "    ds[e] = p[e] * dp[e];"),
+        "      ds[e] = pv[e] * (dpv[e] - dv[u][e & 1]);",
+        "      ds[e] = pv[e] * dpv[e];"),
     "the scale applied twice to dq": (
         "K4.bwd", "attention_bwd.cu",
-        "            pack_bf16(acc_q[mt][nt][2 * h] * scale,\n"
-        "                      acc_q[mt][nt][2 * h + 1] * scale);",
-        "            pack_bf16(acc_q[mt][nt][2 * h] * scale * scale,\n"
-        "                      acc_q[mt][nt][2 * h + 1] * scale * scale);"),
+        "          pack_bf16(acc[4 * j + 2 * h] * scale, "
+        "acc[4 * j + 2 * h + 1] * scale);",
+        "          pack_bf16(acc[4 * j + 2 * h] * scale * scale,\n"
+        "                    acc[4 * j + 2 * h + 1] * scale * scale);"),
     "dq's last key tile skipped": (
         "K4.bwd", "attention_bwd.cu",
-        "  const int n_key_tiles = (S + kT - 1) / kT;",
-        "  const int n_key_tiles = (S - 1) / kT;"),
+        "  const int q0 = (blockIdx.x / parts) * kTile, b = blockIdx.y;\n"
+        "  const int n_tiles = (S + kTile - 1) / kTile;",
+        "  const int q0 = (blockIdx.x / parts) * kTile, b = blockIdx.y;\n"
+        "  const int n_tiles = (S - 1) / kTile;"),
+    "the last cluster rank's partial left out of the sum": (
+        "K4.bwd", "attention_bwd.cu",
+        "    for (int q = 1; q < C; ++q) {\n      sv[0] += x.s[u][q].x;",
+        "    for (int q = 1; q < C - 1; ++q) {\n      sv[0] += x.s[u][q].x;"),
+    "every cluster rank loading rank 0's head-dim slice": (
+        "K4.bwd", "attention_bwd.cu",
+        "  const int group = rank * SL / kBox;",
+        "  const int group = 0;"),
 }
 
 
