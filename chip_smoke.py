@@ -64,7 +64,8 @@ Phases (each prints its findings; any failure exits non-zero):
    with a non-VAE key; an int8 /reconstruct served from --vae_path equal
    to the one served from the same seed.
 8. train   -- K1.bwd and K2.bwd at the SD3 training path's shapes
-   (``K1_BWD_SHAPES``, ``K2_BWD_SHAPES``) against their plain versions
+   (``K1_BWD_SHAPES``, ``K2_BWD_SHAPES``; K2.bwd's d(bias) within the
+   bound of ``shuffle.bwd_plan``) against their plain versions
    in fp32 and bf16, twice bit-identical, timed in both in turns (with
    ``native_group_norm_backward`` as K1.bwd's library call where there is
    no SiLU); K4.bwd at ``K4_BWD_SHAPES`` (``k4_bwd_check``, twice
@@ -85,7 +86,13 @@ Phases (each prints its findings; any failure exits non-zero):
    shape, peak memory, finite losses, launches a step, and a checkpoint
    written and reloaded (fp32); for the first G and D step of each batch
    kind, K1.bwd's launches by (B', S, C, SiLU, dtype) and their sum of
-   launches x the kernel's time at each of those shapes.
+   launches x the kernel's time at each of those shapes.  K3.bwd at
+   ``K3_BWD_SHAPES`` (fp32 and bf16, held to the float64 sums within its
+   plan's bound, twice bit-identical, timed beside its plain version and
+   a yardstick); v1 (``v1_engine_config``): one G and one D step card
+   against CPU as for SD3 (K3 and K3.bwd launched), then bf16 G and D
+   steps on the shipped clip and images (``TRAIN_V1_BATCHES``, each pair
+   twice) from the same engine: wall s, peak memory, launches.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served and streamed paths, and at each
@@ -417,6 +424,11 @@ KERNELS = {
     "K2.bwd": dict(name="subpixel_interleave_backward", route="cuda",
                    source="cvvae_tpu_torch/csrc/shuffle_bwd.cu",
                    replaces="cvvae_tpu/ops/pallas/shuffle.py:148"),
+    # no Pallas kernel: the reference's gradient of the stem conv is XLA's
+    # autodiff of its stacked-stem lowering
+    "K3.bwd": dict(name="stem_conv3d_backward", route="cuda",
+                   source="cvvae_tpu_torch/csrc/stem_bwd.cu",
+                   replaces="cvvae_tpu/ops/conv.py:234"),
     # the stock flash attention's backward: its custom_vjp's two Pallas
     # kernels, _flash_attention_bwd_dkv (pallas_call
     # jax/experimental/pallas/ops/tpu/flash_attention.py:1121) and
@@ -440,6 +452,7 @@ COUNTERS = {**{k: (k, "launches") for k in ("K1", "K2", "K3", "K4", "K5")},
             "K5.stage": ("K5", "stage_launches"),
             "K1.bwd": ("K1", "bwd_launches"),
             "K2.bwd": ("K2", "bwd_launches"),
+            "K3.bwd": ("K3", "bwd_launches"),
             "K4.bwd": ("K4", "bwd_launches")}
 
 
@@ -805,7 +818,9 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     shape: one of the four phases (B, T, H, W, n*c); where n > 1 the
     output drops the first of its n*T frames; one add an output element.  K3 shape (B, T,
     H, W, Cin) -> ``cout`` channels at the same extent; 2*27*Cin FLOP an
-    output element.  K4 shape (B, S, D): q, k, v in, out out; 4*B*S^2*D
+    output element.  K3.bwd shape x (B, T, H, W, Cin), dy at the same extent
+    with ``cout`` channels: x and dy in, dW and dbias out; 2*27*Cin FLOP a
+    dy element.  K4 shape (B, S, D): q, k, v in, out out; 4*B*S^2*D
     FLOP.  K4.bwd shape (B, S, D): q, k, v, o and dO in, dq, dk and dv
     out, and each row's fp32 logsumexp and D; 10*B*S^2*D FLOP (the logits,
     dO*V^T, dV, dK and dQ products).  K5 shape (B, T, H, W, Cin), a ``kernel`` at ``stride`` with
@@ -827,6 +842,10 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
         out = 4 * numel * (shape[1] * n - (n > 1)) // (shape[1] * n)
         return (4 * numel + out) * e + shape[-1] * 4, out
     if key == "K3":
+        out = numel // shape[-1] * cout
+        w = 27 * shape[-1] * cout + cout
+        return (numel + out + w) * e, out * 2 * 27 * shape[-1]
+    if key == "K3.bwd":  # x and dy in, dW and dbias out; same extents
         out = numel // shape[-1] * cout
         w = 27 * shape[-1] * cout + cout
         return (numel + out + w) * e, out * 2 * 27 * shape[-1]
@@ -1830,6 +1849,16 @@ K1_BWD_SHAPES = [
 #: shape, n)
 K2_BWD_SHAPES = [((1, 5, 32, 32, 1024), 2), ((1, 9, 64, 64, 512), 1),
                  ((1, 9, 128, 128, 512), 2)]
+#: K3.bwd's shapes on the v1 training path: the encoder's conv_in (3 ->
+#: 128, causal edge time) on the shipped clip and images, x (B, T, H, W)
+K3_BWD_SHAPES = [("v1 conv_in on the clip", (1, 17, 256, 256)),
+                 ("v1 conv_in on the images", (8, 1, 320, 320))]
+#: K3.bwd's small checks (padding, (B, T, H, W)), Cin 3, held by
+#: ``k3_bwd_check`` in the card tests and planted_faults.py: W ragged
+#: against the 64-pixel tile and against 3 (70, 130, 37), T = 1, every
+#: padding kind
+K3_BWD_CHECK_SHAPES = [("edge", (1, 5, 9, 70)), ("edge", (2, 1, 7, 130)),
+                       ("zero", (1, 4, 6, 66)), ("none", (1, 5, 6, 37))]
 #: K1.bwd against its plain version on the same inputs and saved
 #: statistics, ||d|| / ||ref|| of dx, dweight and dbias apart: fp32 (both
 #: sum in fp32, in other orders; the merges in double), bf16 (both compute
@@ -1942,9 +1971,10 @@ def k1_bwd_check(x, dy, w, b, groups, eps, silu, per_frame):
 def k2_bwd_check(dy, n, t, with_bias, drop_first=True):
     """K2.bwd against its plain version: (phases bit-equal, excess of
     d(bias) over its bound, kernel's (phases, dbias)).  d(bias) is held to
-    the float64 sum within the bound of recursive fp32 summation: each
-    thread adds at most ``terms`` values in fp32, (terms - 1) * 2^-24 *
-    sum|dy| of the channel, then one rounding of the result."""
+    the float64 sum within the bound of its fixed-order summation
+    (``shuffle.bwd_plan``): each term passes through at most
+    ``bias_adds`` fp32 roundings, bias_adds * 2^-24 * sum|dy| of the
+    channel, then one rounding of the result."""
     from cvvae_tpu_torch.ops.kernels import shuffle
     phases, db = shuffle.subpixel_interleave_backward(
         dy, n=n, t=t, drop_first=drop_first, with_bias=with_bias)
@@ -1954,10 +1984,10 @@ def k2_bwd_check(dy, n, t, with_bias, drop_first=True):
     excess = 0.0
     if with_bias:
         b, _, h2, w2, c = dy.shape
-        plan = shuffle.launch_plan(
-            [dy] + phases, None, c, b * n * t * h2,
-            torch.cuda.get_device_properties(dy.device).multi_processor_count)
-        terms = (-(-(b * n * t * h2) // plan["grid"])) * (-(-w2 // plan["by"]))
+        plan = shuffle.bwd_plan(
+            b, t, h2 // 2, w2 // 2, c, n, dy.element_size(),
+            torch.cuda.get_device_properties(dy.device).multi_processor_count,
+            all(p.data_ptr() % 16 == 0 for p in [dy] + phases))
         full = dy.double()
         if n > 1 and drop_first:
             full = torch.cat([full.new_zeros((b, 1) + tuple(dy.shape[2:])),
@@ -1965,9 +1995,61 @@ def k2_bwd_check(dy, n, t, with_bias, drop_first=True):
         full = full.reshape(b, t, n, h2, w2, c)
         want = full.sum(dim=(0, 1, 3, 4)).reshape(-1)
         mag = full.abs().sum(dim=(0, 1, 3, 4)).reshape(-1)
-        tol = (terms - 1) * 2.0 ** -24 * mag + 2.0 ** -24 * want.abs()
+        tol = plan["bias_adds"] * 2.0 ** -24 * mag + 2.0 ** -24 * want.abs()
         excess = ((db.double() - want).abs() - tol).max().item()
     return exact, excess, (phases, db)
+
+
+def k3_bwd_excess(dw, db, x, dy, spec, terms):
+    """(largest |got - exact| / max|exact| of dW and dbias, excess over the
+    bound) of K3.bwd's (dw, db) for (x, dy, spec) against the float64
+    sums: |got - exact| <= terms * 2^-24 * sum|x * dy| + 2^-24 * |exact|
+    (dbias: sum|dy|), ``terms`` from ``stem.bwd_plan``."""
+    from cvvae_tpu_torch.ops.kernels.stem import stem_conv3d_backward_plain
+    x64, dy64 = x.double(), dy.double()
+    want = stem_conv3d_backward_plain(x64, dy64, spec)
+    mag = stem_conv3d_backward_plain(x64.abs(), dy64.abs(), spec)
+    del x64, dy64
+    worst, excess = 0.0, -math.inf
+    for got, ref, m in zip((dw, db), want, mag):
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            return math.inf, math.inf
+        d = (got.double() - ref).abs()
+        tol = terms * 2.0 ** -24 * m + 2.0 ** -24 * ref.abs()
+        excess = max(excess, (d - tol).max().item())
+        worst = max(worst, d.max().item() / ref.abs().max().item())
+    return worst, excess
+
+
+def k3_bwd_check(x, dy, spec):
+    """K3.bwd against the float64 sums within its plan's bound
+    (``k3_bwd_excess``): (worst relative error, excess, text, the
+    kernel's (dw, db))."""
+    from cvvae_tpu_torch.ops.kernels import stem
+    dw, db = stem.stem_conv3d_backward(x, dy, spec)
+    plan = stem.bwd_plan(*dy.shape[:4], torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    worst, excess = k3_bwd_excess(dw, db, x, dy, spec, plan["terms"])
+    return worst, excess, (f"max|d|/max|exact| {worst!r}, excess over "
+                           f"{plan['terms']}*2^-24*sum|x dy|+2^-24*|exact| "
+                           f"{excess!r}"), (dw, db)
+
+
+def stem_backward_yardstick(x, dy, spec):
+    """The yardstick of K3.bwd: the edge pad materialised (``F.pad``
+    replicate) and ``torch.nn.grad.conv3d_weight`` on it, two calls;
+    no one PyTorch call computes the function."""
+    (t0, t1), (h0, h1), (w0, w1) = spec.pads
+    xn = x.permute(0, 4, 1, 2, 3)
+    dyn = dy.permute(0, 4, 1, 2, 3)
+    shape = (dy.shape[-1], x.shape[-1], 3, 3, 3)
+    mode = "replicate" if spec.modes[0] == "edge" else "constant"
+
+    def call():
+        xp = torch.nn.functional.pad(xn, (0, 0, 0, 0, t0, t1), mode=mode)
+        return torch.nn.grad.conv3d_weight(xp, shape, dyn,
+                                           padding=(0, h0, w0))
+    return call
 
 
 def library_group_norm_backward(dy, x, mean, inv, w, groups, per_frame):
@@ -1988,12 +2070,15 @@ def _train_kernels(dev, summary):
     """K1.bwd and K2.bwd at the training path's shapes against their plain
     versions, fp32 and bf16; twice bit-identical; timed in both dtypes in
     turns (plain, kernel, kernel, plain, then the library call where there
-    is one).  K4.bwd (bf16) at K4_BWD_SHAPES the same way, with SDPA's
+    is one).  K3.bwd at K3_BWD_SHAPES the same way, held to the float64
+    sums (``k3_bwd_check``), with the edge pad and ``conv3d_weight`` as its
+    yardstick (``yardstick_ms``; its ``library_ms`` is null: no one call
+    computes the function).  K4.bwd (bf16) at K4_BWD_SHAPES the same way, with SDPA's
     backward as its library call, then checked (not timed) at
     K4_BWD_CHECK_SHAPES."""
-    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle
+    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle, stem
 
-    def put(key, label, err, ok, text, timing=None):
+    def put(key, label, err, ok, text, timing=None, extra=None):
         summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"], err)
         if timing:
             shape, dtype, k_ms, p_ms, l_ms, kw = timing
@@ -2002,7 +2087,7 @@ def _train_kernels(dev, summary):
                 shape=list(shape), dtype=str(dtype).replace("torch.", ""),
                 where=label.split(" float")[0].split(" bfloat")[0],
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                share=b_ms / k_ms, library_ms=l_ms))
+                share=b_ms / k_ms, library_ms=l_ms, **(extra or {})))
             text += (f"; {k_ms:.3f} ms (plain {p_ms:.3f}, library "
                      f"{'none' if l_ms is None else f'{l_ms:.3f}'}, bound "
                      f"{b_ms:.3f} by {by}, {100 * b_ms / k_ms:.1f}%)")
@@ -2059,6 +2144,27 @@ def _train_kernels(dev, summary):
             put("K2.bwd", f"upsample tail {tuple(shape)} n={n} {dtype}",
                 0.0, ok, text, (shape, dtype, k_ms, p_ms, None, dict(n=n)))
             del dy
+            torch.cuda.empty_cache()
+    spec = k3_spec("edge")
+    for where, shape in K3_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = k3_inputs(shape, 3, dev, dtype)[0]
+            dy = randn(tuple(shape) + (stem.COUT,), 33, dev, dtype)
+            worst, excess, text, got = k3_bwd_check(x, dy, spec)
+            again = stem.stem_conv3d_backward(x, dy, spec)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            del got, again
+            k_ms, p_ms, y_ms = in_turns(
+                lambda: stem.stem_conv3d_backward_plain(x, dy, spec),
+                lambda: stem.stem_conv3d_backward(x, dy, spec),
+                stem_backward_yardstick(x, dy, spec))
+            put("K3.bwd", f"{where} {tuple(shape)} {dtype}", worst,
+                excess <= 0.0 and same,
+                f"{text}; twice bit-identical {same}; yardstick (replicate "
+                f"pad + conv3d_weight, two calls: no one call) {y_ms:.3f} ms",
+                (tuple(shape) + (3,), dtype, k_ms, p_ms, None, {}),
+                dict(yardstick_ms=y_ms))
+            del x, dy
             torch.cuda.empty_cache()
     for shape, rising in K4_BWD_SHAPES:
         args = k4_bwd_inputs(shape, dev, rising)
@@ -2122,6 +2228,28 @@ def shipped_engine_config(**optim):
                                                               **optim))
 
 
+def v1_engine_config(**optim):
+    """The v1 family on the shipped recipe: its EngineConfig with
+    ``family="v1"``, the full-width v1 net (``VAE1Config()``: ch 128,
+    ch_mult (1, 2, 4, 4)) and the constraint decoder at its v1 default
+    (SD2.1-named, 4 latent channels).  The reference ships no v1 training
+    YAML."""
+    import dataclasses
+    from cvvae_tpu_torch.models.vae2d import VAE2DConfig
+    from cvvae_tpu_torch.models.vae_v1 import VAE1Config
+    return dataclasses.replace(
+        shipped_engine_config(**optim), family="v1", net=VAE1Config(),
+        constraint_decoder=VAE2DConfig(naming="sd21", latent_channels=4))
+
+
+#: the kernels a family's fp32 G + D step must launch, and those it must
+#: not (fp32 attention takes the exact path; SD3 has no pixel stem)
+TRAIN_KERNELS = {"sd3": (("K1", "K1.bwd", "K2", "K2.bwd"),
+                         ("K3", "K3.bwd", "K4", "K4.bwd", "K5", "K5.stage")),
+                 "v1": (("K1", "K1.bwd", "K2", "K2.bwd", "K3", "K3.bwd"),
+                        ("K4", "K4.bwd", "K5", "K5.stage"))}
+
+
 def _cpu(state_dict):
     if isinstance(state_dict, torch.Tensor):
         return state_dict.detach().cpu().clone()
@@ -2139,10 +2267,11 @@ def _to_cpu_state(st):
     return out
 
 
-def _train_card_vs_cpu(dev):
+def _train_card_vs_cpu(dev, family="sd3"):
     """One G step then one D step of the full-width shipped recipe
-    (random LPIPS and constraint decoder), each from one state with one
-    set of draws, on the card and on the CPU.  The state is the card's
+    (random LPIPS and constraint decoder; ``family`` "v1":
+    ``v1_engine_config``), each from one state with one set of draws, on
+    the card and on the CPU.  The state is the card's
     after a G step (the gate closed) and a D step from the seeded init, so
     both optimizers hold moments; the D step starts from the CPU's state
     after its G step on both.  Returns the card's launches in the two
@@ -2151,7 +2280,8 @@ def _train_card_vs_cpu(dev):
     import warnings
     from cvvae_tpu_torch.training.engine import TrainingEngine, named_params
 
-    cfg = shipped_engine_config(num_warmup_steps=0)
+    cfg = (v1_engine_config if family == "v1" else shipped_engine_config)(
+        num_warmup_steps=0)
     x = torch.from_numpy(np.random.RandomState(5).uniform(
         -1, 1, TRAIN_CHECK_CLIP).astype(np.float32))
     b, t, h, w, _ = TRAIN_CHECK_CLIP
@@ -2177,8 +2307,8 @@ def _train_card_vs_cpu(dev):
         st, _ = eng.train_step(st, {"frames": x.to(dev)},
                                torch.Generator(dev).manual_seed(i))
     start = carried = _cpu(st.state_dict())
-    say(f"[train] card-vs-cpu: engines, states and the card's two carried-"
-        f"over steps in {time.perf_counter() - t_setup:.2f}s")
+    say(f"[train] card-vs-cpu {family}: engines, states and the card's two "
+        f"carried-over steps in {time.perf_counter() - t_setup:.2f}s")
 
     def params_of(st, prefix):
         return named_params(st.params if prefix == "g" else st.disc_params)
@@ -2216,15 +2346,15 @@ def _train_card_vs_cpu(dev):
                 after_cpu = _cpu(st.state_dict())
             lr[kind] = (e.lr_schedule_g if kind == "g"
                         else e.lr_schedule_d)(step)
-            say(f"[train] card-vs-cpu {d}: {kind.upper()} step {step} of the "
-                f"full-width shipped recipe on {TRAIN_CHECK_CLIP} in "
+            say(f"[train] card-vs-cpu {family} {d}: {kind.upper()} step "
+                f"{step} of the full-width recipe on {TRAIN_CHECK_CLIP} in "
                 f"{seconds:.2f}s")
         (mc, nc, _, dc), (mg, ng, zero, dg) = out["cpu"], out[str(dev)]
         worst, worst_k = max((abs(mg[k] - mc[k]) / (1 + abs(mc[k])), k)
                              for k in mc)
         upd = max((dg[k] - dc[k]).abs().max().item() for k in dg) / lr[kind]
         moved = max(v.abs().max().item() for v in dg.values()) / lr[kind]
-        say(f"[train] {kind.upper()} step: losses {json.dumps(mg)}; worst "
+        say(f"[train] {family} {kind.upper()} step: losses {json.dumps(mg)}; worst "
             f"|card - cpu| / (1 + |cpu|) {worst!r} ({worst_k}, <= "
             f"{TRAIN_LOSS_RTOL}); gradient global norm card {ng!r} cpu "
             f"{nc!r}; updates max |card - cpu| / lr {upd!r} (<= "
@@ -2240,7 +2370,7 @@ def _train_card_vs_cpu(dev):
                          gc[k].abs().max().item() / gmax,
                          (gg[k] - gc[k]).abs().max().item() / gmax))
         rows.sort(reverse=True)
-        say(f"[train] {kind.upper()} step: elements past {TRAIN_UPDATE_TOL} lr "
+        say(f"[train] {family} {kind.upper()} step: elements past {TRAIN_UPDATE_TOL} lr "
             f"{sum(r[2] for r in rows)} of {sum(r[3] for r in rows)}; worst "
             f"(update err / lr, param, elements past, numel, max|g| / "
             f"max|g| of all, max|g card - g cpu| / max|g| of all): "
@@ -2254,15 +2384,16 @@ def _train_card_vs_cpu(dev):
         if not all(math.isfinite(v) for v in mg.values()):
             failures.append(f"{kind} non-finite losses")
         start = after_cpu
-    say(f"[train] launches in the card's compared G + D steps: {counts}")
-    need = ("K1", "K1.bwd", "K2", "K2.bwd")
+    say(f"[train] {family}: launches in the card's compared G + D steps: "
+        f"{counts}")
+    need, none = TRAIN_KERNELS[family]
     if any(counts.get(k, 0) == 0 for k in need) or any(
-            counts.get(k, 0) for k in ("K3", "K4", "K5", "K5.stage")):
+            counts.get(k, 0) for k in none):
         failures.append(f"launches {counts}")
     card_state = states[str(dev)]
     del engines, states, st
     if failures:
-        raise SystemExit(f"training card against CPU: {failures}")
+        raise SystemExit(f"{family} training card against CPU: {failures}")
     return counts, (eng, card_state, carried, x, draws)
 
 
@@ -2442,6 +2573,61 @@ def _train_bf16(dev, ctx):
     if failures:
         raise SystemExit(f"bf16 training: {failures}")
     return launches
+
+
+#: phase 8's v1 bf16 steps: (name, batch) -- the shipped clip and the
+#: shipped image batch, from the v1 fp32 check's carried-over state
+TRAIN_V1_BATCHES = [("clip", (1, 17, 256, 256, 3)),
+                    ("images", (8, 1, 320, 320, 3))]
+
+
+def _train_v1(dev, smi):
+    """v1 on the card: one G and one D step card against CPU
+    (``_train_card_vs_cpu(dev, "v1")``, K3 and K3.bwd launched), then
+    from the carried-over state a bf16 G and D step (``bf16_engine`` of
+    the same engine) on each of TRAIN_V1_BATCHES, twice (the first pair of
+    a batch shape pays cuDNN's algorithm search): wall s, peak memory,
+    launches by kernel, finite losses, K3 and K3.bwd launched in each G
+    step.  Returns the launches of the fp32 check and of the bf16 steps."""
+    counts, (eng32, st, carried, _, _) = _train_card_vs_cpu(dev, "v1")
+    eng = bf16_engine(eng32)
+    failures, launches = [], {}
+    for (name, shape), again in ((b, a) for b in TRAIN_V1_BATCHES
+                                 for a in (False, True)):
+        x = torch.from_numpy(np.random.RandomState(13).uniform(
+            -1, 1, shape).astype(np.float32)).to(dev)
+        state = carried
+        for kind in "gd":
+            st.load_state_dict(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, m = eng.train_step(st, {"frames": x},
+                                  torch.Generator(dev).manual_seed(14))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            metrics = {k: float(v) for k, v in m.items()}
+            say(f"[train] v1 bf16 {kind.upper()} step {state['step']} on the "
+                f"{name} {shape}{', again' if again else ''}: "
+                f"{seconds:.3f}s; peak memory {peak:.2f} "
+                f"GiB; loss/total {metrics['loss/total']!r} loss/rec "
+                f"{metrics['loss/rec']!r} loss/disc {metrics['loss/disc']!r}; "
+                f"launches { {k: v for k, v in got.items() if v} }; card "
+                f"{smi}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                failures.append(f"{name} {kind} non-finite losses")
+            if kind == "g" and not (got["K3"] and got["K3.bwd"]):
+                failures.append(f"{name} G step launches {got}")
+            launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+            state = _cpu(st.state_dict())
+        del x
+    del eng, eng32, st, carried
+    if failures:
+        raise SystemExit(f"v1 bf16 training: {failures}")
+    return counts, launches
 
 
 def write_train_data(root, seed=0, n_images=16, image_hw=(360, 400),
@@ -2708,11 +2894,15 @@ def main() -> int:
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
+    v1_check, v1_bf16 = timed("train_v1", _train_v1, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_main = timed("train_main", _train_main, dev, smi)
     train_bf16 = timed("train_main_bf16", _train_main, dev, smi, "bfloat16")
     say(f"[train] phase 8 in {time.perf_counter() - t8:.1f}s; launches in "
         f"the card's G + D check {train_check}, in the bf16 G + D check "
-        f"{bf16_check}")
+        f"{bf16_check}, in v1's G + D check {v1_check}, in v1's bf16 steps "
+        f"{v1_bf16}")
 
     kernels = []
     for k in KERNELS:
@@ -2725,11 +2915,13 @@ def main() -> int:
         kernels.append(dict(
             KERNELS[k],
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
-                      + train_main[k] + train_bf16[k]),
+                      + train_main[k] + train_bf16[k] + v1_check[k]
+                      + v1_bf16[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
-                   "train": train_main[k], "train-bf16": train_bf16[k]}),
+                   "train": train_main[k], "train-bf16": train_bf16[k],
+                   "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k]}),
             launches_per_reconstruct={p: r[k]
                                       for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],

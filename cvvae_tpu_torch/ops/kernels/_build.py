@@ -57,6 +57,7 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cvvae_stem_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _P],
+    "cvvae_stem_conv3d_bwd": [_P] * 5 + [_L] + [_I] * 16 + [_P],
     "cvvae_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "cvvae_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
     "cvvae_int8_stage": [_P] * 3 + [_I] * 19 + [_P],

@@ -23,9 +23,12 @@ leaves to XLA's autodiff of its interleave: ``subpixel_interleave`` is a
 ``torch.autograd.Function`` whose backward launches K2.bwd on the card
 (``subpixel_interleave_backward_plain`` on a CPU tensor): the inverse
 permutation of dy into the four phases, bit-exact, zero where a frame was
-dropped, and d(bias) summed per thread in fp32 and merged over the threads
-in a fixed order in double.  Bound: device memory, one read of dy and one
-write of the phases.
+dropped, with K2's copy, and d(bias) in fixed-order levels on the plan of
+``bwd_plan``: each thread's fp32 sums in registers, a tree over the
+block's pixel threads in shared memory (one slot a block), then a merge
+of the slots in double spread over ``ceil(n·c / MERGE_CH)`` blocks of
+``MERGE_SPLIT`` slot ranges a channel.  Bound: device memory, one read of
+dy and one write of the phases.
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ bwd_launches = 0
 #: threads a block at most, and loads a thread issues before their stores
 #: (kThreads, kUnroll of csrc/shuffle.cu)
 THREADS, UNROLL = _build.constants("shuffle.cu", "kThreads", "kUnroll")
+#: K2.bwd's d(bias) merge: channels a block, and slot ranges a channel
+#: (kMergeCh, kMergeSplit of csrc/shuffle_bwd.cu)
+MERGE_CH, MERGE_SPLIT = _build.constants("shuffle_bwd.cu", "kMergeCh",
+                                         "kMergeSplit")
 #: resident blocks an SM the grid aims at
 BLOCKS_PER_SM = 8
 
@@ -72,12 +79,17 @@ def launch_plan(phases: Sequence[torch.Tensor],
     aligned, else 1); a block of (bx, by) threads, bx of the pixel's c/vec
     units and by pixels; ``grid`` blocks walking the ``rows`` output
     rows, block k rows k, k + grid, ..."""
-    elem = phases[0].element_size()
-    vec = 16 // elem
     ptrs = [p.data_ptr() for p in phases]
     if bias is not None:
         ptrs.append(bias.data_ptr())
-    if c % vec or any(ptr % 16 for ptr in ptrs):
+    return _copy_plan(phases[0].element_size(),
+                      not any(ptr % 16 for ptr in ptrs), c, rows, sms)
+
+
+def _copy_plan(elem: int, aligned: bool, c: int, rows: int,
+               sms: int) -> dict:
+    vec = 16 // elem
+    if c % vec or not aligned:
         vec = 1
     bx = min(c // vec, THREADS)
     # as many rows to every block: ceil(rows / blocks) each, over at most
@@ -85,6 +97,38 @@ def launch_plan(phases: Sequence[torch.Tensor],
     per_block = -(-rows // (sms * BLOCKS_PER_SM))
     return dict(vec=vec, bx=bx, by=max(1, THREADS // bx),
                 grid=max(1, -(-rows // per_block)))
+
+
+def bwd_plan(b: int, t: int, h: int, w: int, c: int, n: int, elem: int,
+             sms: int, aligned: bool = True) -> dict:
+    """K2.bwd's plan for dy (B, n·T − drop, 2H, 2W, c) of ``elem``-byte
+    elements (``aligned``: dy and every phase start 16-byte aligned).
+
+    The copy: K2's ``launch_plan`` over the ``rows`` = B·n·T·2H undropped
+    output rows, block k taking rows k, k + grid, ... (at most
+    ``rows_per_block``), a thread ``px`` pixels of each row.  d(bias): a
+    thread sums each row's px values in fp32 (px − 1 rounded adds), adds
+    the row's sum to its channel group's (rows_per_block − 1 adds at
+    most), the block adds its ``by`` threads' sums by a tree of
+    ``block_levels`` levels (fp32) into its one slot of a (grid, n·c)
+    scratch; the merge, ``merge_blocks`` blocks of MERGE_CH channels,
+    gives each channel MERGE_SPLIT ranges of ``merge_per`` contiguous
+    slots, summed in double, then a double tree.  ``bias_adds``: the fp32
+    roundings a term
+    passes through at most, with one more for the double merge (its error
+    is below one fp32 rounding while there are fewer than 2^29 slots), so
+    |d(bias) − exact| <= bias_adds · 2^-24 · Σ|dy| + 2^-24 · |exact|."""
+    rows = b * n * t * 2 * h
+    plan = _copy_plan(elem, aligned, c, rows, sms)
+    by, grid = plan["by"], plan["grid"]
+    rows_per_block = -(-rows // grid)
+    px = -(-2 * w // by)
+    block_levels = (by - 1).bit_length()
+    merge_per = -(-grid // MERGE_SPLIT)
+    return dict(plan, rows=rows, rows_per_block=rows_per_block, px=px,
+                block_levels=block_levels, merge_per=merge_per,
+                merge_blocks=-(-n * c // MERGE_CH),
+                bias_adds=px + rows_per_block + block_levels - 1)
 
 
 def subpixel_interleave_backward_plain(dy: torch.Tensor, *, n: int,
@@ -201,13 +245,13 @@ def subpixel_interleave_backward(dy: torch.Tensor, *, n: int, t: int,
     h, w = h2 // 2, w2 // 2
     phases = [torch.empty((b, t, h, w, n * c), device=dy.device,
                           dtype=dy.dtype) for _ in range(4)]
-    rows = b * n * t * h2
-    plan = launch_plan([dy] + phases, None, c, rows,
-                       torch.cuda.get_device_properties(
-                           dy.device).multi_processor_count)
+    plan = bwd_plan(b, t, h, w, c, n, dy.element_size(),
+                    torch.cuda.get_device_properties(
+                        dy.device).multi_processor_count,
+                    all(p.data_ptr() % 16 == 0 for p in [dy] + phases))
     part = dbias = None
     if with_bias:
-        part = torch.empty((plan["grid"], plan["by"], n * c),
+        part = torch.empty((plan["grid"], n * c),
                            device=dy.device, dtype=torch.float32)
         dbias = torch.empty(n * c, device=dy.device, dtype=torch.float32)
     rc = _build.library().cvvae_subpixel_interleave_bwd(

@@ -25,6 +25,19 @@ B (K over (dt, dh, dw, ci) with the pixel padded to 4 channels, see
 once), the tile staged in shared memory for one ``cp.async.bulk`` store.
 fp32: 16 pixels a warp, 4 channels a lane, broadcast float4 inputs, one
 float4 of weights a tap, 16-byte coalesced stores.
+
+K3.bwd (``csrc/stem_bwd.cu``), the gradient in the weights and the bias,
+which the TPU package leaves to XLA's autodiff of
+``cvvae_tpu/ops/conv.py::_conv3d_stacked_stem``: ``stem_conv3d`` is a
+``torch.autograd.Function`` (``_Stem``) whose backward launches K3.bwd on
+the card (``stem_conv3d_backward_plain`` on a CPU tensor).  There is no
+dx on the card: the stem's input is the pixels, and a CUDA ``x`` that
+needs a gradient is refused.  The kernel: a persistent grid whose blocks
+each own a contiguous range of 64-pixel output row tiles
+(``bwd_plan``), the input patch and dy's tile staged in shared memory,
+exact fp32 FMAs (bf16 inputs converted) into registers, one warp a patch
+row (dt, dh) and 4 channels a lane, then each block's sums in a slot of
+a scratch that a second launch adds in order in double.
 """
 
 from __future__ import annotations
@@ -36,8 +49,10 @@ import torch.nn.functional as F
 
 from cvvae_tpu_torch.ops.kernels import _build
 
-#: launches of the CUDA kernel (the CPU path does not count)
+#: launches of the CUDA kernel K3 and of its backward K3.bwd (the CPU path
+#: does not count)
 launches = 0
+bwd_launches = 0
 
 MAX_CIN = 4
 #: from csrc/stem.cu: output channels (kCout), output pixels a tile (kTW),
@@ -48,6 +63,9 @@ COUT, TILE_W, K_PACKED, _MMA_WORKERS, _FMA_WORKERS = _build.constants(
     "stem.cu", "kCout", "kTW", "kK", "kMmaWorkers", "kFmaWorkers")
 WORKERS_PER_BLOCK = {torch.bfloat16: _MMA_WORKERS,
                      torch.float32: _FMA_WORKERS}
+#: from csrc/stem_bwd.cu: output pixels a tile, and blocks an SM
+BWD_TILE_W, BWD_BLOCKS_PER_SM = _build.constants("stem_bwd.cu", "kTW",
+                                                 "kBlocksPerSm")
 
 
 def stem_usable(weight: torch.Tensor, spec) -> bool:
@@ -64,15 +82,61 @@ def stem_usable(weight: torch.Tensor, spec) -> bool:
 def stem_conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor], spec) -> torch.Tensor:
     """x (B,T,H,W,Cin), weight (O,Cin,3,3,3) -> (B,T',H',W',O)."""
+    xn = _padded(x, spec).permute(0, 4, 1, 2, 3)
+    b = None if bias is None else bias.to(x.dtype)
+    y = F.conv3d(xn, weight.to(x.dtype), b)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _padded(x: torch.Tensor, spec) -> torch.Tensor:
+    """x (B,T,H,W,Cin) with the stem's pads materialised: time by
+    repeating the edge frame (edge mode) or zeros, H/W zeros."""
     (t0, t1), (h0, h1), (w0, w1) = spec.pads
     xn = x.permute(0, 4, 1, 2, 3)
     if spec.modes[0] == "edge":
         xn = F.pad(xn, (0, 0, 0, 0, t0, t1), mode="replicate")
         t0 = t1 = 0
-    xn = F.pad(xn, (w0, w1, h0, h1, t0, t1))
-    b = None if bias is None else bias.to(x.dtype)
-    y = F.conv3d(xn, weight.to(x.dtype), b)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return F.pad(xn, (w0, w1, h0, h1, t0, t1)).permute(0, 2, 3, 4, 1)
+
+
+def stem_conv3d_backward_plain(x: torch.Tensor, dy: torch.Tensor, spec,
+                               with_bias: bool = True):
+    """K3.bwd's plain version: dW (O, Cin, 3, 3, 3) and dbias (O,) (None
+    without ``with_bias``) of the stem conv of x (B,T,H,W,Cin) for dy
+    (B,T',H',W',O), in x's and dy's promoted dtype with at least fp32
+    (float64 in, float64 out): each tap's window of the padded input
+    contracted with dy by one matrix product."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, dy.dtype),
+                             torch.float32)
+    xp = _padded(x.to(dt), spec)
+    b, to, ho, wo, o = dy.shape
+    d = dy.to(dt).reshape(-1, o)
+    cin = x.shape[-1]
+    dw = torch.empty((o, cin, 3, 3, 3), dtype=dt, device=x.device)
+    for kt in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                win = xp[:, kt:kt + to, kh:kh + ho, kw:kw + wo].reshape(-1, cin)
+                dw[:, :, kt, kh, kw] = (win.t() @ d).t()
+    return dw, (d.sum(0) if with_bias else None)
+
+
+def bwd_plan(b: int, t_out: int, h_out: int, w_out: int, sms: int) -> dict:
+    """K3.bwd's schedule: ``n_wt`` tiles of BWD_TILE_W pixels an output
+    row, ``n_tiles`` over the rows (b, t, h) in order, ``grid`` blocks (at
+    most BWD_BLOCKS_PER_SM an SM), block k taking the ``per`` tiles
+    [k·per, (k + 1)·per).  A thread adds each of its values' terms in
+    order, one fp32 FMA a term, at most per · BWD_TILE_W a block; the
+    blocks' sums are added in double.  ``terms``: the fp32 roundings a
+    term passes through at most, with one more for the double merge (below
+    one fp32 rounding while there are fewer than 2^29 blocks), so
+    |dW − exact| <= terms · 2^-24 · Σ|x·dy| + 2^-24 · |exact|, and dbias
+    the same with Σ|dy|."""
+    n_wt = -(-w_out // BWD_TILE_W)
+    n_tiles = b * t_out * h_out * n_wt
+    per = -(-n_tiles // min(n_tiles, sms * BWD_BLOCKS_PER_SM))
+    return dict(n_wt=n_wt, n_tiles=n_tiles, per=per,
+                grid=-(-n_tiles // per), terms=per * BWD_TILE_W + 1)
 
 
 def k_order():
@@ -145,26 +209,75 @@ def tile_origin(idx: int, n_wt: int, t_out: int, h_out: int,
 
 def stem_conv3d(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], spec) -> torch.Tensor:
-    """The stem conv of a contiguous (B, T, H, W, Cin) tensor.
+    """The stem conv of a contiguous (B, T, H, W, Cin) tensor,
+    differentiable in the weight and the bias (and in x on the CPU).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    A CPU tensor takes the plain versions forward and backward; a CUDA
+    tensor launches K3 forward and K3.bwd backward, or raises; a CUDA x
+    that needs a gradient is refused (there is no dx kernel: the stem's
+    input is the pixels)."""
+    if x.device.type != "cpu":
+        _build.refuse_gradient("stem_conv3d (K3)", "a dx of the pixel stem",
+                               x)
+    return _Stem.apply(spec, x, weight, bias)
+
+
+class _Stem(torch.autograd.Function):
+    """K3 and K3.bwd, or their plain versions on a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, spec, x, weight, bias):
+        ctx.spec = spec
+        ctx.dtypes = (weight.dtype, None if bias is None else bias.dtype)
+        ctx.save_for_backward(x, weight)
+        if x.device.type == "cpu":
+            return stem_conv3d_plain(x, weight, bias, spec)
+        return _launch(x, weight, bias, spec)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[1:4]
+        dx = dw = db = None
+        if need_w or need_b:
+            dw, db = stem_conv3d_backward(x, dy, ctx.spec, with_bias=need_b)
+            dw = dw.to(ctx.dtypes[0]) if need_w else None
+            db = db.to(ctx.dtypes[1]) if need_b else None
+        if need_x:  # the CPU only: forward refuses it on the card
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_()
+                y = stem_conv3d_plain(xr, weight.detach(), None, ctx.spec)
+                dx, = torch.autograd.grad(y, xr, dy)
+        return None, dx, dw, db
+
+
+def _extents(x: torch.Tensor, spec) -> tuple:
+    """(t_out, h_out, w_out) of the stem conv ``spec`` of ``x``; raises
+    where K3 and K3.bwd do not take the conv."""
+    if (tuple(spec.kernel) != (3, 3, 3) or tuple(spec.stride) != (1, 1, 1)
+            or x.shape[-1] > MAX_CIN or spec.modes[1] != "zero"
+            or spec.modes[2] != "zero"
+            or any(p < 0 for pad in spec.pads for p in pad)):
+        raise ValueError(f"stem_conv3d: unsupported conv (input "
+                         f"{tuple(x.shape)}, spec {spec})")
+    _, t, h, w, _ = x.shape
+    (pt0, pt1), (ph0, ph1), (pw0, pw1) = spec.pads
+    out = (t + pt0 + pt1 - 2, h + ph0 + ph1 - 2, w + pw0 + pw1 - 2)
+    if min(out) < 1:
+        raise ValueError(f"stem_conv3d: bad output extent for "
+                         f"{tuple(x.shape)}")
+    return out
+
+
+def _launch(x, weight, bias, spec):
     global launches
-    if x.device.type == "cpu":
-        return stem_conv3d_plain(x, weight, bias, spec)
-    _build.refuse_gradient("stem_conv3d (K3)", "K3.bwd", x, weight, bias)
     _build.require_cuda_layout("stem_conv3d", x, 5)
     b, t, h, w, cin = x.shape
-    if (tuple(spec.kernel) != (3, 3, 3) or tuple(spec.stride) != (1, 1, 1)
-            or weight.shape != (COUT, cin, 3, 3, 3) or cin > MAX_CIN
-            or spec.modes[1] != "zero" or spec.modes[2] != "zero"
-            or any(p < 0 for pad in spec.pads for p in pad)):
-        raise ValueError(f"stem_conv3d: unsupported conv (weight "
-                         f"{tuple(weight.shape)}, spec {spec})")
-    (pt0, pt1), (ph0, ph1), (pw0, pw1) = spec.pads
-    t_out, h_out, w_out = t + pt0 + pt1 - 2, h + ph0 + ph1 - 2, w + pw0 + pw1 - 2
-    if min(t_out, h_out, w_out) < 1:
-        raise ValueError(f"stem_conv3d: bad output extent for {tuple(x.shape)}")
+    if weight.shape != (COUT, cin, 3, 3, 3):
+        raise ValueError(f"stem_conv3d: unsupported weight "
+                         f"{tuple(weight.shape)} for input {tuple(x.shape)}")
+    t_out, h_out, w_out = _extents(x, spec)
+    (pt0, _), (ph0, _), (pw0, _) = spec.pads
     # the weights in the kernel's layout, cast once a call (81·Cin values);
     # the bf16 kernel takes the bias in them, the fp32 kernel apart
     wd = weight.detach().to(device=x.device)
@@ -191,3 +304,43 @@ def stem_conv3d(x: torch.Tensor, weight: torch.Tensor,
     _build.check(rc, "stem_conv3d")
     launches += 1
     return y
+
+
+def stem_conv3d_backward(x: torch.Tensor, dy: torch.Tensor, spec,
+                         with_bias: bool = True):
+    """K3.bwd (``csrc/stem_bwd.cu``): dW (O, Cin, 3, 3, 3) and dbias (O,)
+    (None without ``with_bias``) in fp32 for a contiguous CUDA ``x`` and
+    ``dy`` of one dtype; a CPU tensor takes the plain version."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return stem_conv3d_backward_plain(x, dy, spec, with_bias)
+    _build.require_cuda_layout("stem_conv3d_backward", x, 5)
+    dy = dy.contiguous()
+    _build.require_cuda_layout("stem_conv3d_backward", dy, 5)
+    b, t, h, w, cin = x.shape
+    t_out, h_out, w_out = _extents(x, spec)
+    if dy.shape != (b, t_out, h_out, w_out, COUT) or dy.dtype != x.dtype:
+        raise ValueError(f"stem_conv3d_backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} is no output of x {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if dy.data_ptr() % 16:  # the kernel reads dy in 16-byte units
+        dy = dy.clone()
+    plan = bwd_plan(b, t_out, h_out, w_out, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    if plan["n_tiles"] + plan["per"] >= 2 ** 31:
+        raise ValueError(f"stem_conv3d_backward: {plan['n_tiles']} tiles "
+                         f"overflow the kernel's 32-bit tile index")
+    (pt0, _), (ph0, _), (pw0, _) = spec.pads
+    part = torch.empty((plan["grid"], 27 * cin + 1, COUT), device=x.device,
+                       dtype=torch.float32)
+    dw = torch.empty((COUT, cin, 3, 3, 3), device=x.device,
+                     dtype=torch.float32)
+    db = torch.empty(COUT, device=x.device, dtype=torch.float32)
+    rc = _build.library().cvvae_stem_conv3d_bwd(
+        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), b, t, h, w, cin, t_out, h_out, w_out, pt0, ph0, pw0,
+        int(spec.modes[0] == "edge"), BWD_TILE_W, plan["grid"], plan["per"],
+        _build.DTYPE_CODES[x.dtype], x.device.index or 0, _build.stream_of(x))
+    _build.check(rc, "stem_conv3d_backward")
+    bwd_launches += 1
+    return dw, (db if with_bias else None)

@@ -21,10 +21,11 @@ The JAX package is functional; here the state's modules and optimizer
 moments are updated in place.  Random draws (the posterior's noise, the
 random constraint frames' offsets) come from a ``torch.Generator``, or are
 passed in as ``draws`` so a test can hand in the JAX package's.  On the
-card the engine runs K1/K1.bwd (every GroupNorm, forward and backward) and
-K2/K2.bwd (the SD3 decoder's upsamplers); it reaches no K3 or K5 (SD3's
-``conv_in`` edge-pads W and Disc3D's stem has 64 outputs).  In fp32 it
-reaches no K4 either (fp32 attention takes the exact path).
+card the engine runs K1/K1.bwd (every GroupNorm, forward and backward),
+K2/K2.bwd (the decoders' upsamplers) and, for v1 at full width, K3/K3.bwd
+(the encoder's ``conv_in`` on the pixels; SD3's edge-pads W and Disc3D's
+stem has 64 outputs); it reaches no K5.  In fp32 it reaches no K4
+either (fp32 attention takes the exact path).
 
 ``compute_dtype="bfloat16"`` is the JAX package's mixed precision: the
 parameters, AdamW's moments and the EMA stay fp32; the frozen nets are

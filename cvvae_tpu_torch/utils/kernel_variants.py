@@ -1,6 +1,7 @@
 """Time variants of a hand-written kernel's source on the card.
 
-    python -m cvvae_tpu_torch.utils.kernel_variants [--kernel K5|K1.bwd|K4.bwd]
+    python -m cvvae_tpu_torch.utils.kernel_variants \
+        [--kernel K5|K1.bwd|K2.bwd|K3.bwd|K4.bwd]
 
 Each variant is ``csrc/`` copied into a temporary directory with some
 text of one source replaced, built (all side by side) and made the
@@ -16,6 +17,13 @@ library the wrappers launch (``_build.library(path)``).
   then timed at each of ``chip_smoke.K1_BWD_SHAPES`` in fp32 and bf16, in
   turns, twice.  Prints the registers and spills of its bf16 and fp32
   kernels with SiLU.
+- K2.bwd: every variant is first held by ``chip_smoke.k2_bwd_check`` on
+  ``chip_smoke.K2_CHECK_SHAPES`` (fp32 and bf16), then timed with the
+  bias at ``chip_smoke.K2_BWD_SHAPES`` in fp32 and bf16, in turns, twice.
+  Prints the registers and spills of its copy and merge kernels.
+- K3.bwd: every variant is first held by ``chip_smoke.k3_bwd_check`` on
+  ``chip_smoke.K3_BWD_CHECK_SHAPES`` (fp32 and bf16), then timed at
+  ``chip_smoke.K3_BWD_SHAPES`` in fp32 and bf16, in turns, twice.
 - K4.bwd: every variant is first held to ``chip_smoke.K4_BWD_MAX`` and
   ``K4_BWD_RMS`` of the plain version at ``chip_smoke.K4_BWD_CHECK_SHAPES``
   and ``K4_BWD_SHAPES``, then timed at ``K4_BWD_SHAPES``, in turns,
@@ -26,8 +34,10 @@ library the wrappers launch (``_build.library(path)``).
   so three walk tiles are in use at once; none of them is a variant).
 
 Needs a CUDA card and nvcc; imports nothing of JAX.  ``VARIANTS`` (K5,
-``csrc/conv_int8.cu``), ``K1_BWD_VARIANTS`` (``csrc/groupnorm_bwd.cu``)
-and ``K4_BWD_VARIANTS`` (``csrc/attention_bwd.cu``) hold each kernel's
+``csrc/conv_int8.cu``), ``K1_BWD_VARIANTS`` (``csrc/groupnorm_bwd.cu``),
+``K2_BWD_VARIANTS`` (``csrc/shuffle_bwd.cu``), ``K3_BWD_VARIANTS``
+(``csrc/stem_bwd.cu``) and ``K4_BWD_VARIANTS`` (``csrc/attention_bwd.cu``)
+hold each kernel's
 design choices undone one at a time, so that each choice's effect is
 measured in one call.
 """
@@ -98,9 +108,57 @@ K4_BWD_VARIANTS = {
          '  asm volatile("fence.proxy.async;\\n" ::: "memory");')],
 }
 
+#: name -> [(text of csrc/shuffle_bwd.cu, its replacement), ...]
+K2_BWD_VARIANTS = {
+    "as committed": [],
+    "sums indexed by the row's channel group (local memory)": [
+        ("        if (j == 0) {\n"
+         "#pragma unroll\n"
+         "          for (int e = 0; e < E; ++e) acc[0][e] += row[e];\n"
+         "        } else {\n"
+         "#pragma unroll\n"
+         "          for (int e = 0; e < E; ++e) acc[1][e] += row[e];\n"
+         "        }",
+         "#pragma unroll\n"
+         "        for (int e = 0; e < E; ++e) acc[j][e] += row[e];")],
+    "8 loads in flight": [("constexpr int kUnroll = 4;",
+                           "constexpr int kUnroll = 8;")],
+    "2 loads in flight": [("constexpr int kUnroll = 4;",
+                           "constexpr int kUnroll = 2;")],
+    "merge over 8 slot ranges a channel": [
+        ("constexpr int kMergeSplit = 32;", "constexpr int kMergeSplit = 8;")],
+}
+
+#: name -> [(text of csrc/stem_bwd.cu, its replacement), ...]
+K3_BWD_VARIANTS = {
+    "as committed": [],
+    "fp32 dy staged through registers, a 16-byte unit at a time": [
+        ("      for (int i = tid; i < n16; i += kThreads)\n"
+         '        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n"'
+         ' ::"r"(\n'
+         "                         smem_u32(dst + 16 * i)), \"l\"(src + i)\n"
+         '                     : "memory");',
+         "      for (int i = tid; i < n16; i += kThreads)\n"
+         "        reinterpret_cast<uint4*>(dst)[i] = src[i];")],
+    "bf16 dy loaded and widened a unit at a time": [
+        ("#pragma unroll\n      for (int j = 0; j < kUnits; ++j)\n"
+         "        if (tid + j * kThreads < n16) u[j] = src[tid + j * kThreads];\n"
+         "#pragma unroll\n",
+         "#pragma unroll 1\n      for (int j = 0; j < kUnits; ++j)\n"
+         "        if (tid + j * kThreads < n16) u[j] = src[tid + j * kThreads];\n"
+         "#pragma unroll 1\n")],
+    "the patch's loads one at a time": [
+        ("#pragma unroll\n    for (int j = 0; j < kIters; ++j) {\n"
+         "      const int i = tid + j * kThreads;\n      const int r",
+         "#pragma unroll 1\n    for (int j = 0; j < kIters; ++j) {\n"
+         "      const int i = tid + j * kThreads;\n      const int r")],
+}
+
 #: each kernel's variants: (source, variants)
 KERNEL_VARIANTS = {"K5": ("conv_int8.cu", VARIANTS),
                    "K1.bwd": ("groupnorm_bwd.cu", K1_BWD_VARIANTS),
+                   "K2.bwd": ("shuffle_bwd.cu", K2_BWD_VARIANTS),
+                   "K3.bwd": ("stem_bwd.cu", K3_BWD_VARIANTS),
                    "K4.bwd": ("attention_bwd.cu", K4_BWD_VARIANTS)}
 
 
@@ -172,6 +230,109 @@ def _k1_bwd(libs, dev) -> int:
     return 0
 
 
+def _k2_bwd(libs, dev) -> int:
+    """K2.bwd's variants: held by chip_smoke.k2_bwd_check on
+    K2_CHECK_SHAPES (fp32 and bf16), then timed with the bias at
+    K2_BWD_SHAPES in fp32 and bf16, in turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, shuffle
+
+    dtypes = (torch.float32, torch.bfloat16)
+    for name, lib in libs.items():
+        log = (lib.parent / "build.log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling" in line and ("subpixel_unshuffle" in line
+                                        or "bias_grad" in line):
+                info = [s for s in log[i:i + 4]
+                        if "spill" in s or "Used" in s][:2]
+                kernel = line.split("Compiling entry function")[-1][:60]
+                print(f"[{name}] {kernel.strip()}: " + " | ".join(
+                    s.split(":", 1)[-1].strip() for s in info))
+        _build.library(lib)
+        bad = []
+        for dtype in dtypes:
+            for b, n, drop, c, with_bias in chip_smoke.K2_CHECK_SHAPES:
+                dy = chip_smoke.randn((b, n * 3 - (n > 1 and drop), 10, 14, c),
+                                      7, dev, dtype)
+                exact, excess, _ = chip_smoke.k2_bwd_check(dy, n, 3,
+                                                           with_bias, drop)
+                if not exact or excess > 0.0:
+                    bad.append((b, n, drop, c, with_bias, str(dtype)))
+        print(f"[{name}] check cases failed: {bad}", flush=True)
+        if bad:
+            return 1
+    order = list(libs) + list(libs)[::-1]
+    for shape, n in chip_smoke.K2_BWD_SHAPES:
+        b, t, h, w, nc = shape
+        for dtype in dtypes:
+            dy = chip_smoke.randn((b, n * t - (n > 1), 2 * h, 2 * w, nc // n),
+                                  9, dev, dtype)
+            times = {name: [] for name in libs}
+            for name in order:
+                _build.library(libs[name])
+                times[name].append(chip_smoke.time_ms(
+                    lambda: shuffle.subpixel_interleave_backward(dy, n=n,
+                                                                 t=t), 10))
+            for name, t_ in times.items():
+                print(f"[{name}] {shape} n={n} {dtype}: median ms "
+                      f"{statistics.median(t_)!r} (in turns: {t_})",
+                      flush=True)
+            del dy
+            torch.cuda.empty_cache()
+    return 0
+
+
+def _k3_bwd(libs, dev) -> int:
+    """K3.bwd's variants: held by chip_smoke.k3_bwd_check on
+    K3_BWD_CHECK_SHAPES (fp32 and bf16), then timed at K3_BWD_SHAPES in
+    fp32 and bf16, in turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, stem
+
+    dtypes = (torch.float32, torch.bfloat16)
+    for name, lib in libs.items():
+        log = (lib.parent / "build.log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling" in line and (
+                    "stem_bwd_partialIfLi3E" in line
+                    or "stem_bwd_partialI13__nv_bfloat16Li3E" in line):
+                info = [s for s in log[i:i + 4]
+                        if "spill" in s or "Used" in s][:2]
+                print(f"[{name}] {line.split('stem_bwd_')[1][:40]}: "
+                      + " | ".join(s.split(":", 1)[-1].strip() for s in info))
+        _build.library(lib)
+        bad = []
+        for dtype in dtypes:
+            for pad, shape in chip_smoke.K3_BWD_CHECK_SHAPES:
+                spec = chip_smoke.k3_spec(pad)
+                x = chip_smoke.k3_inputs(shape, 3, dev, dtype)[0]
+                dy = chip_smoke.randn((shape[0],) + stem._extents(x, spec)
+                                      + (stem.COUT,), 33, dev, dtype)
+                if chip_smoke.k3_bwd_check(x, dy, spec)[1] > 0.0:
+                    bad.append((pad, shape, str(dtype)))
+        print(f"[{name}] check cases failed: {bad}", flush=True)
+        if bad:
+            return 1
+    order = list(libs) + list(libs)[::-1]
+    spec = chip_smoke.k3_spec("edge")
+    for where, shape in chip_smoke.K3_BWD_SHAPES:
+        for dtype in dtypes:
+            x = chip_smoke.k3_inputs(shape, 3, dev, dtype)[0]
+            dy = chip_smoke.randn(tuple(shape) + (stem.COUT,), 33, dev, dtype)
+            times = {name: [] for name in libs}
+            for name in order:
+                _build.library(libs[name])
+                times[name].append(chip_smoke.time_ms(
+                    lambda: stem.stem_conv3d_backward(x, dy, spec), 10))
+            for name, t_ in times.items():
+                print(f"[{name}] {where} {shape} {dtype}: median ms "
+                      f"{statistics.median(t_)!r} (in turns: {t_})",
+                      flush=True)
+            del x, dy
+            torch.cuda.empty_cache()
+    return 0
+
+
 def _k4_bwd(libs, dev) -> int:
     """K4.bwd's variants: held to K4_BWD_MAX / K4_BWD_RMS at
     K4_BWD_CHECK_SHAPES and K4_BWD_SHAPES, then timed at K4_BWD_SHAPES in
@@ -237,14 +398,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"[card] {chip_smoke.nvidia_smi_line()}")
     source, variants = KERNEL_VARIANTS[args.kernel]
-    if args.kernel in ("K1.bwd", "K4.bwd"):
+    if args.kernel != "K5":
         with tempfile.TemporaryDirectory() as tmp:
             with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
                 jobs = {n: pool.submit(_build_variant, Path(tmp), i, r,
                                        source)
                         for i, (n, r) in enumerate(variants.items())}
                 libs = {n: j.result() for n, j in jobs.items()}
-            run = _k1_bwd if args.kernel == "K1.bwd" else _k4_bwd
+            run = {"K1.bwd": _k1_bwd, "K2.bwd": _k2_bwd, "K3.bwd": _k3_bwd,
+                   "K4.bwd": _k4_bwd}[args.kernel]
             return run(libs, dev)
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K5, K1.bwd, K2.bwd, K4.bwd and
-of the edge-pad convs:
+"""Planted faults against the checks of K1-K5, K1.bwd, K2.bwd, K3.bwd,
+K4.bwd and of the edge-pad convs:
 do the bounds that ``chip_smoke.py`` and the card tests hold them to
 catch a broken kernel or decomposition?
 
@@ -28,7 +28,11 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   bit-exact to its plain version;
 - K1.bwd and K2.bwd, bf16 and fp32, at ``chip_smoke.K1_CHECK_SHAPES`` and
   ``chip_smoke.K2_CHECK_SHAPES``, held by ``chip_smoke.k1_bwd_check``
-  (``K1_BWD_RMS``) and ``chip_smoke.k2_bwd_check``;
+  (``K1_BWD_RMS``) and ``chip_smoke.k2_bwd_check`` (d(bias) within the
+  bound of ``shuffle.bwd_plan``);
+- K3.bwd, bf16 and fp32, at ``chip_smoke.K3_BWD_SHAPES`` and
+  ``chip_smoke.K3_BWD_CHECK_SHAPES``, held by ``chip_smoke.k3_bwd_check``
+  (the float64 sums within the bound of ``stem.bwd_plan``);
 - K4.bwd at ``chip_smoke.K4_BWD_CHECK_SHAPES``, held by
   ``chip_smoke.k4_bwd_check``.
 
@@ -162,12 +166,32 @@ FAULTS = {
         "          pe[(int64_t)(x >> 1) * (n * cv)] = v[u];"),
     "both channel groups' bias sums added into the first": (
         "K2.bwd", "shuffle_bwd.cu",
-        "            for (int e = 0; e < E; ++e) acc[j][e] += to_f32(ve[e]);",
-        "            for (int e = 0; e < E; ++e) acc[0][e] += to_f32(ve[e]);"),
+        "          for (int e = 0; e < E; ++e) acc[1][e] += row[e];",
+        "          for (int e = 0; e < E; ++e) acc[0][e] += row[e];"),
     "the bias merge skips the last slot": (
         "K2.bwd", "shuffle_bwd.cu",
-        "for (int64_t s = 0; s < slots; ++s)",
-        "for (int64_t s = 0; s < slots - 1; ++s)"),
+        "  const int s1 = min(slots, (ty + 1) * per);",
+        "  const int s1 = min(slots - 1, (ty + 1) * per);"),
+    "the merge's slot ranges overlap by one": (
+        "K2.bwd", "shuffle_bwd.cu",
+        "    for (int s = ty * per; s < s1; ++s)",
+        "    for (int s = ty * per - (ty > 0); s < s1; ++s)"),
+    "the block's tree skips its last level": (
+        "K2.bwd", "shuffle_bwd.cu",
+        "      for (h >>= 1; h > 0; h >>= 1) {",
+        "      for (h >>= 1; h > 1; h >>= 1) {"),
+    "the edge-time clamp off by a frame": (
+        "K3.bwd", "stem_bwd.cu",
+        "        ti = min(max(ti, 0), g.T_in - 1);",
+        "        ti = min(max(ti, 1), g.T_in - 1);"),
+    "the last block's partial dropped from the merge": (
+        "K3.bwd", "stem_bwd.cu",
+        "  for (int s = 0; s < slots; ++s) t +=",
+        "  for (int s = 0; s < slots - 1; ++s) t +="),
+    "dy's rows past the tile's pixels not zeroed (stale rows summed)": (
+        "K3.bwd", "stem_bwd.cu",
+        "    for (int i = tid; i < (np3 - t.np) * kCout / 4; i += kThreads)",
+        "    for (int i = tid; i < 0; i += kThreads)"),
     "the logsumexp taken against the first tile's (stale) running max": (
         "K4", "attention.cu",
         ("    softmax_tile(s, 0, S, scale_log2, t4, m, l, alpha);\n"
@@ -359,6 +383,27 @@ def _k2_bwd_cases():
                    f"dbias excess {excess!r}", not exact or excess > 0.0)
 
 
+def _k3_bwd_cases():
+    """(label, fails) of every K3.bwd case on the library now loaded: the
+    shapes of ``chip_smoke.K3_BWD_SHAPES`` and
+    ``chip_smoke.K3_BWD_CHECK_SHAPES``, bf16 and fp32, held by
+    ``chip_smoke.k3_bwd_check``."""
+    dev = torch.device("cuda", 0)
+    cases = ([("edge", shape) for _, shape in chip_smoke.K3_BWD_SHAPES]
+             + chip_smoke.K3_BWD_CHECK_SHAPES)
+    for dtype in (torch.bfloat16, torch.float32):
+        for pad, shape in cases:
+            spec = chip_smoke.k3_spec(pad)
+            x = chip_smoke.k3_inputs(shape, 3, dev, dtype)[0]
+            t_out, h_out, w_out = stem._extents(x, spec)
+            dy = chip_smoke.randn((shape[0], t_out, h_out, w_out, stem.COUT),
+                                  33, dev, dtype)
+            _, excess, text, _ = chip_smoke.k3_bwd_check(x, dy, spec)
+            del x, dy
+            torch.cuda.empty_cache()
+            yield f"K3.bwd {shape} {pad} {dtype}: {text}", excess > 0.0
+
+
 def _k5_cases():
     """(label, fails) of every K5 check case on the library now loaded."""
     dev = torch.device("cuda", 0)
@@ -423,7 +468,7 @@ def planted_conv(tmp: Path, i: int, replacements):
 #: each kernel's cases, and the edge convs'
 CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
          "K5": _k5_cases, "K1.bwd": _k1_bwd_cases, "K2.bwd": _k2_bwd_cases,
-         "K4.bwd": _k4_bwd_cases, "edge": edge_cases}
+         "K3.bwd": _k3_bwd_cases, "K4.bwd": _k4_bwd_cases, "edge": edge_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:

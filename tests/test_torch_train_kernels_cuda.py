@@ -1,13 +1,15 @@
-"""The backward kernels K1.bwd, K2.bwd and K4.bwd against their plain
-versions on the card, K4's logsumexp, the autograd wiring of K1, K2 and
-K4, and the refusal of K3 and K5 to give an output without a gradient.
+"""The backward kernels K1.bwd, K2.bwd, K3.bwd and K4.bwd against their
+plain versions on the card, K4's logsumexp, the autograd wiring of K1, K2,
+K3 and K4, and the refusal of K3 (for its input) and K5 to give an output
+without a gradient.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.
 Run on a GPU machine with:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_train_kernels_cuda.py
 (``--noconftest``: the suite's conftest configures JAX; this file imports
 no JAX.)  The bounds are chip_smoke.py's (``K1_BWD_RMS``,
-``k2_bwd_check``, ``K4_LSE_TOL``, ``K4_BWD_MAX`` and ``K4_BWD_RMS``).
+``k2_bwd_check``, ``k3_bwd_check``, ``K4_LSE_TOL``, ``K4_BWD_MAX`` and
+``K4_BWD_RMS``).
 """
 
 import pytest
@@ -134,6 +136,38 @@ def test_subpixel_interleave_autograd_reaches_the_kernels(dev):
     assert torch.allclose(bias.grad, db, rtol=1e-6, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad,shape", chip_smoke.K3_BWD_CHECK_SHAPES)
+def test_stem_backward_kernel(dev, dtype, pad, shape):
+    spec = chip_smoke.k3_spec(pad)
+    x = chip_smoke.k3_inputs(shape, 3, dev, dtype)[0]
+    dy = chip_smoke.randn((shape[0],) + stem._extents(x, spec) + (128,), 33,
+                          dev, dtype)
+    before = stem.bwd_launches
+    _, excess, text, (dw, db) = chip_smoke.k3_bwd_check(x, dy, spec)
+    torch.cuda.synchronize()
+    assert stem.bwd_launches == before + 1
+    assert dw.dtype == db.dtype == torch.float32
+    assert excess <= 0.0, text
+    again = stem.stem_conv3d_backward(x, dy, spec)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_stem_autograd_reaches_the_kernels(dev):
+    spec = chip_smoke.k3_spec("edge")
+    x, w, b = chip_smoke.k3_inputs((1, 5, 9, 70), 3, dev, torch.float32)
+    w, b = w.requires_grad_(), b.requires_grad_()
+    before = (stem.launches, stem.bwd_launches)
+    y = stem.stem_conv3d(x, w, b, spec)
+    assert y.grad_fn is not None
+    dy = chip_smoke.randn(tuple(y.shape), 34, dev, torch.float32)
+    y.backward(dy)
+    assert (stem.launches, stem.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = stem.stem_conv3d_backward(x, dy, spec)
+    assert torch.equal(w.grad, want[0]) and torch.equal(b.grad, want[1])
+
+
 @pytest.mark.parametrize("shape,rising", [((2, 600, 64), False),
                                           ((1, 1100, 512), False),
                                           ((5, 7560, 512), True),
@@ -215,16 +249,18 @@ def test_flash_attention_autograd_reaches_the_kernels(dev):
 
 
 def test_kernels_without_a_backward_refuse_gradients(dev):
-    """K3 and K5 raise when grad mode is on and an input needs a
-    gradient, and run under no_grad."""
+    """K3 raises when grad mode is on and its input x needs a gradient
+    (K3.bwd gives the weights' and the bias's alone), and runs under
+    no_grad; K5 raises when any input needs one."""
     spec = Conv3DSpec((3, 3, 3), (1, 1, 1), ((2, 0), (1, 1), (1, 1)),
                       ("edge", "zero", "zero"))
-    x = torch.randn(1, 3, 8, 8, 3, device=dev)
+    x = torch.randn(1, 3, 8, 8, 3, device=dev, requires_grad=True)
     w = torch.randn(128, 3, 3, 3, 3, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K3.bwd"):
+    with pytest.raises(NotImplementedError, match="K3"):
         stem.stem_conv3d(x, w, None, spec)
     with torch.no_grad():
         assert stem.stem_conv3d(x, w, None, spec).shape == (1, 3, 8, 8, 128)
+    assert stem.stem_conv3d(x.detach(), w, None, spec).grad_fn is not None
     xq = torch.randn(1, 3, 8, 8, 16, device=dev, requires_grad=True)
     wq = torch.randint(-127, 128, (16, 16, 3, 3, 3), dtype=torch.int8,
                        device=dev)

@@ -483,7 +483,8 @@ def test_loading_a_state_copies_it():
 
 def test_v1_trains_on_the_cpu():
     """The v1 family with the SD2.1-named constraint decoder: a G and a D
-    step on the CPU (on the card it stops at K3's refusal until K3.bwd)."""
+    step on the CPU (on the card, at full width, the encoder's conv_in runs
+    K3 and its gradient K3.bwd; chip_smoke.py phase 8)."""
     from cvvae_tpu_torch.models.vae_v1 import VAE1Config
     cfg = EngineConfig(
         family="v1",

@@ -1,6 +1,8 @@
 """Shared set-up of the engine parity tests (``test_torch_train_engine_*``):
 one G step and one D step of the port's ``TrainingEngine`` against the JAX
-package's, from the same carried-over state and with the same draws.
+package's, from the same carried-over state and with the same draws, for
+the SD3 family (``NETS["sd3"]``) or v1 (``NETS["v1"]``, with the
+SD2.1-named constraint decoder).
 
 The JAX engine runs steps 0 (G) and 1 (D) from its init, so its optimizer
 states hold real moments; ``from_jax_train_state`` carries that state to
@@ -42,6 +44,7 @@ from cvvae_tpu.losses.vae_loss import LossConfig as JLoss
 from cvvae_tpu.models.discriminator import Disc3DConfig as JDisc
 from cvvae_tpu.models.vae2d import VAE2DConfig as J2D
 from cvvae_tpu.models.vae_sd3 import VAESD3Config as JNet
+from cvvae_tpu.models.vae_v1 import VAE1Config as JNet1
 from cvvae_tpu.training.engine import EngineConfig as JEngineConfig
 from cvvae_tpu.training.engine import TrainingEngine as JEngine
 from cvvae_tpu.training.optim import OptimConfig as JOptim
@@ -50,6 +53,7 @@ from cvvae_tpu_torch.losses.vae_loss import LossConfig
 from cvvae_tpu_torch.models.discriminator import Disc3DConfig
 from cvvae_tpu_torch.models.vae2d import VAE2DConfig
 from cvvae_tpu_torch.models.vae_sd3 import VAESD3Config
+from cvvae_tpu_torch.models.vae_v1 import VAE1Config
 from cvvae_tpu_torch.training.engine import EngineConfig, TrainingEngine
 from cvvae_tpu_torch.training.optim import OptimConfig
 from cvvae_tpu_torch.utils.convert import (from_jax_params,
@@ -59,10 +63,22 @@ LOSS_RTOL = 1e-4
 UPDATE_TOL = 1e-2
 CLIP = (1, 5, 16, 16, 3)
 BASE_LR = 1e-3
-NET = dict(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
-           latent_channels=4, norm_num_groups=4)
-NET2D = dict(naming="sd3", latent_channels=4, block_out_channels=(8, 8, 8, 8),
-             layers_per_block=1, norm_num_groups=4)
+#: each family's tiny nets: (JAX net config, port net config, net kwargs,
+#: 2D constraint nets' kwargs)
+NETS = {
+    "sd3": (JNet, VAESD3Config,
+            dict(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                 latent_channels=4, norm_num_groups=4),
+            dict(naming="sd3", latent_channels=4,
+                 block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                 norm_num_groups=4)),
+    "v1": (JNet1, VAE1Config,
+           dict(ch=8, ch_mult=(1, 2, 4, 4), num_res_blocks=1, z_channels=4,
+                norm_num_groups=4),
+           dict(naming="sd21", latent_channels=4,
+                block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                norm_num_groups=4)),
+}
 DISC = dict(ndf=8, n_layers=2, norm_groups=4)
 OPTIM = dict(base_lr=BASE_LR, num_warmup_steps=0, num_training_steps=100)
 BF16_LOSS_RTOL = 2e-2
@@ -71,10 +87,11 @@ BF16_SPREAD_SEEDS = (10, 11, 12, 13, 14)
 BF16_SPREAD_FACTOR = 2.0
 
 
-def _cfg(pkg, constraint, perceptual, remat, compute_dtype):
+def _cfg(pkg, constraint, perceptual, remat, compute_dtype, family):
     Net, Disc, Loss, Optim, V2, E = pkg
-    v2 = V2(**NET2D)
-    return E(family="sd3", net=Net(**NET), disc=Disc(**DISC),
+    net_kw, net2d_kw = NETS[family][2:]
+    v2 = V2(**net2d_kw)
+    return E(family=family, net=Net(**net_kw), disc=Disc(**DISC),
              loss=Loss(perceptual_weight=perceptual, time_n_compress=4),
              optim=Optim(**OPTIM), constraint=constraint,
              constraint_decoder=v2, constraint_encoder=v2, remat=remat,
@@ -86,20 +103,21 @@ class Pair:
     engine on the same frozen nets."""
 
     def __init__(self, constraint, perceptual=0.0, port_remat=True,
-                 compute_dtype="float32"):
+                 compute_dtype="float32", family="sd3"):
         self.constraint = constraint
         self.compute_dtype = compute_dtype
-        jcfg = _cfg((JNet, JDisc, JLoss, JOptim, J2D, JEngineConfig),
-                    constraint, perceptual, False, compute_dtype)
+        jnet, tnet = NETS[family][:2]
+        jcfg = _cfg((jnet, JDisc, JLoss, JOptim, J2D, JEngineConfig),
+                    constraint, perceptual, False, compute_dtype, family)
         self.jeng = JEngine(jcfg, seed=0, allow_random_lpips=True)
         # the frozen nets as fp32 numpy (bf16 widens exactly); the port
         # casts them to its compute dtype as the JAX engine did
         frozen = {k: None if v is None else from_jax_params(
             jax.tree.map(lambda a: np.asarray(a, np.float32), v))
             for k, v in self.jeng.frozen.items()}
-        tcfg = _cfg((VAESD3Config, Disc3DConfig, LossConfig, OptimConfig,
+        tcfg = _cfg((tnet, Disc3DConfig, LossConfig, OptimConfig,
                      VAE2DConfig, EngineConfig), constraint, perceptual,
-                    port_remat, compute_dtype)
+                    port_remat, compute_dtype, family)
         self.teng = TrainingEngine(
             tcfg, device="cpu", allow_random_lpips=True,
             lpips_params=frozen["lpips"],
