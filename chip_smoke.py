@@ -1855,8 +1855,8 @@ K3_BWD_SHAPES = [("v1 conv_in on the clip", (1, 17, 256, 256)),
                  ("v1 conv_in on the images", (8, 1, 320, 320))]
 #: K3.bwd's small checks (padding, (B, T, H, W)), Cin 3, held by
 #: ``k3_bwd_check`` in the card tests and planted_faults.py: W ragged
-#: against the 64-pixel tile and against 3 (70, 130, 37), T = 1, every
-#: padding kind
+#: against both tiles (64 pixels in fp32, 128 in bf16), the bf16 k-step
+#: of 16 and against 3 (70, 130, 37), T = 1, every padding kind
 K3_BWD_CHECK_SHAPES = [("edge", (1, 5, 9, 70)), ("edge", (2, 1, 7, 130)),
                        ("zero", (1, 4, 6, 66)), ("none", (1, 5, 6, 37))]
 #: K1.bwd against its plain version on the same inputs and saved
@@ -2028,7 +2028,7 @@ def k3_bwd_check(x, dy, spec):
     from cvvae_tpu_torch.ops.kernels import stem
     dw, db = stem.stem_conv3d_backward(x, dy, spec)
     plan = stem.bwd_plan(*dy.shape[:4], torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+        x.device).multi_processor_count, x.dtype)
     worst, excess = k3_bwd_excess(dw, db, x, dy, spec, plan["terms"])
     return worst, excess, (f"max|d|/max|exact| {worst!r}, excess over "
                            f"{plan['terms']}*2^-24*sum|x dy|+2^-24*|exact| "

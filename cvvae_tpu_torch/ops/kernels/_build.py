@@ -69,12 +69,13 @@ def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def constants(source: str, *names: str) -> tuple:
+def constants(source: str, *names: str, text: str | None = None) -> tuple:
     """The values of ``constexpr int <name> = <integer>;`` in
-    ``csrc/<source>``: a kernel's compile-time schedule, read from its
-    source so that the wrapper planning its launches (and the CPU tests of
-    that plan) use the kernel's own numbers."""
-    text = (CSRC / source).read_text()
+    ``csrc/<source>`` (or in ``text``, a variant of it): a kernel's
+    compile-time schedule, read from its source so that the wrapper
+    planning its launches (and the CPU tests of that plan) use the
+    kernel's own numbers."""
+    text = (CSRC / source).read_text() if text is None else text
     values = []
     for name in names:
         found = re.findall(rf"^constexpr int {name} = (\d+);", text, re.M)

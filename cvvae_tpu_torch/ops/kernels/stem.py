@@ -32,12 +32,15 @@ which the TPU package leaves to XLA's autodiff of
 ``torch.autograd.Function`` (``_Stem``) whose backward launches K3.bwd on
 the card (``stem_conv3d_backward_plain`` on a CPU tensor).  There is no
 dx on the card: the stem's input is the pixels, and a CUDA ``x`` that
-needs a gradient is refused.  The kernel: a persistent grid whose blocks
-each own a contiguous range of 64-pixel output row tiles
-(``bwd_plan``), the input patch and dy's tile staged in shared memory,
-exact fp32 FMAs (bf16 inputs converted) into registers, one warp a patch
-row (dt, dh) and 4 channels a lane, then each block's sums in a slot of
-a scratch that a second launch adds in order in double.
+needs a gradient is refused.  The kernel: a persistent grid, each block
+owning a contiguous range of output row tiles (``bwd_plan``).  bf16 is
+one GEMM over the pixels on the tensor cores, dWᵀ = dyᵀ · im2col(x) with
+a column of ones for dbias: mma.sync with fp32 accumulators, dy's tile by
+TMA (128-byte swizzle) as A, the im2col that producer warps build in
+shared memory as B while the multiplying warps run, a tile's products
+added to fp32 totals.  fp32 runs exact FMAs, a thread owning three patch
+rows × 2 channels, dy through a cp.async ring.  Each block's sums go to
+slots of a scratch that a second launch adds in double.
 """
 
 from __future__ import annotations
@@ -63,9 +66,24 @@ COUT, TILE_W, K_PACKED, _MMA_WORKERS, _FMA_WORKERS = _build.constants(
     "stem.cu", "kCout", "kTW", "kK", "kMmaWorkers", "kFmaWorkers")
 WORKERS_PER_BLOCK = {torch.bfloat16: _MMA_WORKERS,
                      torch.float32: _FMA_WORKERS}
-#: from csrc/stem_bwd.cu: output pixels a tile, and blocks an SM
-BWD_TILE_W, BWD_BLOCKS_PER_SM = _build.constants("stem_bwd.cu", "kTW",
-                                                 "kBlocksPerSm")
+
+
+def use_bwd_source(text: Optional[str] = None) -> None:
+    """Read K3.bwd's schedule from ``csrc/stem_bwd.cu`` (or ``text``, a
+    variant of it that is about to run), by dtype: BWD_TILE_W output pixels
+    a tile and BWD_BLOCKS_PER_SM blocks an SM (fp32's run in two waves);
+    BWD_KSTEP pixels a k-step of the bf16 kernel's mma; the fp32 kernel's
+    BWD_PX dy rows a stage and BWD_RUNS runs of pixels a tile (a slot
+    each)."""
+    global BWD_TILE_W, BWD_KSTEP, BWD_BLOCKS_PER_SM, BWD_PX, BWD_RUNS
+    tw, fma_tw, BWD_KSTEP, mma, fma, BWD_PX, BWD_RUNS = _build.constants(
+        "stem_bwd.cu", "kTW", "kFmaTW", "kK", "kBlocksPerSm",
+        "kFmaBlocksPerSm", "kPX", "kPhases", text=text)
+    BWD_TILE_W = {torch.bfloat16: tw, torch.float32: fma_tw}
+    BWD_BLOCKS_PER_SM = {torch.bfloat16: mma, torch.float32: fma}
+
+
+use_bwd_source()
 
 
 def stem_usable(weight: torch.Tensor, spec) -> bool:
@@ -121,22 +139,41 @@ def stem_conv3d_backward_plain(x: torch.Tensor, dy: torch.Tensor, spec,
     return dw, (d.sum(0) if with_bias else None)
 
 
-def bwd_plan(b: int, t_out: int, h_out: int, w_out: int, sms: int) -> dict:
-    """K3.bwd's schedule: ``n_wt`` tiles of BWD_TILE_W pixels an output
-    row, ``n_tiles`` over the rows (b, t, h) in order, ``grid`` blocks (at
-    most BWD_BLOCKS_PER_SM an SM), block k taking the ``per`` tiles
-    [k·per, (k + 1)·per).  A thread adds each of its values' terms in
-    order, one fp32 FMA a term, at most per · BWD_TILE_W a block; the
-    blocks' sums are added in double.  ``terms``: the fp32 roundings a
-    term passes through at most, with one more for the double merge (below
-    one fp32 rounding while there are fewer than 2^29 blocks), so
-    |dW − exact| <= terms · 2^-24 · Σ|x·dy| + 2^-24 · |exact|, and dbias
-    the same with Σ|dy|."""
-    n_wt = -(-w_out // BWD_TILE_W)
+def bwd_plan(b: int, t_out: int, h_out: int, w_out: int, sms: int,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """K3.bwd's schedule for x and dy of ``dtype``: ``n_wt`` tiles of
+    ``tile_w`` (BWD_TILE_W[dtype]) pixels an output row, ``n_tiles`` over
+    the rows (b, t, h) in order, ``grid`` blocks (at most
+    BWD_BLOCKS_PER_SM[dtype] an SM), block k taking the ``per`` tiles
+    [k·per, (k + 1)·per); ``slots`` of the scratch that the merge adds in
+    double (a block's in bf16; a block's runs of BWD_PX / BWD_RUNS pixels a
+    tile in fp32).
+
+    ``terms`` bounds the rounding: |dW − exact| <= terms · 2^-24 · Σ|x·dy|
+    + 2^-24 · |exact|, and dbias the same with Σ|dy|; the last term and
+    one of ``terms`` are the merge's (double, then one fp32 rounding).
+    fp32: a slot adds each of its values' terms in order, one
+    round-to-nearest FMA a term, per · BWD_PX / BWD_RUNS of them at most.
+    bf16: the tensor core sums a k-step's BWD_KSTEP exact products and the
+    carried sum by aligning them to the largest and truncating (round
+    toward zero, no guard bits assumed), then truncates the result: each of
+    those BWD_KSTEP + 2 truncations loses under 2^-23 of the step's
+    Σ|products| + |carried sum|.  A tile's products start from zero, so
+    over its tile_w / BWD_KSTEP k-steps that is 2·(BWD_KSTEP + 2)·steps ·
+    2^-24 of the tile's Σ|x·dy|; then one round-to-nearest fp32 add a tile
+    into the block's totals, per of them."""
+    tile_w = BWD_TILE_W[dtype]
+    n_wt = -(-w_out // tile_w)
     n_tiles = b * t_out * h_out * n_wt
-    per = -(-n_tiles // min(n_tiles, sms * BWD_BLOCKS_PER_SM))
-    return dict(n_wt=n_wt, n_tiles=n_tiles, per=per,
-                grid=-(-n_tiles // per), terms=per * BWD_TILE_W + 1)
+    per = -(-n_tiles // min(n_tiles, sms * BWD_BLOCKS_PER_SM[dtype]))
+    grid = -(-n_tiles // per)
+    if dtype == torch.bfloat16:
+        steps = tile_w // BWD_KSTEP
+        slots, terms = grid, 2 * (BWD_KSTEP + 2) * steps + per + 1
+    else:
+        slots, terms = grid * BWD_RUNS, per * (BWD_PX // BWD_RUNS) + 1
+    return dict(tile_w=tile_w, n_wt=n_wt, n_tiles=n_tiles, per=per,
+                grid=grid, slots=slots, terms=terms)
 
 
 def k_order():
@@ -326,12 +363,12 @@ def stem_conv3d_backward(x: torch.Tensor, dy: torch.Tensor, spec,
     if dy.data_ptr() % 16:  # the kernel reads dy in 16-byte units
         dy = dy.clone()
     plan = bwd_plan(b, t_out, h_out, w_out, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+        x.device).multi_processor_count, x.dtype)
     if plan["n_tiles"] + plan["per"] >= 2 ** 31:
         raise ValueError(f"stem_conv3d_backward: {plan['n_tiles']} tiles "
                          f"overflow the kernel's 32-bit tile index")
     (pt0, _), (ph0, _), (pw0, _) = spec.pads
-    part = torch.empty((plan["grid"], 27 * cin + 1, COUT), device=x.device,
+    part = torch.empty((plan["slots"], 27 * cin + 1, COUT), device=x.device,
                        dtype=torch.float32)
     dw = torch.empty((COUT, cin, 3, 3, 3), device=x.device,
                      dtype=torch.float32)
@@ -339,7 +376,8 @@ def stem_conv3d_backward(x: torch.Tensor, dy: torch.Tensor, spec,
     rc = _build.library().cvvae_stem_conv3d_bwd(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
         db.data_ptr(), b, t, h, w, cin, t_out, h_out, w_out, pt0, ph0, pw0,
-        int(spec.modes[0] == "edge"), BWD_TILE_W, plan["grid"], plan["per"],
+        int(spec.modes[0] == "edge"), plan["tile_w"], plan["grid"],
+        plan["per"],
         _build.DTYPE_CODES[x.dtype], x.device.index or 0, _build.stream_of(x))
     _build.check(rc, "stem_conv3d_backward")
     bwd_launches += 1

@@ -28,15 +28,16 @@ import statistics
 import subprocess
 import sys
 
-_CHILD = r"""
+#: the child's head: its checkout first on the path, and the device and
+#: host timing of a call; a child defines ``LAUNCHES`` (the names that tell
+#: its kernel's launches apart) before it
+TIMING = r"""
 import json, sys, time, torch
 sys.path.insert(0, sys.argv[1])
 from torch.autograd import DeviceType
 import chip_smoke
-from cvvae_tpu_torch.ops.kernels import shuffle
 reps = int(sys.argv[2])
 dev = torch.device("cuda", 0)
-LAUNCHES = ("subpixel_unshuffle", "bias_grad")
 
 
 def launch_of(name):
@@ -67,6 +68,10 @@ def host_ms(fn):
     t = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     return t
+"""
+
+_CHILD = 'LAUNCHES = ("subpixel_unshuffle", "bias_grad")\n' + TIMING + r"""
+from cvvae_tpu_torch.ops.kernels import shuffle
 
 
 def call(shape, n, dtype, bias):
@@ -104,8 +109,12 @@ def _smi() -> str:
                           text=True, check=True).stdout.strip()
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def compare(child: str, label, doc: str, argv=None) -> int:
+    """Run ``child`` (a program that starts with TIMING and prints one JSON
+    row a case) once a checkout of ``--roots``, in the order given, and
+    print every row, then the card and each checkout's medians by case
+    (``label(row)``)."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", required=True)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -113,7 +122,7 @@ def main(argv=None) -> int:
     readings = {}  # root -> case label -> [row, ...]
     for root in args.roots:
         root = os.path.abspath(root)
-        out = subprocess.run([sys.executable, "-c", _CHILD, root,
+        out = subprocess.run([sys.executable, "-c", child, root,
                               str(args.reps)],
                              capture_output=True, text=True, cwd=root)
         if out.returncode:
@@ -122,9 +131,8 @@ def main(argv=None) -> int:
         for line in out.stdout.splitlines():
             if line.startswith("{"):
                 row = json.loads(line)
-                label = (f"{tuple(row['shape'])} n={row['n']} {row['dtype']}"
-                         f"{' bias' if row['bias'] else ''}")
-                readings.setdefault(root, {}).setdefault(label, []).append(row)
+                readings.setdefault(root, {}).setdefault(label(row),
+                                                         []).append(row)
                 print(json.dumps(dict(root=root, **row)), flush=True)
     summary = {
         root: {label: dict(
@@ -137,6 +145,12 @@ def main(argv=None) -> int:
         for root, by_label in readings.items()}
     print(json.dumps({"card": smi, "medians": summary}), flush=True)
     return 0
+
+
+def main(argv=None) -> int:
+    return compare(_CHILD, lambda row: (
+        f"{tuple(row['shape'])} n={row['n']} {row['dtype']}"
+        f"{' bias' if row['bias'] else ''}"), __doc__, argv)
 
 
 if __name__ == "__main__":

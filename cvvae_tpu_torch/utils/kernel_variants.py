@@ -132,26 +132,23 @@ K2_BWD_VARIANTS = {
 #: name -> [(text of csrc/stem_bwd.cu, its replacement), ...]
 K3_BWD_VARIANTS = {
     "as committed": [],
-    "fp32 dy staged through registers, a 16-byte unit at a time": [
-        ("      for (int i = tid; i < n16; i += kThreads)\n"
-         '        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n"'
-         ' ::"r"(\n'
-         "                         smem_u32(dst + 16 * i)), \"l\"(src + i)\n"
-         '                     : "memory");',
-         "      for (int i = tid; i < n16; i += kThreads)\n"
-         "        reinterpret_cast<uint4*>(dst)[i] = src[i];")],
-    "bf16 dy loaded and widened a unit at a time": [
-        ("#pragma unroll\n      for (int j = 0; j < kUnits; ++j)\n"
-         "        if (tid + j * kThreads < n16) u[j] = src[tid + j * kThreads];\n"
-         "#pragma unroll\n",
-         "#pragma unroll 1\n      for (int j = 0; j < kUnits; ++j)\n"
-         "        if (tid + j * kThreads < n16) u[j] = src[tid + j * kThreads];\n"
-         "#pragma unroll 1\n")],
-    "the patch's loads one at a time": [
-        ("#pragma unroll\n    for (int j = 0; j < kIters; ++j) {\n"
-         "      const int i = tid + j * kThreads;\n      const int r",
-         "#pragma unroll 1\n    for (int j = 0; j < kIters; ++j) {\n"
-         "      const int i = tid + j * kThreads;\n      const int r")],
+    "bf16: 64-pixel tiles": [
+        ("constexpr int kTW = 128;", "constexpr int kTW = 64;")],
+    "bf16: a 2-stage ring (one tile in flight)": [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
+    "fp32: 128-pixel tiles (2 stages)": [
+        ("constexpr int kFmaTW = 64;", "constexpr int kFmaTW = 128;"),
+        ("constexpr int kPX = 66;", "constexpr int kPX = 132;"),
+        ("constexpr int kFmaStages = 3;", "constexpr int kFmaStages = 2;")],
+    "fp32: the next tile's x loaded after the products": [
+        ("constexpr bool kPrefetchX = true;",
+         "constexpr bool kPrefetchX = false;")],
+    "fp32: one patch row x 4 channels a thread (18 warps)": [
+        ("constexpr int kRows = 3;", "constexpr int kRows = 1;"),
+        ("constexpr int kCh = 2;", "constexpr int kCh = 4;")],
+    "fp32: one wave (a block an SM)": [
+        ("constexpr int kFmaBlocksPerSm = 2;",
+         "constexpr int kFmaBlocksPerSm = 1;")],
 }
 
 #: each kernel's variants: (source, variants)
@@ -285,22 +282,29 @@ def _k2_bwd(libs, dev) -> int:
 def _k3_bwd(libs, dev) -> int:
     """K3.bwd's variants: held by chip_smoke.k3_bwd_check on
     K3_BWD_CHECK_SHAPES (fp32 and bf16), then timed at K3_BWD_SHAPES in
-    fp32 and bf16, in turns."""
+    fp32 and bf16, in turns.  Each variant runs on the plan its own
+    source's constants give (``stem.use_bwd_source``)."""
     import chip_smoke
     from cvvae_tpu_torch.ops.kernels import _build, stem
+
+    def use(name):
+        lib = libs[name]
+        _build.library(lib)
+        stem.use_bwd_source((lib.parent.parent / lib.parent.name.replace(
+            "lib", "csrc") / "stem_bwd.cu").read_text())
 
     dtypes = (torch.float32, torch.bfloat16)
     for name, lib in libs.items():
         log = (lib.parent / "build.log").read_text().splitlines()
         for i, line in enumerate(log):
             if "Compiling" in line and (
-                    "stem_bwd_partialIfLi3E" in line
-                    or "stem_bwd_partialI13__nv_bfloat16Li3E" in line):
+                    "stem_bwd_fmaILi3E" in line
+                    or "stem_bwd_mmaILi3E" in line):
                 info = [s for s in log[i:i + 4]
                         if "spill" in s or "Used" in s][:2]
                 print(f"[{name}] {line.split('stem_bwd_')[1][:40]}: "
                       + " | ".join(s.split(":", 1)[-1].strip() for s in info))
-        _build.library(lib)
+        use(name)
         bad = []
         for dtype in dtypes:
             for pad, shape in chip_smoke.K3_BWD_CHECK_SHAPES:
@@ -321,7 +325,7 @@ def _k3_bwd(libs, dev) -> int:
             dy = chip_smoke.randn(tuple(shape) + (stem.COUT,), 33, dev, dtype)
             times = {name: [] for name in libs}
             for name in order:
-                _build.library(libs[name])
+                use(name)
                 times[name].append(chip_smoke.time_ms(
                     lambda: stem.stem_conv3d_backward(x, dy, spec), 10))
             for name, t_ in times.items():
@@ -330,6 +334,7 @@ def _k3_bwd(libs, dev) -> int:
                       flush=True)
             del x, dy
             torch.cuda.empty_cache()
+    stem.use_bwd_source()
     return 0
 
 

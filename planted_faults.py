@@ -182,16 +182,25 @@ FAULTS = {
         "      for (h >>= 1; h > 1; h >>= 1) {"),
     "the edge-time clamp off by a frame": (
         "K3.bwd", "stem_bwd.cu",
-        "        ti = min(max(ti, 0), g.T_in - 1);",
-        "        ti = min(max(ti, 1), g.T_in - 1);"),
+        "    ti = min(max(ti, 0), g.T_in - 1);",
+        "    ti = min(max(ti, 1), g.T_in - 1);"),
     "the last block's partial dropped from the merge": (
         "K3.bwd", "stem_bwd.cu",
-        "  for (int s = 0; s < slots; ++s) t +=",
-        "  for (int s = 0; s < slots - 1; ++s) t +="),
+        "  const int s1 = min(slots, (r + 1) * per);",
+        "  const int s1 = min(slots - 1, (r + 1) * per);"),
     "dy's rows past the tile's pixels not zeroed (stale rows summed)": (
+        # both operands: fp32's copy leaves a stage's rows past the tile
+        # as the last tile left them, and bf16's im2col keeps x's pixels
+        # there (bf16's dy rows there are TMA's zeros)
         "K3.bwd", "stem_bwd.cu",
-        "    for (int i = tid; i < (np3 - t.np) * kCout / 4; i += kThreads)",
-        "    for (int i = tid; i < 0; i += kThreads)"),
+        ("    const bool on = live(p, t);\n",
+         "      const bool live0 = live(k, t), live1 = live(k + 1, t);"),
+        ("    const bool on = live(p, t);\n    if (!on) continue;\n",
+         "      const bool live0 = true, live1 = true;")),
+    "dbias's column of ones zero on odd pixels": (
+        "K3.bwd", "stem_bwd.cu",
+        "          (one0 ? 0x3F80u : 0u) | ((one1 ? 0x3F80u : 0u) << 16);",
+        "          (one0 ? 0x3F80u : 0u);"),
     "the logsumexp taken against the first tile's (stale) running max": (
         "K4", "attention.cu",
         ("    softmax_tile(s, 0, S, scale_log2, t4, m, l, alpha);\n"

@@ -9,7 +9,11 @@
   backward's result.
 - ``stem.bwd_plan`` covers every output position once, and an emulation
   of the kernel's summation order on its plan stays within the bound that
-  ``chip_smoke.k3_bwd_excess`` holds the card to.
+  ``chip_smoke.k3_bwd_excess`` holds the card to: in fp32 one
+  round-to-nearest FMA a term along each slot's runs of pixels; in bf16
+  the tensor core's k-steps emulated pessimistically (each addend
+  truncated to 24 bits of the step's largest, the sum truncated: round
+  toward zero), a tile's products then added to the block's fp32 totals.
 """
 
 import jax
@@ -139,39 +143,76 @@ def test_bf16_gradients_come_back_in_the_parameters_dtype():
 
 PLAN_CASES = [(1, 17, 256, 256, 132), (8, 1, 320, 320, 132), (2, 5, 7, 130, 3),
               (1, 3, 1, 64, 1), (2, 2, 3, 37, 132), (1, 1, 2, 257, 5)]
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+RUN = stem.BWD_PX // stem.BWD_RUNS
 
 
 def _tiles_of(plan, k):
     return range(k * plan["per"], min((k + 1) * plan["per"], plan["n_tiles"]))
 
 
+def _tile(plan, idx, w):
+    """(first output position, pixels) of tile ``idx`` of an output row of
+    ``w`` pixels."""
+    row, wt = divmod(idx, plan["n_wt"])
+    w0 = wt * plan["tile_w"]
+    return row * w + w0, min(plan["tile_w"], w - w0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,t,h,w,sms", PLAN_CASES)
-def test_bwd_plan_covers_every_output_position_once(b, t, h, w, sms):
-    plan = stem.bwd_plan(b, t, h, w, sms)
-    assert plan["grid"] <= sms * stem.BWD_BLOCKS_PER_SM
+def test_bwd_plan_covers_every_output_position_once(b, t, h, w, sms, dtype):
+    plan = stem.bwd_plan(b, t, h, w, sms, DTYPES[dtype])
+    assert plan["grid"] <= sms * stem.BWD_BLOCKS_PER_SM[DTYPES[dtype]]
     seen = np.zeros(b * t * h * w, np.int64)
-    most = 0
+    most = 0   # terms a slot adds in order (fp32), tiles a block (bf16)
     for k in range(plan["grid"]):
-        count = 0
+        runs = np.zeros(stem.BWD_RUNS, np.int64)
+        tiles = 0
         for idx in _tiles_of(plan, k):
-            row, wt = divmod(idx, plan["n_wt"])
-            w0 = wt * stem.BWD_TILE_W
-            np_ = min(stem.BWD_TILE_W, w - w0)
+            p0, np_ = _tile(plan, idx, w)
             assert np_ >= 1
-            seen[row * w + w0:row * w + w0 + np_] += 1
-            count += np_
-        assert count > 0                        # no block without work
-        most = max(most, count)
+            seen[p0:p0 + np_] += 1
+            for q in range(stem.BWD_RUNS):
+                runs[q] += max(0, min(np_, (q + 1) * RUN) - q * RUN)
+            tiles += 1
+        assert tiles > 0                        # no block without work
+        most = max(most, runs.max() if dtype == "fp32" else tiles)
     assert (seen == 1).all()
-    # the bound's count: every term of a block, one more for the merge
-    assert most + 1 <= plan["terms"]
+    assert stem.BWD_PX >= stem.BWD_TILE_W[torch.float32] and RUN % 3 == 0
+    assert plan["tile_w"] == stem.BWD_TILE_W[DTYPES[dtype]]
+    if dtype == "fp32":
+        assert plan["slots"] == plan["grid"] * stem.BWD_RUNS
+        # the bound's count: every term of a slot, one more for the merge
+        assert most + 1 <= plan["terms"]
+    else:
+        assert plan["slots"] == plan["grid"]
+        # a tile's k-steps, each truncating its products, the carried sum
+        # and the result; a tile's add to the totals; the merge
+        steps = -(-plan["tile_w"] // stem.BWD_KSTEP)
+        assert 2 * (stem.BWD_KSTEP + 2) * steps + most + 1 <= plan["terms"]
 
 
-def _emulate(x, dy, spec, plan):
-    """The kernel's sums on ``plan``, in its order: each block adds its
-    tiles' positions in order, one fp32 FMA a term (emulated: the exact
-    product and sum in float64, rounded once to fp32), then the blocks'
-    sums in order in double, rounded to fp32."""
+def _mma_step(prods, acc):
+    """One k-step of the tensor core, pessimistically: the exact products
+    (k, N, O) and the carried sum (N, O) aligned to the largest magnitude,
+    each truncated to its 24 bits, summed (exactly: fewer than 2^29 units),
+    and the sum truncated to 24 bits (round toward zero)."""
+    terms = np.concatenate([prods, acc[None]], 0)
+    unit = np.ldexp(1.0, np.frexp(np.abs(terms).max(0))[1] - 24)
+    s = (np.trunc(terms / unit) * unit).sum(0)
+    unit = np.ldexp(1.0, np.frexp(s)[1] - 24)
+    return np.trunc(s / unit) * unit
+
+
+def _emulate(x, dy, spec, plan, dtype):
+    """The kernel's sums on ``plan``, in its order.  fp32: each slot (block,
+    run of RUN pixels a tile) adds its pixels' terms in order, one fp32 FMA
+    a term (emulated: the exact product and sum in float64, rounded once to
+    fp32).  bf16: each tile's k-steps of BWD_KSTEP pixels through
+    ``_mma_step`` from zero, the tile's sums added to the block's fp32
+    totals, rounding to nearest.  Then the slots in order in double, rounded
+    to fp32."""
     xp = stem._padded(torch.from_numpy(x).double(), spec).numpy()
     b, to, ho, wo, o = dy.shape
     cin = x.shape[-1]
@@ -183,31 +224,46 @@ def _emulate(x, dy, spec, plan):
     d = dy.reshape(-1, o).astype(np.float64)
     total = np.zeros((27 * cin + 1, o))
     for k in range(plan["grid"]):
-        acc = np.zeros((27 * cin + 1, o), np.float32)
+        if dtype == "fp32":
+            for q in range(stem.BWD_RUNS):
+                acc = np.zeros((27 * cin + 1, o), np.float32)
+                for idx in _tiles_of(plan, k):
+                    p0, np_ = _tile(plan, idx, wo)
+                    for p in range(p0 + q * RUN, p0 + min(np_, (q + 1) * RUN)):
+                        acc = (acc + np.outer(win[p], d[p])).astype(np.float32)
+                total += acc
+            continue
+        tot = np.zeros((27 * cin + 1, o), np.float32)
         for idx in _tiles_of(plan, k):
-            row, wt = divmod(idx, plan["n_wt"])
-            w0 = wt * stem.BWD_TILE_W
-            for p in range(row * wo + w0,
-                           row * wo + min(w0 + stem.BWD_TILE_W, wo)):
-                acc = (acc + np.outer(win[p], d[p])).astype(np.float32)
-        total += acc
+            p0, np_ = _tile(plan, idx, wo)
+            acc = np.zeros((27 * cin + 1, o))
+            for s0 in range(0, np_, stem.BWD_KSTEP):
+                ps = slice(p0 + s0, p0 + min(np_, s0 + stem.BWD_KSTEP))
+                acc = _mma_step(win[ps, :, None] * d[ps, None, :], acc)
+            tot = (tot + acc).astype(np.float32)
+        total += tot
     dw = total[:-1].reshape(3, 3, 3, cin, o).transpose(4, 3, 0, 1, 2)
     return (torch.from_numpy(dw.astype(np.float32)),
             torch.from_numpy(total[-1].astype(np.float32)))
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("pad,shape,sms", [("edge", (1, 5, 4, 70, 3), 2),
                                            ("zero", (2, 1, 3, 9, 3), 1),
                                            ("edge", (1, 2, 3, 66, 3), 132)])
-def test_emulated_summation_stays_within_the_plans_bound(pad, shape, sms):
+def test_emulated_summation_stays_within_the_plans_bound(pad, shape, sms,
+                                                         dtype):
     _, tspec = _specs(pad)
     x = _inputs(shape, seed=5)[0]
     rng = np.random.RandomState(6)
     # dy with a common offset, so that the partial sums grow and round
     dy = (rng.standard_normal(_out_shape(shape, tspec)) + 3.0).astype(
         np.float32)
-    plan = stem.bwd_plan(*dy.shape[:4], sms)
-    dw, db = _emulate(x, dy, tspec, plan)
+    if dtype == "bf16":  # the kernel's operands: x and dy in bf16
+        x, dy = (torch.from_numpy(a).bfloat16().float().numpy()
+                 for a in (x, dy))
+    plan = stem.bwd_plan(*dy.shape[:4], sms, DTYPES[dtype])
+    dw, db = _emulate(x, dy, tspec, plan, dtype)
     worst, excess = chip_smoke.k3_bwd_excess(
         dw, db, torch.from_numpy(x), torch.from_numpy(dy), tspec,
         plan["terms"])
