@@ -93,11 +93,26 @@ Phases (each prints its findings; any failure exits non-zero):
    against CPU as for SD3 (K3 and K3.bwd launched), then bf16 G and D
    steps on the shipped clip and images (``TRAIN_V1_BATCHES``, each pair
    twice) from the same engine: wall s, peak memory, launches.
+9. diffusion -- the latent-compat demo: K1, K2 and K4 at the shapes the
+   v1 decode of a 64x64 latent with num_frames=1 gives them
+   (``DECODE_K1_SHAPES``, ``DECODE_K2_SHAPES``, ``DECODE_K4_SHAPES``)
+   against their plain versions as phase 3 holds them, timed in bf16; the
+   SD 2.1 UNet, the 23-layer CLIP text tower and the v1 VAE from seeded
+   random weights, written as diffusers / transformers / CV-VAE dirs and
+   loaded back bit-equal; one fp32 UNet forward on the card against the
+   CPU; the demo in bf16 (seeded token ids through CLIP, 50 DDIM steps with
+   CFG 7.5 at 512x512, ``decode_latents``): the frame's shape and
+   finiteness, wall s, ms a UNet step, decode ms, peak memory, and the
+   launches (counts set to 0 just before: none in the sample, whose UNet
+   is plain PyTorch as the JAX UNet calls no Pallas kernel; K1, K2 and K4
+   in the decode); a 4-step bf16 sample against fp32 by the decoded
+   frame's PSNR; the port's script once on those dirs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the per-kernel JSON summary (launches on the served and streamed paths, and at each
-timed shape ms, plain_ms, bound_ms, bound_by, share and library_ms; the
-top-level numbers are those of the bf16 shape with the largest bound).
+the per-kernel JSON summary (launches on the served, streamed, training
+and diffusion paths, and at each timed shape ms, plain_ms, bound_ms,
+bound_by, share and library_ms; the top-level numbers are those of the
+bf16 shape with the largest bound).
 It imports nothing of JAX.
 """
 
@@ -2806,6 +2821,437 @@ def _train_main(dev, smi, compute="float32"):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 9: the latent-compat diffusion demo
+# --------------------------------------------------------------------------
+
+#: the demo: CFG 7.5, 50 DDIM steps at 512x512 (a 64x64 latent)
+DEMO_STEPS, DEMO_GUIDANCE, DEMO_HW = 50, 7.5, (512, 512)
+#: the bf16 sample held to the fp32 one on the card: this many steps, then
+#: the decoded frames by PSNR over 2 max|fp32 frame| >= DEMO_BF16_PSNR.
+#: bf16 rounds each product's operands by 2^-8 relative, CFG 7.5 scales
+#: the two branches' difference by 7.5 and DDIM's x0 divides by sqrt(a_t)
+#: (0.22 at t = 750); a wrong branch, step or scale moves the latents by
+#: tens of percent, below 20 dB
+DEMO_CHECK_STEPS = 4
+DEMO_BF16_PSNR = 40.0
+#: the fp32 UNet forward (TF32 off) on the card against the CPU, batch 1 on
+#: a 32x32 latent: max |card - cpu| <= UNET_CARD_TOL * max |cpu|; fp32 sums
+#: in other orders through 25 resnets and 16 transformers
+UNET_CARD_LATENT = (32, 32)
+UNET_CARD_TOL = 1e-4
+#: the SD 2.1 UNet's parameters (tests/data/unet_sd21_keys.json)
+SD21_UNET_PARAMS = 865910724
+#: the SD 2.x tokenizer's start and end (which also pads) token ids
+BOS, EOS = 49406, 49407
+#: the kernels' launches in the demo's decode of a 64x64 latent with
+#: num_frames=1 (the v1 decoder): K1 (shape, SiLU, per frame), K2 (one
+#: phase's shape, n), K4 (B, S, C); ``tests/test_torch_latent_compat.py``
+#: holds them to the decoder's launches
+DECODE_K1_SHAPES = [((1, 1, 64, 64, 512), True, False),
+                    ((1, 1, 64, 64, 512), False, True),
+                    ((1, 1, 128, 128, 512), True, False),
+                    ((1, 1, 256, 256, 512), True, False),
+                    ((1, 1, 256, 256, 256), True, False),
+                    ((1, 1, 512, 512, 256), True, False),
+                    ((1, 1, 512, 512, 128), True, False)]
+DECODE_K2_SHAPES = [((1, 1, 64, 64, 1024), 2), ((1, 1, 128, 128, 512), 1),
+                    ((1, 1, 256, 256, 512), 2)]
+DECODE_K4_SHAPES = [(1, 4096, 512)]
+
+
+def unet_reference_layout(state):
+    """The port's UNet state dict -> diffusers' UNet2DConditionModel names
+    (the inverse of ``utils/convert.convert_unet_state_dict``)."""
+    import re
+
+    rules = [(re.compile(r"\b((?:down|up)samplers\.\d+)\."), r"\1.conv."),
+             (re.compile(r"\bto_out\."), "to_out.0."),
+             (re.compile(r"\bff_proj\."), "ff.net.0.proj."),
+             (re.compile(r"\bff_out\."), "ff.net.2.")]
+    out = {}
+    for key, value in state.items():
+        for pat, rep in rules:
+            key = pat.sub(rep, key)
+        out[key] = value.detach().cpu().contiguous()
+    return out
+
+
+def clip_reference_layout(state):
+    """The port's CLIP state dict -> transformers' CLIPTextModel names (the
+    inverse of ``utils/convert.convert_clip_text_state_dict``)."""
+    from cvvae_tpu_torch.utils.convert import CLIP_MODULES, CLIP_TOP
+
+    top = {v: k for k, v in CLIP_TOP.items()}
+    mods = {v: k for k, v in CLIP_MODULES.items()}
+    out = {}
+    for key, value in state.items():
+        if key not in top:
+            _, i, rest = key.split(".", 2)
+            mod, leaf = rest.rsplit(".", 1)
+            key = f"text_model.encoder.layers.{i}.{mods[mod]}.{leaf}"
+        else:
+            key = top[key]
+        out[key] = value.detach().cpu().contiguous()
+    return out
+
+
+def write_unet_checkpoint(path, unet):
+    """A diffusers UNet dir: config.json (``attention_head_dim`` as SD 2.1
+    publishes it, per-block head counts) and the safetensors."""
+    from safetensors.torch import save_file
+
+    cfg = unet.config
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(
+            _class_name="UNet2DConditionModel",
+            in_channels=cfg.in_channels, out_channels=cfg.out_channels,
+            block_out_channels=list(cfg.block_out_channels),
+            layers_per_block=cfg.layers_per_block,
+            cross_attention_dim=cfg.cross_attention_dim,
+            attention_head_dim=[c // cfg.attention_head_dim
+                                for c in cfg.block_out_channels],
+            norm_num_groups=cfg.norm_num_groups, use_linear_projection=True),
+            f)
+    save_file(unet_reference_layout(unet.state_dict()),
+              os.path.join(path, "diffusion_pytorch_model.safetensors"))
+
+
+def write_clip_checkpoint(path, model):
+    """A transformers CLIPTextModel dir: config.json and model.safetensors."""
+    import dataclasses
+
+    from safetensors.torch import save_file
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(architectures=["CLIPTextModel"],
+                       model_type="clip_text_model", bos_token_id=BOS,
+                       eos_token_id=EOS, **dataclasses.asdict(model.config)),
+                  f)
+    save_file(clip_reference_layout(model.state_dict()),
+              os.path.join(path, "model.safetensors"))
+
+
+def demo_token_ids():
+    """(prompt, empty prompt) token ids (2, 77): BOS, 20 seeded tokens, EOS
+    padded with EOS; and BOS, EOS padded with EOS."""
+    g = torch.Generator().manual_seed(9)
+    ids = torch.full((2, 77), EOS, dtype=torch.long)
+    ids[:, 0] = BOS
+    ids[0, 1:21] = torch.randint(0, BOS, (20,), generator=g)
+    return ids
+
+
+def _check_decode_kernels(dev, summary):
+    """K1, K2 and K4 at every distinct launch of the demo's decode against
+    their plain versions, as phase 3 holds them: K1 (``k1_check``, twice
+    bit-identical) and K2 (bit-exact) in bf16 and fp32, K4 (``k4_check``
+    and its logsumexp) in bf16 on N(0, 1) and rising logits; each timed in
+    bf16 in turns with its plain version (K4 also beside SDPA)."""
+    from cvvae_tpu_torch.ops.kernels import attention, groupnorm, shuffle
+
+    def record(key, label, err, excess, text, timing=None):
+        ok = excess <= 0.0
+        summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"], err)
+        if timing:
+            shape, dtype, k_ms, p_ms, l_ms, kw = timing
+            b_ms, by = bound(key, shape, dtype, **kw)
+            summary[key]["timed"].append(dict(
+                shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                where="diffusion decode", ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=by, share=b_ms / k_ms,
+                library_ms=l_ms))
+            text += (f" kernel_ms={k_ms!r} plain_ms={p_ms!r} library_ms="
+                     f"{l_ms!r} bound_ms={b_ms!r} ({by}) share={b_ms / k_ms!r}")
+        say(f"[diffusion] {key} decode {label}: max_abs_err={err!r} {text} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{key} decode {label}: disagrees with its "
+                             f"plain version")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for shape, silu, per_frame in DECODE_K1_SHAPES:
+            x, w, b = k1_inputs(shape, dev, dtype)
+            kw = dict(num_groups=32, eps=1e-5, silu=silu, per_frame=per_frame)
+            got = groupnorm.group_norm_silu(x, w, b, **kw)
+            torch.cuda.synchronize()
+            err, excess, text = k1_check(got, x, w, b, **kw)
+            same = torch.equal(got, groupnorm.group_norm_silu(x, w, b, **kw))
+            text += f" bit-identical across two calls: {same}"
+            del got
+            timing = None
+            if timed:
+                k_ms, p_ms, _ = in_turns(
+                    lambda: groupnorm.group_norm_silu_plain(x, w, b, **kw),
+                    lambda: groupnorm.group_norm_silu(x, w, b, **kw))
+                timing = (shape, dtype, k_ms, p_ms, None, dict(silu=silu))
+            record("K1", f"{shape} {dtype} silu={silu} per_frame={per_frame}",
+                   err, excess if same else math.inf, text, timing)
+            del x
+        for shape, n in DECODE_K2_SHAPES:
+            phases = [randn(shape, 10 + j, dev, dtype) for j in range(4)]
+            bias = randn(shape[-1:], 20, dev, dtype)
+            got = shuffle.subpixel_interleave(phases, bias, n=n)
+            ref = shuffle.subpixel_interleave_plain(phases, bias, n=n)
+            torch.cuda.synchronize()
+            exact = k2_exact(got, ref)
+            err = (0.0 if exact else compare(got, ref)[0]
+                   if got.shape == ref.shape else math.inf)
+            del got, ref
+            timing = None
+            if timed:
+                k_ms, p_ms, _ = in_turns(
+                    lambda: shuffle.subpixel_interleave_plain(phases, bias,
+                                                              n=n),
+                    lambda: shuffle.subpixel_interleave(phases, bias, n=n))
+                timing = (shape, dtype, k_ms, p_ms, None, dict(n=n))
+            record("K2", f"{shape} n={n} {dtype} bit-exact={exact}", err,
+                   0.0 if exact else 1.0, "tol=bit-exact", timing)
+            del phases
+    for shape in DECODE_K4_SHAPES:
+        for rising in (False, True):
+            q, k, v = k4_inputs(shape, dev, torch.bfloat16, rising)
+            scale = shape[-1] ** -0.5
+            got = attention.flash_attention(q, k, v, scale)
+            ref = attention.flash_attention_plain(q, k, v, scale)
+            _, lse = attention._launch(q, k, v, scale, True)
+            torch.cuda.synchronize()
+            err, excess, text = k4_check(got, ref)
+            lse_err, lse_excess, lse_text = k4_lse_check(
+                lse, attention.flash_attention_lse_plain(q, k, scale))
+            raises = k4_max_raises(q, k, scale)
+            text += (f"; {lse_text} max_abs_err {lse_err!r}; max raised "
+                     f"{raises!r} times a row after tile 0")
+            excess = max(excess, lse_excess,
+                         math.inf if rising and raises < 1.0 else 0.0)
+            del got, ref, lse
+            timing = None
+            if not rising:  # SDPA as (B, 1 head, S, C)
+                lib = functools.partial(
+                    torch.nn.functional.scaled_dot_product_attention,
+                    q[:, None], k[:, None], v[:, None], scale=scale)
+                k_ms, p_ms, l_ms = in_turns(
+                    lambda: attention.flash_attention_plain(q, k, v, scale),
+                    lambda: attention.flash_attention(q, k, v, scale), lib)
+                timing = (shape, torch.bfloat16, k_ms, p_ms, l_ms, {})
+                del lib
+            record("K4", f"{shape} bfloat16"
+                   f"{' rising logits' if rising else ''}", err, excess,
+                   text, timing)
+            del q, k, v
+    torch.cuda.empty_cache()
+
+
+def _unet_card_vs_cpu(path, dev):
+    """One fp32 UNet forward (TF32 off), batch 1 on a UNET_CARD_LATENT
+    latent at t = 500, on the card and on the CPU from the checkpoint dir:
+    (max |d|, max |cpu|)."""
+    from cvvae_tpu_torch.utils.convert import load_unet_checkpoint
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((1,) + UNET_CARD_LATENT + (4,), generator=g)
+    ctx = torch.randn((1, 77, 1024), generator=g)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        unet = load_unet_checkpoint(path, dtype=torch.float32, device=device)
+        with torch.inference_mode():
+            outs.append(unet(x.to(device), 500, ctx.to(device)).cpu())
+        del unet
+        gc.collect()
+        torch.cuda.empty_cache()
+    card, cpu = outs
+    return (card - cpu).abs().max().item(), cpu.abs().max().item()
+
+
+def _sample(pipe, cond, uncond, steps):
+    """The demo's latents from seed 0, fp32: (latents, synchronised wall
+    s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = pipe(torch.Generator().manual_seed(0), cond=cond, uncond=uncond,
+               height=DEMO_HW[0], width=DEMO_HW[1],
+               num_inference_steps=steps, guidance_scale=DEMO_GUIDANCE,
+               output_type="latent")
+    torch.cuda.synchronize()
+    return lat, time.perf_counter() - t0
+
+
+def _diffusion(dev, smi, summary):
+    """Phase 9: K1, K2 and K4 at the decode's launches against their plain
+    versions; the SD 2.1 UNet, the 23-layer CLIP text tower and the v1 VAE
+    from seeded random weights written as their publishers' checkpoint dirs
+    and loaded back bit-equal; the fp32 UNet card against CPU; the bf16
+    demo (CLIP, 50 DDIM steps with CFG 7.5 at 512x512, the decode) with
+    its wall s, ms a UNet step, decode ms, peak memory and launches (none
+    in the sample: the UNet is plain PyTorch, as the JAX UNet calls no
+    Pallas kernel; K1, K2 and K4 in the decode); a 4-step bf16 sample
+    against fp32 by PSNR; the port's script once.  Returns the launches of
+    the demo's path."""
+    import tempfile
+
+    from cvvae_tpu_torch.models.clip_text import (CLIPText, CLIPTextConfig,
+                                                  make_text_embedder)
+    from cvvae_tpu_torch.models.unet2d import (UNet2D, UNet2DConfig,
+                                               make_denoiser)
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+    from cvvae_tpu_torch.pipelines.diffusion import LatentDiffusionPipeline
+    from cvvae_tpu_torch.scripts import sd21_vae3d_inference
+    from cvvae_tpu_torch.utils.convert import (load_clip_text_checkpoint,
+                                               load_unet_checkpoint)
+
+    t_start = time.perf_counter()
+    _check_decode_kernels(dev, summary)
+    t_kernels = time.perf_counter() - t_start
+
+    bf16 = torch.bfloat16
+    # name -> (the source model on the CPU, its writer, its loader)
+    models = {
+        "unet": (lambda: UNet2D.from_config(UNet2DConfig(), seed=0,
+                                            dtype=bf16, device="cpu"),
+                 write_unet_checkpoint,
+                 lambda path, dtype: load_unet_checkpoint(path, dtype=dtype,
+                                                          device=dev)),
+        "clip": (lambda: CLIPText.from_config(CLIPTextConfig(), seed=1,
+                                              dtype=bf16, device="cpu"),
+                 write_clip_checkpoint,
+                 lambda path, dtype: load_clip_text_checkpoint(
+                     path, dtype=dtype, device=dev)),
+        "vae": (lambda: VideoVAE.from_config(config_for_variant("v1"), seed=2,
+                                             dtype=bf16, device="cpu"),
+                lambda path, m: write_reference_checkpoint(
+                    path, m.config, m.state_dict()),
+                lambda path, dtype: VideoVAE.from_pretrained(
+                    path, dtype=dtype, device=dev))}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, k) for k in models}
+
+        def load(dtype):
+            return [models[k][2](paths[k], dtype) for k in models]
+
+        t0 = time.perf_counter()
+        srcs = {}
+        for name, (build, write, _) in models.items():
+            srcs[name] = build()
+            write(paths[name], srcs[name])
+        unet, clip, vae = load(bf16)
+        same = all(torch.equal(v, got.state_dict()[k].cpu())
+                   for name, got in zip(models, (unet, clip, vae))
+                   for k, v in srcs[name].state_dict().items())
+        n_params = {k: sum(p.numel() for p in m.parameters())
+                    for k, m in srcs.items()}
+        del srcs
+        gc.collect()
+        ok = same and n_params["unet"] == SD21_UNET_PARAMS
+        say(f"[diffusion] SD 2.1 UNet, 23-layer CLIP text tower and v1 VAE "
+            f"({n_params} params) from seeded random weights written as "
+            f"diffusers / transformers / CV-VAE dirs and loaded on the card "
+            f"in bf16 in {time.perf_counter() - t0:.1f}s; weights bit-equal "
+            f"to the sources': {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("diffusion: a loaded model differs from its "
+                             "source")
+
+        diff, ref_max = _unet_card_vs_cpu(paths["unet"], dev)
+        ok = diff <= UNET_CARD_TOL * ref_max
+        say(f"[diffusion] fp32 UNet forward (1,{UNET_CARD_LATENT[0]},"
+            f"{UNET_CARD_LATENT[1]},4) card vs CPU: max|d|={diff!r} "
+            f"max|cpu|={ref_max!r} (<= {UNET_CARD_TOL} * max|cpu|) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("diffusion: the fp32 UNet on the card differs "
+                             "from the CPU's")
+
+        # the demo in bf16: CLIP -> 50 DDIM steps with CFG -> decode
+        ids = demo_token_ids()
+        pipe = LatentDiffusionPipeline(vae, make_denoiser(unet, bf16))
+        _sample(pipe, *make_text_embedder(clip)(ids).float().chunk(2), 2)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cond, uncond = make_text_embedder(clip)(ids).float().chunk(2)
+        lat, sample_s = _sample(pipe, cond, uncond, DEMO_STEPS)
+        in_sample = {k: n for k, n in launch_counts().items() if n}
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            frame = pipe.decode_latents(lat.to(bf16))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        decode_wall = time.perf_counter() - t1
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        denoise = make_denoiser(unet, bf16)
+        step_ms = time_ms(functools.partial(
+            denoise, torch.cat([lat, lat]), 500, torch.cat([uncond, cond])))
+        with torch.inference_mode():
+            decode_ms = time_ms(functools.partial(pipe.decode_latents,
+                                                  lat.to(bf16)), 3)
+        finite = bool(torch.isfinite(frame).all())
+        ok = (frame.shape == (1,) + DEMO_HW + (3,) and finite
+              and not in_sample
+              and all(counts[k] > 0 for k in ("K1", "K2", "K4")))
+        say(f"[diffusion] demo bf16 {DEMO_HW[0]}x{DEMO_HW[1]}, {DEMO_STEPS} "
+            f"DDIM steps, CFG {DEMO_GUIDANCE}: frame {tuple(frame.shape)} "
+            f"finite {finite}; wall s {wall!r} (prompts + sample "
+            f"{sample_s!r} + decode {decode_wall!r}); ms a UNet step (CFG "
+            f"batch 2, CUDA events) {step_ms!r}; sample s / steps "
+            f"{sample_s / DEMO_STEPS!r}; VAE decode ms (CUDA events) "
+            f"{decode_ms!r}; peak memory {peak!r} GiB; launches in the "
+            f"sample {in_sample} (none: the UNet is plain PyTorch), in the "
+            f"decode {counts}; card {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("diffusion: the demo's frame is wrong, or a "
+                             "kernel of its decode never ran, or one ran "
+                             "in the sample")
+
+        # DEMO_CHECK_STEPS in bf16 against fp32, both on the card
+        frames = []
+        for dtype in (bf16, torch.float32):
+            if dtype == torch.float32:
+                del unet, clip, vae, pipe, denoise
+                gc.collect()
+                torch.cuda.empty_cache()
+                unet, clip, vae = load(dtype)
+                pipe = LatentDiffusionPipeline(vae, make_denoiser(unet))
+            c, u = make_text_embedder(clip, dtype)(ids).float().chunk(2)
+            lat, _ = _sample(pipe, c, u, DEMO_CHECK_STEPS)
+            with torch.inference_mode():
+                frames.append(pipe.decode_latents(lat.to(dtype)).float())
+        peak_ref = 2 * frames[1].abs().max().item()
+        db = frames_psnr(frames[0], frames[1], peak_ref)
+        ok = db >= DEMO_BF16_PSNR
+        say(f"[diffusion] {DEMO_CHECK_STEPS}-step bf16 sample against fp32 "
+            f"on the card: PSNR {db!r} dB over 2 max|fp32 frame| = "
+            f"{peak_ref!r} (>= {DEMO_BF16_PSNR}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"diffusion: bf16 is {db} dB from fp32")
+        del unet, clip, vae, pipe, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out = os.path.join(tmp, "demo.png")
+        t0 = time.perf_counter()
+        sd21_vae3d_inference.main([
+            "--unet_path", paths["unet"], "--vae3d_path", paths["vae"],
+            "--steps", str(DEMO_CHECK_STEPS), "--device", str(dev),
+            "--out", out])
+        size = os.path.getsize(out) if os.path.exists(out) else 0
+        ok = size > 0
+        say(f"[diffusion] the port's script ({DEMO_CHECK_STEPS} steps, no "
+            f"text encoder; the UNet and VAE in bf16 computing in the fp32 "
+            f"latents' dtype, as the JAX script) wrote {out} ({size} bytes) "
+            f"in {time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("diffusion: the script wrote no image")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[diffusion] phase 9 in {time.perf_counter() - t_start:.1f}s "
+        f"(kernel checks {t_kernels:.1f}s)")
+    return counts
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2903,6 +3349,9 @@ def main() -> int:
         f"the card's G + D check {train_check}, in the bf16 G + D check "
         f"{bf16_check}, in v1's G + D check {v1_check}, in v1's bf16 steps "
         f"{v1_bf16}")
+    # phase 9: the latent-compat diffusion demo (its launches counted from
+    # 0 just before the demo)
+    diffusion = timed("diffusion", _diffusion, dev, smi, summary)
 
     kernels = []
     for k in KERNELS:
@@ -2916,12 +3365,13 @@ def main() -> int:
             KERNELS[k],
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
                       + train_main[k] + train_bf16[k] + v1_check[k]
-                      + v1_bf16[k]),
+                      + v1_bf16[k] + diffusion[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
                    "train": train_main[k], "train-bf16": train_bf16[k],
-                   "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k]}),
+                   "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k],
+                   "diffusion": diffusion[k]}),
             launches_per_reconstruct={p: r[k]
                                       for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],

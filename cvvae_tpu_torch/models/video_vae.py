@@ -125,12 +125,13 @@ def _blend_v(a: torch.Tensor, b: torch.Tensor, overlap: int) -> torch.Tensor:
     return torch.cat([blended, b[:, :, overlap:, :, :]], dim=2)
 
 
-def _on_device(device, who: str) -> torch.device:
-    """``device``, or RuntimeError when it is the card and there is none."""
+def on_device(device, who: str) -> torch.device:
+    """``device``, or RuntimeError when it is the card and there is none;
+    ``who`` names the entry point in the message."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"VideoVAE.{who}: no CUDA device; pass "
-                           f"device='cpu' to build the model on the CPU")
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to "
+                           f"build the model on the CPU")
     return device
 
 
@@ -161,7 +162,7 @@ class VideoVAE(nn.Module):
 
         The model runs on the card unless the caller asks for the CPU
         (``device="cpu"``); without a card the default raises."""
-        device = _on_device(device, "from_config")
+        device = on_device(device, "VideoVAE.from_config")
         g = torch.Generator().manual_seed(seed)
         vae = cls(config, g).to(device=device, dtype=dtype)
         return vae.eval().requires_grad_(False)
@@ -176,7 +177,7 @@ class VideoVAE(nn.Module):
         As ``from_config``: on the card unless the caller asks for the CPU,
         and without a card the default raises."""
         from cvvae_tpu_torch.utils.convert import load_reference_checkpoint
-        device = _on_device(device, "from_pretrained")
+        device = on_device(device, "VideoVAE.from_pretrained")
         if subfolder:
             path = os.path.join(path, subfolder)
         return load_reference_checkpoint(cls, path, dtype=dtype, device=device)

@@ -33,15 +33,18 @@ from cvvae_tpu_torch.ops.kernels.attention import flash_attention
 
 class Dense(nn.Module):
     """A dense layer's parameters, torch Linear layout: ``weight`` (O, I)
-    and ``bias`` (O,), initialised as torch's Linear default."""
+    and ``bias`` (O,) (None without ``bias``), initialised as torch's
+    Linear default."""
 
     def __init__(self, c_in: int, c_out: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bias: bool = True):
         super().__init__()
         bound = 1.0 / math.sqrt(c_in)
         self.weight = nn.Parameter(uniform_(torch.empty(c_out, c_in), bound,
                                             generator))
-        self.bias = nn.Parameter(uniform_(torch.empty(c_out), bound, generator))
+        self.bias = (nn.Parameter(uniform_(torch.empty(c_out), bound,
+                                           generator)) if bias else None)
 
 
 def dense(x: torch.Tensor, params) -> torch.Tensor:

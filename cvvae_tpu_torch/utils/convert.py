@@ -8,11 +8,14 @@ Two sources:
   layout change:
 
   - a conv kernel (kT, kH, kW, I, O)       -> weight (O, I, kT, kH, kW)
-    (a per-frame kernel (1, kH, kW, I, O)  -> a Conv3d weight (O, I, 1, kH, kW))
+    (a per-frame kernel (1, kH, kW, I, O)  -> a Conv3d weight (O, I, 1, kH, kW);
+    with ``conv2d``, the UNet's            -> a Conv2d weight (O, I, kH, kW))
   - a dense kernel (I, O)                  -> weight (O, I)
   - a norm's scale / bias                  -> its weight / bias
   - a quantized conv's kernel_q (kT, kH, kW, I, O) int8 -> weight_q
     (O, I, kT, kH, kW); its scale_w and scale_x as they are
+  - CLIP's bare ``token_embedding`` / ``position_embedding`` tables ->
+    that embedding's weight, as they are
 
 * **The reference's checkpoints** (``convert_state_dict``,
   ``load_reference_checkpoint``, ``load_torch_checkpoint_file``): HF
@@ -27,6 +30,13 @@ Two sources:
   - Conv2d (O, I, kH, kW)         -> (O, I, 1, kH, kW) (a per-frame conv)
   - a dense 1x1 Conv2d (O, I, 1, 1) -> (O, I); a Linear (O, I) as it is
   - a norm's weight / bias        -> as they are
+
+* **The latent-compat demo's checkpoints**: a diffusers SD 2.x UNet
+  (``convert_unet_state_dict``, ``load_unet_checkpoint``) and a
+  transformers CLIPTextModel (``convert_clip_text_state_dict``,
+  ``load_clip_text_checkpoint``), the counterparts of
+  ``cvvae_tpu/utils/convert.py:223-364``.  Their tensors keep torch's
+  layout (the port's UNet convs are Conv2d, its dense layers Linear).
 
 Load the result with ``load_state_dict(..., strict=True)`` so that a key
 missed on either side fails; a quantized tree loads with
@@ -48,10 +58,18 @@ import numpy as np
 import torch
 
 
-def _convert_leaf(leaf: str, value: np.ndarray):
+#: the bare embedding tables of the JAX CLIP tree
+_EMBEDDINGS = {"token_embedding", "position_embedding"}
+
+
+def _convert_leaf(leaf: str, value: np.ndarray, conv2d: bool = False):
     if leaf == "scale":
         return "weight", value
+    if leaf in _EMBEDDINGS:
+        return f"{leaf}.weight", value
     if leaf == "kernel":
+        if conv2d and value.ndim == 5 and value.shape[0] == 1:
+            return "weight", value[0].transpose(3, 2, 0, 1)
         if value.ndim == 5:
             return "weight", value.transpose(4, 3, 0, 1, 2)
         if value.ndim == 4:  # a 2D conv (kH, kW, I, O): LPIPS's VGG, heads
@@ -67,13 +85,16 @@ def _convert_leaf(leaf: str, value: np.ndarray):
     raise ValueError(f"unexpected leaf {leaf!r}")
 
 
-def from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+def from_jax_params(params: dict, conv2d: bool = False
+                    ) -> Dict[str, torch.Tensor]:
     """A JAX params tree of array-likes -> state_dict: the VideoVAE's
     {"encoder", "decoder"}, the training engine's generator tree (with
     the 0-d ``logvar`` / ``logvar_2d``), a discriminator (Disc3D; Disc2D
     with BatchNorm ``mean``/``var`` or ActNorm ``loc``/``initialized``),
-    LPIPS ({"vgg", "lins"}, 2D kernels) or a 2D constraint net.  An
-    optimizer's moments of any of these convert alike."""
+    LPIPS ({"vgg", "lins"}, 2D kernels), a 2D constraint net, the CLIP
+    text tower, or with ``conv2d`` the UNet (its (1, kH, kW, I, O) kernels
+    become Conv2d weights).  An optimizer's moments of any of these
+    convert alike."""
     out: Dict[str, torch.Tensor] = {}
 
     def visit(node, path):
@@ -82,7 +103,7 @@ def from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
         elif isinstance(node, (list, tuple)):
             items = enumerate(node)
         else:
-            name, value = _convert_leaf(path[-1], np.asarray(node))
+            name, value = _convert_leaf(path[-1], np.asarray(node), conv2d)
             key = ".".join(path[:-1] + [name])
             out[key] = torch.from_numpy(np.array(value, order="C"))
             return
@@ -274,6 +295,16 @@ def _read_state(path: str) -> Dict[str, torch.Tensor]:
     return blob.get("state_dict", blob)
 
 
+def _read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every ``*.safetensors`` file of a checkpoint dir, in one state dict
+    (empty where there is none)."""
+    state: Dict[str, torch.Tensor] = {}
+    for fname in sorted(os.listdir(path)):
+        if fname.endswith(".safetensors"):
+            state.update(_read_state(os.path.join(path, fname)))
+    return state
+
+
 def load_reference_checkpoint(cls, path: str, dtype=torch.float32,
                               device="cuda"):
     """Load an HF-style checkpoint dir (config.json + *.safetensors) into
@@ -282,12 +313,9 @@ def load_reference_checkpoint(cls, path: str, dtype=torch.float32,
         cfg_json = json.load(f)
     config = _config_from_json(cfg_json)
 
-    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
-    if not files:
+    state = _read_safetensors_dir(path)
+    if not state:
         raise FileNotFoundError(f"no .safetensors files in {path}")
-    state: Dict[str, torch.Tensor] = {}
-    for fname in files:
-        state.update(_read_state(os.path.join(path, fname)))
     converted, skipped = convert_state_dict(state)
     if skipped:
         print(f"[cvvae_tpu_torch] skipped {len(skipped)} non-VAE keys "
@@ -305,3 +333,139 @@ def load_torch_checkpoint_file(path: str, dtype=torch.float32,
     Returns (the port's state dict, skipped keys)."""
     return convert_state_dict(_read_state(path), prefixes=prefixes,
                               dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# The latent-compat demo: UNet2DConditionModel and CLIPTextModel
+# ---------------------------------------------------------------------------
+
+def convert_unet_state_dict(state_dict: Dict[str, object],
+                            dtype: torch.dtype = torch.float32
+                            ) -> Dict[str, torch.Tensor]:
+    """A diffusers UNet2DConditionModel state dict (SD 2.x,
+    use_linear_projection) -> the state dict of ``models/unet2d.UNet2D``.
+
+    The UNet has no top-level prefix, so every key converts, through the
+    same path rewrites as the VAE's (``downsamplers.0.conv`` ->
+    ``downsamplers.0``, ``to_out.0`` -> ``to_out``, the GEGLU's
+    ``ff.net.0.proj`` / ``ff.net.2`` -> ``ff_proj`` / ``ff_out``); every
+    tensor keeps its torch layout."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        path, _, leaf = _translate_key(key)
+        out[".".join([str(p) for p in path] + [leaf])] = \
+            torch.as_tensor(value).detach().to(dtype).contiguous()
+    return out
+
+
+def unet_config_from_json(cfg_json: dict):
+    """A UNet2DConfig from a diffusers config.json.  A list-valued
+    ``attention_head_dim`` (per-block head *counts* in old configs) gives
+    block_out_channels[0] // its first entry, as the JAX package's loader
+    has it."""
+    from cvvae_tpu_torch.models.unet2d import UNet2DConfig
+
+    head = cfg_json.get("attention_head_dim", 64)
+    if isinstance(head, (list, tuple)):
+        head = cfg_json["block_out_channels"][0] // head[0]
+    return UNet2DConfig(
+        in_channels=cfg_json.get("in_channels", 4),
+        out_channels=cfg_json.get("out_channels", 4),
+        block_out_channels=tuple(cfg_json["block_out_channels"]),
+        layers_per_block=cfg_json.get("layers_per_block", 2),
+        cross_attention_dim=cfg_json.get("cross_attention_dim", 1024),
+        attention_head_dim=head,
+        norm_num_groups=cfg_json.get("norm_num_groups", 32))
+
+
+def load_unet_checkpoint(path: str, dtype: torch.dtype = torch.float32,
+                         device="cuda"):
+    """A diffusers UNet checkpoint dir (config.json + *.safetensors) ->
+    ``models/unet2d.UNet2D`` on ``device`` in ``dtype``, loaded strictly
+    (its ``config`` is the UNet2DConfig); on the card unless the caller
+    asks for the CPU, and without a card the default raises."""
+    from cvvae_tpu_torch.models import unet2d
+    from cvvae_tpu_torch.models.video_vae import on_device
+
+    device = on_device(device, "load_unet_checkpoint")
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = unet_config_from_json(json.load(f))
+    state = convert_unet_state_dict(_read_safetensors_dir(path), dtype)
+    with torch.device("meta"):
+        unet = unet2d.UNet2D(cfg)
+    unet.load_state_dict(state, strict=True, assign=True)
+    return unet2d.to_device(unet, device, dtype)
+
+
+_CLIP_LAYER_RE = re.compile(r"^text_model\.encoder\.layers\.(\d+)\.(.+)$")
+#: transformers' module names in a layer -> the port's
+CLIP_MODULES = {"self_attn.q_proj": "attn.q", "self_attn.k_proj": "attn.k",
+                "self_attn.v_proj": "attn.v", "self_attn.out_proj": "attn.out",
+                "layer_norm1": "ln1", "layer_norm2": "ln2", "mlp.fc1": "fc1",
+                "mlp.fc2": "fc2"}
+#: transformers' keys outside the layers -> the port's
+CLIP_TOP = {"text_model.embeddings.token_embedding.weight":
+            "token_embedding.weight",
+            "text_model.embeddings.position_embedding.weight":
+            "position_embedding.weight",
+            "text_model.final_layer_norm.weight": "final_ln.weight",
+            "text_model.final_layer_norm.bias": "final_ln.bias"}
+
+
+def convert_clip_text_state_dict(state_dict: Dict[str, object],
+                                 dtype: torch.dtype = torch.float32
+                                 ) -> Dict[str, torch.Tensor]:
+    """A transformers ``CLIPTextModel`` state dict -> the state dict of
+    ``models/clip_text.CLIPText``.
+
+    Names are the real transformers names (pinned full-size in
+    tests/data/clip_sd21_keys.json); tensors keep torch's layout.
+    ``position_ids`` buffers and the projection head of
+    ``CLIPTextModelWithProjection`` are skipped; any other unknown key
+    raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        if key.endswith("position_ids") or key == "text_projection.weight":
+            continue
+        name = CLIP_TOP.get(key)
+        if name is None:
+            m = _CLIP_LAYER_RE.match(key)
+            mod, leaf = m.group(2).rsplit(".", 1) if m else (None, None)
+            if mod not in CLIP_MODULES:
+                raise KeyError(f"unrecognised CLIP text key: {key}")
+            name = f"layers.{m.group(1)}.{CLIP_MODULES[mod]}.{leaf}"
+        out[name] = torch.as_tensor(value).detach().to(dtype).contiguous()
+    return out
+
+
+def load_clip_text_checkpoint(path: str, dtype: torch.dtype = torch.float32,
+                              device="cuda"):
+    """A transformers CLIPTextModel checkpoint dir (config.json +
+    *.safetensors, or pytorch_model.bin) -> ``models/clip_text.CLIPText``
+    on ``device`` in ``dtype``, loaded strictly (its ``config`` is the
+    CLIPTextConfig); on the card unless the caller asks for the CPU, and
+    without a card the default raises."""
+    from cvvae_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
+    from cvvae_tpu_torch.models.video_vae import on_device
+
+    device = on_device(device, "load_clip_text_checkpoint")
+    with open(os.path.join(path, "config.json")) as f:
+        cfg_json = json.load(f)
+    cfg = CLIPTextConfig(
+        vocab_size=cfg_json.get("vocab_size", 49408),
+        hidden_size=cfg_json.get("hidden_size", 1024),
+        intermediate_size=cfg_json.get("intermediate_size", 4096),
+        num_hidden_layers=cfg_json.get("num_hidden_layers", 23),
+        num_attention_heads=cfg_json.get("num_attention_heads", 16),
+        max_position_embeddings=cfg_json.get("max_position_embeddings", 77),
+        hidden_act=cfg_json.get("hidden_act", "gelu"),
+        layer_norm_eps=cfg_json.get("layer_norm_eps", 1e-5))
+    state = _read_safetensors_dir(path)
+    if not state:
+        state = torch.load(os.path.join(path, "pytorch_model.bin"),
+                           map_location="cpu", weights_only=True)
+    state = convert_clip_text_state_dict(state, dtype)
+    with torch.device("meta"):
+        model = CLIPText(cfg)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.to(device=device, dtype=dtype).eval().requires_grad_(False)

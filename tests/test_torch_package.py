@@ -1,7 +1,8 @@
 """Package-level contracts of the PyTorch port.
 
 * importing it pulls in no JAX (checked in a subprocess: this process has
-  JAX loaded by conftest);
+  JAX loaded by conftest), nor ``transformers``, which the demo's script
+  needs only with a text encoder;
 * ``from_jax_params`` yields exactly the modules' state_dict keys and
   shapes;
 * on a CPU tensor every kernel wrapper takes its plain version and its
@@ -47,10 +48,14 @@ def test_import_pulls_in_no_jax():
             "import cvvae_tpu_torch.utils.metrics, "
             "cvvae_tpu_torch.utils.verify_checkpoints, "
             "cvvae_tpu_torch.utils.bench_streaming\n"
+            "import cvvae_tpu_torch.pipelines.diffusion, "
+            "cvvae_tpu_torch.models.unet2d, cvvae_tpu_torch.models.clip_text\n"
+            "import cvvae_tpu_torch.scripts.sd21_vae3d_inference\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cvvae_tpu' or "
             "m.startswith('cvvae_tpu.'))\n"
             "assert not bad, bad\n"
+            "assert 'transformers' not in sys.modules\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -198,6 +203,7 @@ def test_training_modules_pull_in_no_jax():
             "m.startswith('jax.') or m == 'cvvae_tpu' or "
             "m.startswith('cvvae_tpu.') or m == 'optax')\n"
             "assert not bad, bad\n"
+            "assert 'transformers' not in sys.modules\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
