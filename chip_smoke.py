@@ -26,8 +26,8 @@ Phases (each prints its findings; any failure exits non-zero):
    Then the edge-pad convs: at the v1 720p level-0 shape, a 720x672
    SD3 tile and v1's two small-Cout heads, the reference's
    decompositions (``_conv3d_edge_time_fast``, ``_conv3d_edge_fast``)
-   against the materialised pad, in fp32 (on the first
-   ``EDGE_F32_FRAMES`` frames) and bf16 (``edge_check``), and
+   against the materialised pad, in fp32 (the pad's conv computed in
+   time chunks, ``edge_reference``) and bf16 (``edge_check``), and
    the three timed in turns.  K5 (the int8 conv: K5.stage, then
    K5.gemm) bit-equal to its plain version in bf16 and fp32 on small
    ragged cases (``K5_CHECK_CASES``) and at the four int8 path shapes
@@ -107,10 +107,19 @@ Phases (each prints its findings; any failure exits non-zero):
    is plain PyTorch as the JAX UNet calls no Pallas kernel; K1, K2 and K4
    in the decode); a 4-step bf16 sample against fp32 by the decoded
    frame's PSNR; the port's script once on those dirs.
+10. tools -- the profiling tools: ``profile_train_step.profile_steps``
+   for bf16 steps on the shipped clip, SD3 (the tool's config) then v1
+   (``v1_engine_config``), each profiled step's launches by K group equal
+   to this script's launch counters over the same step and every kernel
+   of ``csrc/`` in its own group (``profiling.GROUPS``); ``profile_stages``
+   for v1 in bf16 at the 720 tile with 17 frames (``TOOLS_STAGES``): the
+   JAX tool's stage names, and the stage intervals' sum within
+   ``TOOLS_STAGE_TOL`` of the whole forward's; ``Timer`` and ``trace``
+   around one served v1 bf16 /reconstruct: a trace file written.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the per-kernel JSON summary (launches on the served, streamed, training
-and diffusion paths, and at each timed shape ms, plain_ms, bound_ms,
+the per-kernel JSON summary (launches on the served, streamed, training,
+diffusion and tools paths, and at each timed shape ms, plain_ms, bound_ms,
 bound_by, share and library_ms; the top-level numbers are those of the
 bf16 shape with the largest bound).
 It imports nothing of JAX.
@@ -125,6 +134,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -281,12 +291,11 @@ EDGE_CASES = [("v1_causal", (1, 17, 720, 1280, 128), "v1_causal", 128),
               ("sd3_causal", (1, 17, 720, 672, 128), "sd3_causal", 128),
               ("v1_decoder_conv_out", (1, 17, 720, 672, 128), "v1_causal", 3),
               ("v1_encoder_conv_out", (1, 5, 90, 160, 512), "v1_causal", 8)]
-#: the fp32 edge checks run on the first EDGE_F32_FRAMES frames of each
-#: case (the causal time fixes act on the first two output frames, the
-#: space fixes on every frame); bf16 keeps all 17 frames and is timed
-#: there.  Cut from 17 when phase 8 was added, to keep the script inside
-#: its time budget: the v1 720p fp32 check alone took 171 s.
-EDGE_F32_FRAMES = 5
+#: each time chunk of the fp32 reference convolves at most this many
+#: elements of the materialised pad: past 2^31 (v1's 720p level-0 clip,
+#: 19 x 722 x 1282 x 128 = 2.25e9) cuDNN's fp32 conv takes a slow kernel
+#: (``python -m cvvae_tpu_torch.utils.profiling --edge_conv``)
+EDGE_REF_CHUNK = 2 ** 30
 #: fp32 (TF32 off): the decomposition against the materialised pad,
 #: |d| <= EDGE_F32_TOL * (1 + |ref|); the two sum the same terms in another
 #: order (the fixes' taps summed first)
@@ -762,6 +771,31 @@ def edge_paths(spec, conv=None):
     paths["edge_fast"] = lambda x, w, b: conv._conv3d_edge_fast(
         x, w, spec, bias=b).contiguous()
     return paths
+
+
+def edge_reference(x, w, b, spec, conv=None):
+    """The materialised-pad conv of ``spec`` (``edge_paths``'s
+    "materialised"), computed over overlapping time chunks of the padded
+    input of at most EDGE_REF_CHUNK elements each: every output frame sums
+    the same terms as the whole conv's.  The time axis must carry no zero
+    pad (the edge time pads are materialised)."""
+    if conv is None:
+        from cvvae_tpu_torch.ops import conv
+
+    zero = [p if m == "zero" else (0, 0) for p, m in zip(spec.pads, spec.modes)]
+    if zero[0] != (0, 0):
+        raise ValueError("edge_reference: a zero time pad")
+    padded = conv._edge_pad(x, spec.pads, spec.modes)
+    kt, st = spec.kernel[0], spec.stride[0]
+    t_out = (padded.shape[1] - kt) // st + 1
+    frame = padded[:, :1].numel()
+    step = max(1, (EDGE_REF_CHUNK // frame - kt) // st + 1)
+    out = [conv._window_conv(padded[:, a * st:(min(a + step, t_out) - 1) * st
+                                    + kt], w, zero, spec.stride,
+                             b).contiguous()
+           for a in range(0, t_out, step)]
+    del padded
+    return torch.cat(out, dim=1)
 
 
 def k4_max_raises(q, k, scale, block=512):
@@ -1269,8 +1303,9 @@ def _attention_fp32(dev, smi):
 
 def _check_edge_convs(dev, smi):
     """The edge-pad decompositions against the materialised pad at
-    EDGE_CASES (``edge_inputs``): fp32 (TF32 off) and bf16, held by
-    ``edge_check``; each path timed in bf16, in turns."""
+    EDGE_CASES (``edge_inputs``): fp32 (TF32 off; the pad's conv computed
+    in time chunks, ``edge_reference``) and bf16, held by ``edge_check``;
+    each path timed in bf16, in turns."""
     from cvvae_tpu_torch.ops import conv
 
     for name, shape, ctor, cout in EDGE_CASES:
@@ -1278,15 +1313,12 @@ def _check_edge_convs(dev, smi):
         paths = edge_paths(spec)
         for dtype in (torch.float32, torch.bfloat16):
             t0 = time.perf_counter()
+            x, w, b = edge_inputs(shape, cout, dev, dtype)
             if dtype == torch.float32:
-                x, w, b = edge_inputs((shape[0], min(shape[1],
-                                                     EDGE_F32_FRAMES))
-                                      + shape[2:], cout, dev, dtype)
+                ref, mag = edge_reference(x, w, b, spec), None
             else:
-                x, w, b = edge_inputs(shape, cout, dev, dtype)
-            ref = paths["materialised"](x, w, b)
-            mag = (paths["materialised"](x.abs(), w.abs(), b.abs())
-                   if dtype == torch.bfloat16 else None)
+                ref = paths["materialised"](x, w, b)
+                mag = paths["materialised"](x.abs(), w.abs(), b.abs())
             for path, fn in paths.items():
                 if path == "materialised":
                     continue
@@ -3252,6 +3284,168 @@ def _diffusion(dev, smi, summary):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: the profiling tools
+# --------------------------------------------------------------------------
+
+#: phase 10's training profile: one bf16 G and D step pair on the shipped
+#: clip, steady pairs and profiled steps as ``profile_train_step`` runs them
+TOOLS_TRAIN_ITERS = 1
+#: phase 10's stage profile: v1 in bf16 at the 720 tile with 17 frames
+TOOLS_STAGES = ["--dtype", "bf16", "--tile", "720", "--frames", "17",
+                "--iters", "2"]
+#: the JAX tool's stage names for the full-width v1 net
+#: (``tools/profile_stages.py``)
+TOOLS_STAGE_NAMES = {
+    "encoder": ["conv_in", "enc_level0", "enc_level1", "enc_level2",
+                "enc_level3", "enc_mid", "enc_out"],
+    "decoder": ["conv_in", "dec_mid", "dec_blocks3", "dec_upsample3",
+                "dec_blocks2", "dec_upsample2", "dec_blocks1",
+                "dec_upsample1", "dec_blocks0", "dec_out"]}
+#: the stage intervals' sum against the whole forward's interval
+TOOLS_STAGE_TOL = 0.10
+#: phase 10's served clip (T, H, W) for Timer and trace
+TOOLS_SERVE_CLIP = (17, 256, 256)
+
+
+def _tools_train(dev, smi):
+    """``profile_train_step.profile_steps`` for bf16 steps on the shipped
+    clip, SD3 (the tool's config) then v1 (``v1_engine_config``): each
+    profiled step's launches by K group must equal this script's launch
+    counters over the same step, and every kernel of ``csrc/`` the profile
+    saw must fall in its own group."""
+    import dataclasses
+
+    from cvvae_tpu_torch.utils import profile_train_step as pts
+    from cvvae_tpu_torch.utils import profiling
+
+    csrc = profiling.csrc_kernels()
+    clip = {k: v for k, v in pts.make_batches(device=dev).items()
+            if k.startswith("video")}
+    for family, cfg in (
+            ("sd3", pts.engine_config(compute="bfloat16")),
+            ("v1", dataclasses.replace(v1_engine_config(),
+                                       compute_dtype="bfloat16"))):
+        t0 = time.perf_counter()
+        out = pts.profile_steps(
+            cfg, clip, iters=TOOLS_TRAIN_ITERS, device=dev,
+            allow_random_lpips=cfg.loss.perceptual_weight > 0,
+            counts=launch_counts, stacks=False,
+            log=lambda s, f=family: say(f"[tools] {f} {s}"))
+        for name, r in out.items():
+            for kind in ("G", "D"):
+                p = r[kind]
+                prof = {profiling.key_of(g): row["launches"]
+                        for g, row in p["groups"].items()
+                        if profiling.key_of(g)}
+                bad = {k: (prof.get(k, 0), n) for k, n in p["counts"].items()
+                       if prof.get(k, 0) != n}
+                strays = [(k, profiling.group_of(k)) for k in p["kernels"]
+                          for c, key in csrc.items()
+                          if re.search(rf"\b{c}\b", k)
+                          and profiling.key_of(profiling.group_of(k)) != key]
+                ok = not bad and not strays and any(p["counts"].values())
+                say(f"[tools] {family} {name} {kind}: profile launches "
+                    f"{prof} == counters "
+                    f"{ {k: n for k, n in p['counts'].items() if n} }; "
+                    f"busy {100 * p['busy']:.1f}% of {p['wall_s']!r} s; "
+                    f"{'ok' if ok else 'FAIL'}; card {smi}")
+                if not ok:
+                    raise SystemExit(f"tools: {family} {kind} step: profile "
+                                     f"and counters differ {bad}, or kernels "
+                                     f"outside their group {strays}")
+        say(f"[tools] {family} training profile in "
+            f"{time.perf_counter() - t0:.1f}s")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _tools_stages(dev, smi):
+    """``profile_stages`` (v1, ``TOOLS_STAGES``): every JAX stage name, and
+    the stage intervals' sum within TOOLS_STAGE_TOL of the forward's."""
+    from cvvae_tpu_torch.models import vae_v1
+    from cvvae_tpu_torch.utils import profile_stages as ps
+
+    args = ps.build_argparser("").parse_args(TOOLS_STAGES
+                                             + ["--device", str(dev.type)])
+    cfg = vae_v1.VAE1Config()
+    out = ps.run(args, vae_v1, cfg, cfg.z_channels, ps.encoder_stages,
+                 ps.decoder_stages, log=lambda s: say(f"[tools] {s}"))
+    for side, names in TOOLS_STAGE_NAMES.items():
+        got = [k for k in out[side] if not k.startswith("cum/")]
+        total = sum(out[side][n] for n in got)
+        fwd = out["forward"][side]
+        ok = got == names and abs(total - fwd) <= TOOLS_STAGE_TOL * fwd
+        say(f"[tools] stages {side}: {len(got)} stages as the JAX tool's "
+            f"{got == names}; their sum {total!r} s against the forward's "
+            f"{fwd!r} s (within {TOOLS_STAGE_TOL:.0%}) "
+            f"{'ok' if ok else 'FAIL'}; card {smi}")
+        if not ok:
+            raise SystemExit(f"tools: profile_stages {side}: stages {got}, "
+                             f"sum {total} against {fwd}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tools_serve(dev, smi):
+    """``Timer`` and ``trace`` around one served v1 bf16 /reconstruct: the
+    trace file is written and not empty."""
+    import tempfile
+
+    from cvvae_tpu_torch import serve
+    from cvvae_tpu_torch.utils import profiling
+
+    t, h, w = TOOLS_SERVE_CLIP
+    server = serve.prepare(serve.build_argparser().parse_args(
+        ["--variant", "v1", "--dtype", "bf16", "--height", str(h),
+         "--width", str(w), "--warm_frames", str(t), "--device", str(dev),
+         "--port", "0"]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    timer = profiling.Timer()
+    clip = np.random.RandomState(0).randint(0, 256, (t, h, w, 3),
+                                            dtype=np.uint8)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp):
+                with timer("reconstruct"):
+                    data, _ = _request(server.server_address[1], "POST",
+                                       "/reconstruct", clip)
+                    timer.sync(torch.from_numpy(
+                        np.load(io.BytesIO(data), allow_pickle=False)))
+            files = [os.path.join(tmp, f) for f in os.listdir(tmp)
+                     if f.endswith(".pt.trace.json")]
+            size = sum(os.path.getsize(f) for f in files)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        server.worker.vae = None
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = len(files) == 1 and size > 0
+    say(f"[tools] Timer around one served v1 bf16 {t}x{h}x{w} /reconstruct: "
+        f"{timer.report().strip()}; trace {len(files)} file, {size} bytes "
+        f"{'ok' if ok else 'FAIL'}; card {smi}")
+    if not ok:
+        raise SystemExit("tools: trace wrote no file")
+
+
+def _tools(dev, smi):
+    """Phase 10 with its launch counts set to 0 just before."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    _tools_train(dev, smi)
+    _tools_stages(dev, smi)
+    _tools_serve(dev, smi)
+    counts = launch_counts()
+    say(f"[tools] phase 10 in {time.perf_counter() - t0:.1f}s; launches "
+        f"{counts}")
+    return counts
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3352,6 +3546,9 @@ def main() -> int:
     # phase 9: the latent-compat diffusion demo (its launches counted from
     # 0 just before the demo)
     diffusion = timed("diffusion", _diffusion, dev, smi, summary)
+    # phase 10: the profiling tools (their launches counted from 0 just
+    # before)
+    tools = timed("tools", _tools, dev, smi)
 
     kernels = []
     for k in KERNELS:
@@ -3365,13 +3562,13 @@ def main() -> int:
             KERNELS[k],
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
                       + train_main[k] + train_bf16[k] + v1_check[k]
-                      + v1_bf16[k] + diffusion[k]),
+                      + v1_bf16[k] + diffusion[k] + tools[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
                    "train": train_main[k], "train-bf16": train_bf16[k],
                    "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k],
-                   "diffusion": diffusion[k]}),
+                   "diffusion": diffusion[k], "tools": tools[k]}),
             launches_per_reconstruct={p: r[k]
                                       for p, (_, r, _) in by_path.items()},
             max_abs_err=summary[k]["max_abs_err"],

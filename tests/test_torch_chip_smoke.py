@@ -170,6 +170,34 @@ def test_edge_check_holds_the_decompositions(case, dtype):
     assert chip_smoke.edge_check(wrong, ref, mag)[1] > 0.0
 
 
+@pytest.mark.parametrize("case", EDGE_SMALL, ids=lambda c: f"{c[0]}{c[1]}")
+@pytest.mark.parametrize("frames_a_chunk", [1, 2, 3])
+def test_edge_reference_in_time_chunks_is_the_materialised_pad(
+        monkeypatch, case, frames_a_chunk):
+    """``edge_reference``'s time chunks (EDGE_REF_CHUNK shrunk to hold
+    ``frames_a_chunk`` padded frames past the kernel's) give the
+    materialised pad's conv within the fp32 edge check's bound."""
+    from cvvae_tpu_torch.ops import conv
+
+    name, shape, ctor, cout = case
+    spec = getattr(conv.Conv3DSpec, ctor)()
+    x, w, b = chip_smoke.edge_inputs(shape, cout, CPU, torch.float32)
+    padded = conv._edge_pad(x, spec.pads, spec.modes)
+    monkeypatch.setattr(chip_smoke, "EDGE_REF_CHUNK", padded[:, :1].numel()
+                        * (spec.kernel[0] - 1 + frames_a_chunk))
+    calls = []
+    window = conv._window_conv
+    monkeypatch.setattr(conv, "_window_conv",
+                        lambda *a: calls.append(a[0].shape[1]) or window(*a))
+    got = chip_smoke.edge_reference(x, w, b, spec)
+    monkeypatch.setattr(conv, "_window_conv", window)
+    ref = chip_smoke.edge_paths(spec)["materialised"](x, w, b)
+    assert got.shape == ref.shape
+    assert chip_smoke.edge_check(got, ref, None)[1] <= 0.0
+    t_out = ref.shape[1]
+    assert len(calls) == -(-t_out // frames_a_chunk)
+
+
 @pytest.mark.parametrize("fault", [None] + sorted(planted_faults.EDGE_FAULTS))
 def test_planted_edge_faults_fail_the_edge_check(tmp_path, fault):
     """Each of ``planted_faults.EDGE_FAULTS`` loads, runs and fails
