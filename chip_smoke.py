@@ -116,10 +116,27 @@ Phases (each prints its findings; any failure exits non-zero):
    JAX tool's stage names, and the stage intervals' sum within
    ``TOOLS_STAGE_TOL`` of the whole forward's; ``Timer`` and ``trace``
    around one served v1 bf16 /reconstruct: a trace file written.
+11. mesh -- multi-device inference with two ranks sharing the card over
+   gloo (NCCL refuses two ranks on one card): (a) K1 split over the two
+   H halves of its 720p shapes (``K1_SPLIT_CASES``, bf16 and fp32)
+   against one K1 on the whole and K1's bounds, each split entry timed
+   on one half beside its plain version, its bytes bound and K1 on the
+   half; then one mesh (``make_mesh``; its follower process stopped at
+   the end): (b) full-width v1 and SD3 bf16 encode and decode of the
+   17x720x1280 clip H-split against unsharded (PSNR >= ``MESH_BF16_PSNR``),
+   warm wall s and each rank's transport counts; (c) fp32 (TF32 off)
+   H-split v1 and SD3 and T-split v1 on 256x256 clips (max|d| <=
+   ``MESH_FP32_ATOL``); (d) ``build_server`` on the calibrated v1 int8
+   model over the mesh beside it unsharded: /reconstruct ==
+   /decode(/encode), frames by PSNR as (b); (e) every rank's launches
+   (counts set to 0 on every rank just before the served requests) of
+   each kernel of the path, equal across ranks, K1's two split entries
+   and one all-gather a norm, every message staged through host memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served, streamed, training,
-diffusion and tools paths, and at each timed shape ms, plain_ms, bound_ms,
+diffusion, tools and mesh paths, the mesh's by rank, and at each timed
+shape ms, plain_ms, bound_ms,
 bound_by, share and library_ms; the top-level numbers are those of the
 bf16 shape with the largest bound).
 It imports nothing of JAX.
@@ -440,6 +457,16 @@ KERNELS = {
     "K5.stage": dict(name="int8_stage", route="cuda",
                      source="cvvae_tpu_torch/csrc/conv_int8.cu",
                      replaces="cvvae_tpu/ops/quant.py:75"),
+    # K1 split across the ranks of a mesh (phase 11): one rank's partial
+    # moments (gn_stats, gn_partial), then, after the all-gather, their
+    # combination and the apply (gn_combine, gn_apply); the TPU kernel is
+    # K1's, whose statistics XLA's partitioner sums across chips
+    "K1.partial": dict(name="group_norm_partial", route="cuda",
+                       source="cvvae_tpu_torch/csrc/groupnorm.cu",
+                       replaces="cvvae_tpu/ops/pallas/groupnorm.py:90"),
+    "K1.combine": dict(name="group_norm_combine", route="cuda",
+                       source="cvvae_tpu_torch/csrc/groupnorm.cu",
+                       replaces="cvvae_tpu/ops/pallas/groupnorm.py:90"),
     # the backward kernels of the training path: the reference leaves both
     # gradients to XLA's autodiff of the functions K1 and K2 compute
     "K1.bwd": dict(name="group_norm_silu_backward", route="cuda",
@@ -474,6 +501,8 @@ def kernel_modules():
 #: each kernel's launch counter: (its module's key, the attribute)
 COUNTERS = {**{k: (k, "launches") for k in ("K1", "K2", "K3", "K4", "K5")},
             "K5.stage": ("K5", "stage_launches"),
+            "K1.partial": ("K1", "partial_launches"),
+            "K1.combine": ("K1", "combine_launches"),
             "K1.bwd": ("K1", "bwd_launches"),
             "K2.bwd": ("K2", "bwd_launches"),
             "K3.bwd": ("K3", "bwd_launches"),
@@ -863,7 +892,10 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     needs them.
 
     K1 shape (B, T, H, W, C): x in, y out, fp32 weight and bias; 3 FLOP an
-    element for the moments, 2 for the affine, 4 more with SiLU.  K2
+    element for the moments, 2 for the affine, 4 more with SiLU.  K1 split
+    across ranks, on one rank's rows: K1.partial reads x and writes its
+    (count, mean, M2) per (row, group), 3 FLOP an element; K1.combine
+    reads x and writes y, 2 FLOP an element and 4 more with SiLU.  K2
     shape: one of the four phases (B, T, H, W, n*c); where n > 1 the
     output drops the first of its n*T frames; one add an output element.  K3 shape (B, T,
     H, W, Cin) -> ``cout`` channels at the same extent; 2*27*Cin FLOP an
@@ -882,6 +914,10 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     numel = math.prod(shape)
     if key == "K1":
         return 2 * numel * e + 2 * shape[-1] * 4, numel * (5 + 4 * silu)
+    if key == "K1.partial":  # x in, (count, mean, M2) per (row, group) out
+        return numel * e + 3 * 8 * shape[0] * 32, 3 * numel
+    if key == "K1.combine":  # x in, y out, fp32 weight and bias
+        return 2 * numel * e + 2 * shape[-1] * 4, numel * (2 + 4 * silu)
     if key == "K2":  # the first frame is dropped where n > 1
         out = 4 * numel * (shape[1] * n - (n > 1)) // (shape[1] * n)
         return (4 * numel + out) * e + shape[-1] * e, out
@@ -3446,6 +3482,388 @@ def _tools(dev, smi):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: multi-device inference, two ranks on the one card
+# --------------------------------------------------------------------------
+
+#: the mesh of phase 11: two ranks on cuda:0 over gloo (NCCL refuses two
+#: ranks on one card: ``utils/probe_collectives.py``)
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+#: (a) K1 split over two H halves against one K1 on the whole: (shape,
+#: silu, per_frame) -- the v1 encoder's level-0 norm and the mid-block
+#: per-frame norm
+K1_SPLIT_CASES = [((1, 17, 720, 1280, 128), True, False),
+                  ((1, 5, 90, 160, 512), False, True)]
+#: (b) full-width bf16 encode and decode of the served 17x720x1280 clip,
+#: H-split over the mesh, against the port unsharded: PSNR in dB over 2
+#: max|ref| (PERF.md section 6 states the bound and its prediction)
+MESH_BF16_PSNR = 35.0
+#: (c) fp32 with TF32 off: (family, shard_dim, clip), held by max|d| <=
+#: MESH_FP32_ATOL against the port unsharded (both sum the same terms; the
+#: split GroupNorm and the convs on slabs in another order)
+MESH_FP32_CASES = [("v1", "height", (1, 17, 256, 256, 3)),
+                   ("sd3", "height", (1, 17, 256, 256, 3)),
+                   ("v1", "time", (1, 16, 256, 256, 3))]
+MESH_FP32_ATOL = 1e-3
+#: (d) the served int8 v1 path over the mesh: its frames against the
+#: unsharded int8 server's, PSNR over 2 max|ref| as in (b)
+MESH_SERVE_PATH = ("v1", "int8")
+#: the kernels the split served path launches on every rank (every norm of
+#: an H-split net spans the split, so K1's unsplit entry launches none)
+MESH_KERNELS = ("K1.partial", "K1.combine", "K2", "K3", "K4", "K5",
+                "K5.stage")
+
+
+def _k1_split(dev, smi, summary):
+    """(a): K1 split over the two H halves of each K1_SPLIT_CASES shape,
+    bf16 and fp32: every half's partial moments, their stack (as the
+    all-gather gives it), each half's combination; joined, against one K1
+    on the whole (bit-identical expected: Chan's combination in double)
+    and held to K1's own bounds (``k1_check``); each entry timed on one
+    half beside its plain version and its bytes bound, and K1 on that
+    half timed beside."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm as gn
+
+    for key in ("K1.partial", "K1.combine"):
+        summary[key] = {"max_abs_err": 0.0, "timed": []}
+    for shape, silu, per_frame in K1_SPLIT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = k1_inputs(shape, dev, dtype)
+            kw = dict(num_groups=32, eps=1e-6, silu=silu,
+                      per_frame=per_frame)
+            halves = [h.contiguous() for h in x.split(shape[2] // 2, dim=2)]
+            moments = torch.stack([gn.partial_moments(h, 32, per_frame)
+                                   for h in halves])
+            got = torch.cat([gn.combine(h, w, b, moments, **kw)
+                             for h in halves], dim=2)
+            whole = gn.group_norm_silu(x, w, b, **kw)
+            torch.cuda.synchronize()
+            d_whole = (got.float() - whole.float()).abs().max().item()
+            err, excess, text = k1_check(got, x, w, b, **kw)
+            ok = excess <= 0.0
+            say(f"[mesh] K1 split over two H halves {shape} {dtype} "
+                f"silu={silu} per_frame={per_frame}: max|split - K1 whole|="
+                f"{d_whole!r}; against the plain version max_abs_err={err!r}"
+                f" excess={excess!r} {text} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K1 split {shape} {dtype}: fails K1's "
+                                 f"bounds")
+            del got, whole
+            half = halves[0]
+            hshape = tuple(half.shape)
+            stack = moments
+            plain_m = torch.stack([gn.partial_moments_plain(h, 32, per_frame)
+                                   for h in halves])
+            k1_half = time_ms(lambda: gn.group_norm_silu(half, w, b, **kw))
+            for key, kernel, plain in (
+                    ("K1.partial",
+                     lambda: gn.partial_moments(half, 32, per_frame),
+                     lambda: gn.partial_moments_plain(half, 32, per_frame)),
+                    ("K1.combine",
+                     lambda: gn.combine(half, w, b, stack, **kw),
+                     lambda: gn.combine_plain(half, w, b, plain_m, **kw))):
+                ms, plain_ms, _ = in_turns(plain, kernel)
+                b_ms, by = bound(key, hshape, dtype, silu=silu)
+                entry = dict(shape=list(hshape), dtype=str(dtype)[6:],
+                             silu=silu, per_frame=per_frame, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                             share=b_ms / ms, library_ms=None,
+                             k1_half_ms=k1_half, max_abs_diff_whole=d_whole)
+                summary[key]["timed"].append(entry)
+                summary[key]["max_abs_err"] = max(
+                    summary[key]["max_abs_err"], err)
+                say(f"[mesh] {key} on one half {hshape} {dtype}: ms={ms!r} "
+                    f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({by}) share="
+                    f"{b_ms / ms!r}; K1 unsplit on the same half "
+                    f"{k1_half!r} ms; card {smi}")
+            del x, halves, half, moments, stack, plain_m
+            torch.cuda.empty_cache()
+
+
+def _rank_counts(mesh):
+    return mesh.call("cvvae_tpu_torch.parallel.mesh:rank_counts")
+
+
+def _reset_rank_counts(mesh):
+    mesh.call("cvvae_tpu_torch.parallel.mesh:reset_rank_counts")
+
+
+def _comm_text(counts):
+    keys = ("exchanges", "sent", "received", "bytes", "staged", "slab_bytes",
+            "all_gathers", "all_reduces", "seconds")
+    return "; ".join(f"rank {r}: " + " ".join(f"{k}={c[k]!r}" for k in keys)
+                     for r, c in enumerate(counts))
+
+
+def _synced(fn):
+    """(fn's result, host seconds to the device's end of it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _mesh_bf16(dev, smi, mesh):
+    """(b): full-width v1 and SD3 in bf16 with the serving preset, the
+    17x720x1280 clip encoded and its latent decoded unsharded and H-split
+    over the mesh; PSNR over 2 max|ref| >= MESH_BF16_PSNR; the warm wall
+    seconds of each and each rank's transport counts."""
+    from cvvae_tpu_torch.cli import apply_serving_preset
+    from cvvae_tpu_torch.data.video_io import to_unit
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+
+    t, h, w = SERVE_CLIP
+    clip = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (t, h, w, 3), dtype=np.uint8)).to(dev)[None]
+    x = to_unit(clip, torch.bfloat16)
+    for family in ("v1", "sd3"):
+        vae = VideoVAE.from_config(config_for_variant(family),
+                                   dtype=torch.bfloat16, device=dev)
+        apply_serving_preset(vae, h, w)
+        mv = vae.with_mesh(mesh)
+        # each path once to warm it, then timed (the split decode on the
+        # unsharded latent, so that the decoders see one input)
+        for v in (vae, mv):
+            v.decode(v.encode(x).mode())
+        z, enc_s = _synced(lambda: vae.encode(x).mode())
+        xr, dec_s = _synced(lambda: vae.decode(z))
+        _reset_rank_counts(mesh)
+        zm, enc_m = _synced(lambda: mv.encode(x).mode())
+        xm, dec_m = _synced(lambda: mv.decode(z))
+        counts = _rank_counts(mesh)
+        z_db = frames_psnr(zm.float(), z.float(),
+                           2 * z.float().abs().max().item())
+        x_db = frames_psnr(xm.float(), xr.float(),
+                           2 * xr.float().abs().max().item())
+        ok = (min(z_db, x_db) >= MESH_BF16_PSNR and zm.shape == z.shape
+              and xm.shape == xr.shape and torch.isfinite(xm).all().item())
+        say(f"[mesh] {family} bf16 {t}x{h}x{w} H-split over {mesh.world} "
+            f"ranks on one card against unsharded: latent PSNR {z_db!r} dB, "
+            f"frames PSNR {x_db!r} dB (>= {MESH_BF16_PSNR}) "
+            f"{'ok' if ok else 'FAIL'}; wall s unsharded encode={enc_s!r} "
+            f"decode={dec_s!r}, split encode={enc_m!r} decode={dec_m!r} "
+            f"(two ranks sharing one card: no scaling figure); card {smi}")
+        say(f"[mesh] {family} bf16 transport: {_comm_text(counts)}")
+        say(f"[mesh] {family} bf16 launches by rank: "
+            f"{[{k: c[k] for k in COUNTERS} for c in counts]}")
+        if not ok:
+            raise SystemExit(f"mesh {family} bf16: the split model is "
+                             f"{min(z_db, x_db)} dB from the unsharded one")
+        del vae, mv, z, xr, zm, xm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _mesh_fp32(dev, smi, mesh):
+    """(c): full-width fp32 (TF32 off) on 256x256 clips, H-split v1 and
+    SD3 and T-split v1, against the port unsharded: max|d| <=
+    MESH_FP32_ATOL on latents and frames."""
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+
+    for family, shard_dim, shape in MESH_FP32_CASES:
+        vae = VideoVAE.from_config(config_for_variant(family), device=dev)
+        mv = vae.with_mesh(mesh, shard_dim=shard_dim)
+        x = randn(shape, 7, dev, torch.float32).clamp(-1, 1)
+        z = vae.encode(x).mode()
+        xr = vae.decode(z)
+        zm = mv.encode(x).mode()
+        xm = mv.decode(z)
+        dz = (zm - z).abs().max().item()
+        dx = (xm - xr).abs().max().item()
+        ok = (max(dz, dx) <= MESH_FP32_ATOL and xm.shape == xr.shape)
+        say(f"[mesh] {family} fp32 {shape} split along {shard_dim} against "
+            f"unsharded: max|d| latent={dz!r} (max|ref| "
+            f"{z.abs().max().item()!r}) frames={dx!r} (max|ref| "
+            f"{xr.abs().max().item()!r}), frames {tuple(xm.shape)} (<= "
+            f"{MESH_FP32_ATOL}) {'ok' if ok else 'FAIL'}; card {smi}")
+        if not ok:
+            raise SystemExit(f"mesh {family} fp32 {shard_dim}: {dz}, {dx}")
+        del vae, mv, x, z, xr, zm, xm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _mesh_serve(dev, smi, mesh):
+    """(d), (e): the served v1 int8 path with its model split over the
+    mesh (``build_server`` on ``with_mesh``, as ``serve --spatial_shards``
+    builds it where there are cards enough) beside the same model served
+    unsharded.  The split server's /reconstruct, /encode and /decode run
+    with every rank's counts set to 0 just before and read just after
+    (the main path): /reconstruct == /decode(/encode), its frames against
+    the unsharded server's model by PSNR as in (b), every rank launching
+    every kernel of the path the same number of times, K1's two split
+    entries once each a norm, one all-gather a norm, every point-to-point
+    message staged through host memory.  Returns (each rank's counts, the
+    /reconstruct's alone)."""
+    from cvvae_tpu_torch import serve
+    from cvvae_tpu_torch.cli import apply_serving_preset
+    from cvvae_tpu_torch.models.video_vae import VideoVAE, config_for_variant
+
+    t, h, w = SERVE_CLIP
+    variant, dtype = MESH_SERVE_PATH
+    args = serve.build_argparser().parse_args(
+        ["--variant", variant, "--dtype", dtype, "--height", str(h),
+         "--width", str(w), "--warm_frames", str(t), "--device", str(dev)])
+    vae = VideoVAE.from_config(config_for_variant(variant),
+                               dtype=torch.bfloat16, device=dev)
+    apply_serving_preset(vae, h, w)
+    q = serve.quantized(vae, args, t)
+    del vae
+    mv = q.with_mesh(mesh)
+    servers = [serve.build_server(v, port=0, act_dtype=torch.bfloat16,
+                                  device=dev) for v in (q, mv)]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True)
+               for s in servers]
+    for th in threads:
+        th.start()
+    ref_port, port = (s.server_address[1] for s in servers)
+    clip = np.random.RandomState(0).randint(0, 256, (t, h, w, 3),
+                                            dtype=np.uint8)
+    try:
+        warm = np.zeros_like(clip)
+        for p in (ref_port, port):
+            _request(p, "POST", "/reconstruct", warm)
+        _, t_ref = _request(ref_port, "POST", "/reconstruct", clip)
+        torch.cuda.synchronize()
+        _reset_rank_counts(mesh)
+        health, _ = _request(port, "GET", "/healthz")
+        rec_b, t_rec = _request(port, "POST", "/reconstruct", clip)
+        per_rec = _rank_counts(mesh)
+        z_b, t_enc = _request(port, "POST", "/encode", clip)
+        z = np.load(io.BytesIO(z_b), allow_pickle=False)
+        dec_b, t_dec = _request(port, "POST", "/decode", z)
+        counts = _rank_counts(mesh)
+        with torch.inference_mode():
+            x = torch.from_numpy(clip).to(dev)[None].to(torch.bfloat16) \
+                / 127.5 - 1.0
+            ref = q.decode(q.encode(x).mode())[0].float()
+            got = mv.decode(mv.encode(x).mode())[0].float()
+        db = frames_psnr(got, ref, 2 * ref.abs().max().item())
+        ref_u8 = ((ref + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu()
+        rec = np.load(io.BytesIO(rec_b), allow_pickle=False)
+        u8_db = frames_psnr(torch.from_numpy(rec), ref_u8, 255.0)
+        del ref, got
+        held, busy = _mesh_profile(mv, x)
+        del x
+    finally:
+        for s, th in zip(servers, threads):
+            s.shutdown()
+            s.server_close()
+            th.join(60)
+            s.worker.vae = None
+        del servers, q, mv
+        gc.collect()
+        torch.cuda.empty_cache()
+    tag = f"{variant}-{dtype} split over {mesh.world} ranks"
+    say(f"[mesh] serve {tag}: /healthz {health!r}; /reconstruct bytes == "
+        f"/decode(/encode) bytes: {rec_b == dec_b}; frames against the "
+        f"unsharded int8 model: PSNR {db!r} dB over 2 max|ref| (>= "
+        f"{MESH_BF16_PSNR}), of the uint8 bytes over 255 {u8_db!r} dB; "
+        f"request wall s reconstruct={t_rec!r} encode={t_enc!r} decode="
+        f"{t_dec!r}, unsharded reconstruct={t_ref!r} (two ranks sharing "
+        f"one card: no scaling figure); card {smi}")
+    say(f"[mesh] serve {tag} transport in the served requests: "
+        f"{_comm_text(counts)}")
+    say(f"[mesh] serve {tag} launches by rank in the served requests: "
+        f"{[{k: c[k] for k in COUNTERS} for c in counts]}; in the "
+        f"/reconstruct alone: {[{k: c[k] for k in COUNTERS} for c in per_rec]}")
+    if json.loads(health) != {"ok": True} or rec_b != dec_b \
+            or db < MESH_BF16_PSNR or rec.shape != (t, h, w, 3):
+        raise SystemExit(f"mesh serve: health {health!r}, /reconstruct == "
+                         f"/decode(/encode) {rec_b == dec_b}, PSNR {db}")
+    say(f"[mesh] serve {tag}: rank 0 profiled over one split encode + "
+        f"decode: launches by K group (profile, counters) {held}; device "
+        f"busy {busy!r} of the span; card {smi}")
+    if any(a != b for a, b in held.values()):
+        raise SystemExit(f"mesh serve: rank 0's profile and counters "
+                         f"disagree: {held}")
+    first = {k: counts[0][k] for k in COUNTERS}
+    for r, c in enumerate(counts):
+        missing = [k for k in MESH_KERNELS if c[k] <= 0]
+        held = {
+            "every kernel of the path launched": not missing,
+            "the same launches as rank 0": {k: c[k] for k in COUNTERS}
+            == first,
+            "K1's unsplit entry not launched": c["K1"] == 0,
+            "one partial, one combine and one all-gather a norm":
+                c["K1.partial"] == c["K1.combine"] == c["all_gathers"],
+            "every message staged through host memory":
+                c["staged"] == c["sent"] + c["received"] > 0,
+            "no dynamic scale (calibrated)": c["all_reduces"] == 0}
+        bad = [k for k, v in held.items() if not v]
+        say(f"[mesh] serve rank {r} counts held: "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        if bad:
+            raise SystemExit(f"mesh serve rank {r}: {bad} (missing kernels "
+                             f"{missing})")
+    return counts, per_rec
+
+
+def _mesh_profile(mv, x):
+    """Rank 0 under ``torch.profiler`` over one split encode + decode of
+    ``x``: {kernel key: (launches of its ``profiling.GROUPS`` group, its
+    counter's launches)} for every key either saw, each split K1 entry
+    held to its own group as every kernel of csrc/ is (phase 10), and the
+    device's busy share of the span.  A first pass warms the trace (the
+    profiler can lose the first kernels of a trace started right before
+    them: K3 and the first K1.partial on an H100); a spin kernel
+    (``torch.cuda._sleep``) marks where the measured pass begins, and
+    only the device events after it are read."""
+    from cvvae_tpu_torch.utils import profiling
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode(), \
+            torch.profiler.profile(activities=acts) as prof:
+        mv.decode(mv.encode(x).mode())
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        before = profiling.launch_counts()
+        mv.decode(mv.encode(x).mode())
+        torch.cuda.synchronize()
+        after = profiling.launch_counts()
+    events = profiling.kernel_events(prof)
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        raise SystemExit("mesh profile: no spin_kernel event marks the "
+                         "measured pass")
+    events = [e for e in events if e.time_range.start >= max(marks)]
+    seen = {profiling.key_of(g): row["launches"]
+            for g, row in profiling.group_kernels(events).items()
+            if profiling.key_of(g)}
+    counted = {k: after[k] - before[k] for k in after}
+    held = {k: (seen.get(k, 0), counted.get(k, 0))
+            for k in set(seen) | {k for k, n in counted.items() if n}}
+    line = profiling.device_timeline(events)
+    return held, line["busy_us"] / max(line["span_us"], 1e-9)
+
+
+def _mesh(dev, smi, summary):
+    """Phase 11: (a) K1 split, then one mesh of two ranks on the card for
+    (b)-(e); the mesh is closed (its follower process stopped) whatever
+    happens.  Returns the served path's counts (each rank's, and the
+    /reconstruct's alone)."""
+    from cvvae_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    _k1_split(dev, smi, summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mesh = make_mesh(len(MESH_DEVICES), devices=MESH_DEVICES, backend="gloo")
+    say(f"[mesh] {mesh.world} ranks on {MESH_DEVICES} over "
+        f"{mesh.backend} up in {time.perf_counter() - t1:.1f}s")
+    try:
+        _mesh_bf16(dev, smi, mesh)
+        _mesh_fp32(dev, smi, mesh)
+        out = _mesh_serve(dev, smi, mesh)
+    finally:
+        mesh.close()
+    say(f"[mesh] phase 11 in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3549,6 +3967,11 @@ def main() -> int:
     # phase 10: the profiling tools (their launches counted from 0 just
     # before)
     tools = timed("tools", _tools, dev, smi)
+    # phase 11: multi-device inference, two ranks on the card (each rank's
+    # launches counted from 0 just before the served requests)
+    mesh_counts, mesh_per_rec = timed("mesh", _mesh, dev, smi, summary)
+    mesh_path = "mesh-" + "-".join(MESH_SERVE_PATH)
+    mesh_launches = {k: sum(c[k] for c in mesh_counts) for k in COUNTERS}
 
     kernels = []
     for k in KERNELS:
@@ -3562,15 +3985,19 @@ def main() -> int:
             KERNELS[k],
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
                       + train_main[k] + train_bf16[k] + v1_check[k]
-                      + v1_bf16[k] + diffusion[k] + tools[k]),
+                      + v1_bf16[k] + diffusion[k] + tools[k]
+                      + mesh_launches[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
                    "train": train_main[k], "train-bf16": train_bf16[k],
                    "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k],
-                   "diffusion": diffusion[k], "tools": tools[k]}),
-            launches_per_reconstruct={p: r[k]
-                                      for p, (_, r, _) in by_path.items()},
+                   "diffusion": diffusion[k], "tools": tools[k],
+                   mesh_path: mesh_launches[k]}),
+            launches_by_rank={mesh_path: [c[k] for c in mesh_counts]},
+            launches_per_reconstruct=dict(
+                {p: r[k] for p, (_, r, _) in by_path.items()},
+                **{mesh_path: [c[k] for c in mesh_per_rec]}),
             max_abs_err=summary[k]["max_abs_err"],
             **{f: main_shape[f] for f in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "share",

@@ -22,6 +22,19 @@
 //   3. gn_apply: the same plan and thread layout; each thread keeps its
 //      V channels' (a, b) in registers and writes y = fma(x, a, b) (fp32,
 //      one rounding), then SiLU, in 16-byte stores.
+// Split across ranks (a tensor sharded along its rows over a mesh,
+// ops/kernels/groupnorm.py::group_norm_silu_sharded), the same three steps
+// become two entries around one collective:
+//   cvvae_group_norm_partial: gn_stats, then gn_partial, which sums the
+//      blocks as gn_merge does and writes each (batch row, group)'s count,
+//      mean and M2 (the sum of squared deviations from that mean) in
+//      double.  Every rank shifts by its own K, so the moments about K do
+//      not add across ranks; (count, mean, M2) do, by Chan's formula.
+//   (the wrapper all-gathers every rank's (B, G, 3) in rank order)
+//   cvvae_group_norm_combine: gn_combine, one warp per (batch row, group),
+//      folds the ranks' (count, mean, M2) in rank order by Chan's formula
+//      in double (deterministic, independent of timing) and the affine as
+//      gn_merge does; then gn_apply, unchanged.
 // Bound: device memory.  One read and one write of x is the least
 // traffic (8.02 GB at (1,17,720,1280,128) bf16: 2.39 ms at 3.35 TB/s);
 // this design reads x twice (the statistics must be complete before the
@@ -133,6 +146,28 @@ __global__ void __launch_bounds__(max_threads<V>())
   }
 }
 
+// the blocks' moments of (batch row b, group g), summed by one warp in a
+// fixed order (lane-strided, then a fixed shuffle tree): every lane ends
+// with the same sums
+__device__ __forceinline__ void block_moments(const double* __restrict__ part,
+                                              int b, int g, int lane,
+                                              const Plan& p, double* s1,
+                                              double* s2) {
+  double a1 = 0.0, a2 = 0.0;
+  for (int k = lane; k < p.n_blocks; k += 32) {
+    const double* q = part + (((int64_t)b * p.n_blocks + k) * p.G + g) * 2;
+    a1 += q[0];
+    a2 += q[1];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+    a2 += __shfl_xor_sync(0xffffffffu, a2, o);
+  }
+  *s1 = a1;
+  *s2 = a2;
+}
+
 // one warp per (batch row, group)
 template <typename T>
 __global__ void gn_merge(const T* __restrict__ x,
@@ -145,17 +180,8 @@ __global__ void gn_merge(const T* __restrict__ x,
   const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (wid >= B * p.G) return;
   const int b = wid / p.G, g = wid % p.G;
-  double a1 = 0.0, a2 = 0.0;
-  for (int k = lane; k < p.n_blocks; k += 32) {
-    const double* q = part + (((int64_t)b * p.n_blocks + k) * p.G + g) * 2;
-    a1 += q[0];
-    a2 += q[1];
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a1 += __shfl_xor_sync(0xffffffffu, a1, o);
-    a2 += __shfl_xor_sync(0xffffffffu, a2, o);
-  }
+  double a1, a2;
+  block_moments(part, b, g, lane, p, &a1, &a2);
   const double n = (double)p.S * p.cg;
   const double m = a1 / n;  // mean of x - K
   const double var = fmax(a2 / n - m * m, 0.0);
@@ -171,6 +197,65 @@ __global__ void gn_merge(const T* __restrict__ x,
     const float a = inv * weight[c];
     coef[(int64_t)b * 2 * p.C + c] = a;
     coef[(int64_t)b * 2 * p.C + p.C + c] = bias[c] - mean * a;
+  }
+}
+
+// one warp per (batch row, group): the blocks' moments summed as gn_merge
+// sums them, written as (count, mean, M2) in double for the cross-rank
+// combination
+template <typename T>
+__global__ void gn_partial(const T* __restrict__ x,
+                           const double* __restrict__ part,
+                           double* __restrict__ moments, int B, Plan p) {
+  const int lane = threadIdx.x & 31;
+  const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (wid >= B * p.G) return;
+  const int b = wid / p.G, g = wid % p.G;
+  double a1, a2;
+  block_moments(part, b, g, lane, p, &a1, &a2);
+  if (lane == 0) {
+    const double n = (double)p.S * p.cg;
+    const double m = a1 / n;  // mean of x - K
+    double* out = moments + ((int64_t)b * p.G + g) * 3;
+    out[0] = n;
+    out[1] = (double)to_f32(x[(int64_t)b * p.S * p.C + g * p.cg]) + m;
+    out[2] = fmax(a2 - a1 * m, 0.0);  // sum of (x - mean)^2
+  }
+}
+
+// one warp per (batch row, group): the R ranks' (count, mean, M2), laid
+// out (R, B, G, 3), combined in rank order by Chan's formula in double
+// (every lane alike), then the affine folded as gn_merge folds it
+__global__ void gn_combine(const double* __restrict__ moments, int R,
+                           const float* __restrict__ weight,
+                           const float* __restrict__ bias,
+                           float* __restrict__ coef, float* __restrict__ stats,
+                           int B, Plan p, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (wid >= B * p.G) return;
+  const int b = wid / p.G, g = wid % p.G;
+  double n = 0.0, mean = 0.0, m2 = 0.0;
+  for (int r = 0; r < R; ++r) {
+    const double* q = moments + (((int64_t)r * B + b) * p.G + g) * 3;
+    const double nb = q[0];
+    if (nb <= 0.0) continue;
+    const double nab = n + nb, d = q[1] - mean;
+    mean += d * (nb / nab);
+    m2 += q[2] + d * d * (n * nb / nab);
+    n = nab;
+  }
+  const double var = fmax(m2 / n, 0.0);
+  const float meanf = (float)mean;
+  const float inv = rsqrtf((float)var + eps);
+  if (stats != nullptr && lane == 0) {
+    stats[((int64_t)b * p.G + g) * 2] = meanf;
+    stats[((int64_t)b * p.G + g) * 2 + 1] = inv;
+  }
+  for (int c = g * p.cg + lane; c < (g + 1) * p.cg; c += 32) {
+    const float a = inv * weight[c];
+    coef[(int64_t)b * 2 * p.C + c] = a;
+    coef[(int64_t)b * 2 * p.C + p.C + c] = bias[c] - meanf * a;
   }
 }
 
@@ -217,37 +302,65 @@ __global__ void __launch_bounds__(max_threads<V>())
   }
 }
 
+// what one entry launches: the whole norm (gn_stats, gn_merge, gn_apply),
+// one rank's partial moments (gn_stats, gn_partial), or the cross-rank
+// combination and the apply (gn_combine, gn_apply)
+enum Mode { kWhole = 0, kPartial = 1, kCombine = 2 };
+
+struct Args {
+  const void* x;
+  void* y;
+  const float* weight;
+  const float* bias;
+  double* part;
+  float* coef;
+  float* stats;
+  double* moments;  // (B, G, 3) for kPartial, (R, B, G, 3) for kCombine
+  int R;
+  int B;
+  int threads;
+  float eps;
+  int silu;
+};
+
 template <typename T, int V, int NS>
-int launch(const void* x, void* y, const float* weight, const float* bias,
-           double* part, float* coef, float* stats, int B, const Plan& p,
-           int threads, float eps, int silu, cudaStream_t stream) {
-  const dim3 grid(p.n_blocks, B);
-  const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
-  gn_stats<T, V, NS><<<grid, threads, smem, stream>>>((const T*)x, part, p);
-  const int warps = B * p.G;
-  gn_merge<T><<<(warps + 7) / 8, 256, 0, stream>>>(
-      (const T*)x, part, weight, bias, coef, stats, B, p, eps);
-  if (silu)
-    gn_apply<T, V, true><<<grid, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                        coef, p);
+int launch(Mode mode, const Args& a, const Plan& p, cudaStream_t stream) {
+  const dim3 grid(p.n_blocks, a.B);
+  const int warps = a.B * p.G;
+  if (mode != kCombine) {
+    const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
+    gn_stats<T, V, NS><<<grid, a.threads, smem, stream>>>((const T*)a.x,
+                                                           a.part, p);
+  }
+  if (mode == kPartial) {
+    gn_partial<T><<<(warps + 7) / 8, 256, 0, stream>>>((const T*)a.x, a.part,
+                                                        a.moments, a.B, p);
+    return (int)cudaGetLastError();
+  }
+  if (mode == kWhole)
+    gn_merge<T><<<(warps + 7) / 8, 256, 0, stream>>>(
+        (const T*)a.x, a.part, a.weight, a.bias, a.coef, a.stats, a.B, p,
+        a.eps);
   else
-    gn_apply<T, V, false><<<grid, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                         coef, p);
+    gn_combine<<<(warps + 7) / 8, 256, 0, stream>>>(
+        a.moments, a.R, a.weight, a.bias, a.coef, a.stats, a.B, p, a.eps);
+  if (a.silu)
+    gn_apply<T, V, true><<<grid, a.threads, 0, stream>>>((const T*)a.x,
+                                                          (T*)a.y, a.coef, p);
+  else
+    gn_apply<T, V, false><<<grid, a.threads, 0, stream>>>((const T*)a.x,
+                                                           (T*)a.y, a.coef, p);
   return (int)cudaGetLastError();
 }
 
 // the (V, NS) pairs the plan may choose: V the widest of {16 bytes, 2, 1}
 // elements that divides C and is a divisor or a multiple of C / G
 template <typename T>
-int dispatch(int V, int NS, const void* x, void* y, const float* w,
-             const float* bi, double* part, float* coef, float* stats,
-             int B, const Plan& p, int threads, float eps, int silu,
+int dispatch(int V, int NS, Mode mode, const Args& a, const Plan& p,
              cudaStream_t s) {
   constexpr int kV = 16 / sizeof(T);
-#define CVVAE_GN(v, ns)                                                   \
-  if (V == v && NS == ns)                                                 \
-    return launch<T, v, ns>(x, y, w, bi, part, coef, stats, B, p, threads, \
-                            eps, silu, s);
+#define CVVAE_GN(v, ns) \
+  if (V == v && NS == ns) return launch<T, v, ns>(mode, a, p, s);
   CVVAE_GN(kV, 1)
   CVVAE_GN(kV, 2)
   CVVAE_GN(kV, 4)
@@ -258,6 +371,38 @@ int dispatch(int V, int NS, const void* x, void* y, const float* w,
   CVVAE_GN(2, 2)
   CVVAE_GN(1, 1)
 #undef CVVAE_GN
+  return (int)cudaErrorInvalidValue;
+}
+
+// the plan's checks, shared by the three entries; 0 or an error code
+int make_plan(int B, int64_t S, int C, int G, int V, int NS, int threads,
+              int64_t rows_per_block, int n_blocks, Plan* p) {
+  if (B <= 0 || B > 65535 || S <= 0 || G <= 0 || C % G != 0 || C > 1024 ||
+      V <= 0 || C % V != 0 || NS <= 0 || V % NS != 0 || threads % 32 != 0 ||
+      threads > (V > 2 ? 256 : 1024) || C / V > threads ||
+      rows_per_block <= 0 || n_blocks <= 0 ||
+      (int64_t)n_blocks * rows_per_block < S)
+    return (int)cudaErrorInvalidValue;
+  const int cg = C / G;
+  if (NS > 1 ? V / NS != cg : cg % V != 0) return (int)cudaErrorInvalidValue;
+  *p = Plan{S, C, G, cg, C / V, threads / (C / V), rows_per_block, n_blocks};
+  return 0;
+}
+
+int run(Mode mode, const Args& a, int64_t S, int C, int G, int dtype, int V,
+        int NS, int64_t rows_per_block, int n_blocks, int device,
+        void* stream) {
+  Plan p;
+  const int rc = make_plan(a.B, S, C, G, V, NS, a.threads, rows_per_block,
+                           n_blocks, &p);
+  if (rc != 0) return rc;
+  if (mode == kCombine && (a.R <= 0 || a.moments == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == CVVAE_BF16)
+    return dispatch<__nv_bfloat16>(V, NS, mode, a, p, s);
+  if (dtype == CVVAE_F32) return dispatch<float>(V, NS, mode, a, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -276,24 +421,45 @@ CVVAE_EXPORT int cvvae_group_norm(const void* x, void* y, const void* weight,
                                   int silu, int dtype, int V, int NS,
                                   int threads, int64_t rows_per_block,
                                   int n_blocks, int device, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || G <= 0 || C % G != 0 || C > 1024 ||
-      V <= 0 || C % V != 0 || NS <= 0 || V % NS != 0 || threads % 32 != 0 ||
-      threads > (V > 2 ? 256 : 1024) || C / V > threads || rows_per_block <= 0 ||
-      n_blocks <= 0 || (int64_t)n_blocks * rows_per_block < S)
-    return (int)cudaErrorInvalidValue;
-  const int cg = C / G;
-  if (NS > 1 ? V / NS != cg : cg % V != 0) return (int)cudaErrorInvalidValue;
-  Plan p{S, C, G, cg, C / V, threads / (C / V), rows_per_block, n_blocks};
-  cudaSetDevice(device);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == CVVAE_BF16)
-    return dispatch<__nv_bfloat16>(V, NS, x, y, (const float*)weight,
-                                   (const float*)bias, (double*)part,
-                                   (float*)coef, (float*)stats, B, p, threads,
-                                   eps, silu, s);
-  if (dtype == CVVAE_F32)
-    return dispatch<float>(V, NS, x, y, (const float*)weight,
-                           (const float*)bias, (double*)part, (float*)coef,
-                           (float*)stats, B, p, threads, eps, silu, s);
-  return (int)cudaErrorInvalidValue;
+  const Args a{x, y, (const float*)weight, (const float*)bias, (double*)part,
+               (float*)coef, (float*)stats, nullptr, 0, B, threads, eps,
+               silu};
+  return run(kWhole, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
+             device, stream);
+}
+
+// One rank's share of a norm split across ranks: x as above (this rank's
+// rows), part as above, moments: (B, G, 3) f64 that receives each (batch
+// row, group)'s count, mean and M2 over this rank's rows.
+CVVAE_EXPORT int cvvae_group_norm_partial(const void* x, void* part,
+                                          void* moments, int B, int64_t S,
+                                          int C, int G, int dtype, int V,
+                                          int NS, int threads,
+                                          int64_t rows_per_block,
+                                          int n_blocks, int device,
+                                          void* stream) {
+  const Args a{x, nullptr, nullptr, nullptr, (double*)part, nullptr,
+               nullptr, (double*)moments, 0, B, threads, 0.f, 0};
+  return run(kPartial, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
+             device, stream);
+}
+
+// The rest of it: moments: (R, B, G, 3) f64, every rank's partial in rank
+// order; x, y, weight, bias, coef, stats and the plan as cvvae_group_norm's.
+CVVAE_EXPORT int cvvae_group_norm_combine(const void* x, void* y,
+                                          const void* weight,
+                                          const void* bias,
+                                          const void* moments, int R,
+                                          void* coef, void* stats, int B,
+                                          int64_t S, int C, int G, float eps,
+                                          int silu, int dtype, int V, int NS,
+                                          int threads,
+                                          int64_t rows_per_block,
+                                          int n_blocks, int device,
+                                          void* stream) {
+  const Args a{x, y, (const float*)weight, (const float*)bias, nullptr,
+               (float*)coef, (float*)stats, (double*)moments, R, B, threads,
+               eps, silu};
+  return run(kCombine, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
+             device, stream);
 }

@@ -219,10 +219,48 @@ class VideoVAE(nn.Module):
         quant.attach_activation_scales(rec, margin=margin)
         return q
 
-    def with_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "multi-device inference is not ported yet (ROADMAP queue A: "
-            "multi-device)")
+    def with_mesh(self, mesh, axis: str = "data",
+                  shard_dim: str = "height") -> "VideoVAE":
+        """Multi-device inference: every net call split along one axis
+        over ``mesh`` (``parallel.make_mesh``), the weights replicated.
+        This process's model is sent once to every follower of the mesh
+        (its whole state: int8 weights and calibrated scales too, so
+        ``quantize`` comes first); the returned VideoVAE shares this one's
+        modules and sends each encoder or decoder call through the mesh,
+        where the ops exchange conv halos and combine GroupNorm statistics
+        across ranks (``parallel/shard.py``).  Tiling and chunking are
+        unchanged and run here.
+
+        shard_dim: "height" (each rank a run of whole blocks of the net's
+        total stride: 8 pixel rows for the encoder, one latent row for the
+        decoder) or "time" (T divisible by the mesh size, as the JAX
+        package requires: GroupNorm statistics span the sequence, so
+        padding would change the numerics; v1's decoder gives 4T'-3
+        frames as unsharded).  As ``cvvae_tpu/models/video_vae.py``'s
+        ``with_mesh``."""
+        from cvvae_tpu_torch.parallel import (spatial_sharding,
+                                              temporal_sharding)
+        if shard_dim not in ("height", "time"):
+            raise ValueError(shard_dim)
+        sharding = (spatial_sharding if shard_dim == "height"
+                    else temporal_sharding)(mesh, axis)
+        n = int(mesh.shape[axis])
+        if n != mesh.world:
+            raise ValueError(f"with_mesh: axis {axis!r} has {n} of the "
+                             f"mesh's {mesh.world} devices; only a "
+                             f"one-axis split is ported")
+        if self.device != mesh.device:
+            raise ValueError(f"with_mesh: the model is on {self.device}, "
+                             f"the mesh's rank 0 on {mesh.device}")
+        return _MeshVideoVAE(self, mesh, sharding.dim, mesh.load(self))
+
+    # ---- the raw per-window nets ----
+
+    def _encoder(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+    def _decoder(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
 
     # ---- spatial tiling ----
 
@@ -279,12 +317,13 @@ class VideoVAE(nn.Module):
 
     def spatial_tiled_encode(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        return self._spatial_tiled(x, self.encoder, cfg.encode_pixel_tile_size,
+        return self._spatial_tiled(x, self._encoder,
+                                   cfg.encode_pixel_tile_size,
                                    cfg.encode_latent_tile_size)
 
     def spatial_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        return self._spatial_tiled(z, self.decoder, cfg.latent_tile_size,
+        return self._spatial_tiled(z, self._decoder, cfg.latent_tile_size,
                                    cfg.pixel_tile_size)
 
     # ---- temporal chunking ----
@@ -377,6 +416,41 @@ class VideoVAE(nn.Module):
         else:
             z = posterior.mode()
         return self.decode(z, channels_first=channels_first)
+
+
+class _MeshVideoVAE(VideoVAE):
+    """``VideoVAE.with_mesh``'s model: the base model's modules and config,
+    each net call split over the mesh (``Mesh.run_net``)."""
+
+    def __init__(self, base: VideoVAE, mesh, dim: int, model_id: int):
+        nn.Module.__init__(self)
+        self.config = base.config
+        self.encoder, self.decoder = base.encoder, base.decoder
+        #: the split axis of (B, T, H, W, C): 1 time, 2 height
+        self.mesh, self.dim, self.model_id = mesh, dim, model_id
+
+    def _run(self, name: str, v: torch.Tensor, block: int) -> torch.Tensor:
+        from cvvae_tpu_torch.parallel import shard
+        if v.ndim != 5:
+            raise ValueError(f"expected a 5-D tensor, got {tuple(v.shape)}")
+        n = self.mesh.world
+        sizes = (shard.time_split(v.shape[1], n) if self.dim == 1
+                 else shard.row_split(v.shape[2], n, block))
+        return self.mesh.run_net(self.model_id, getattr(self, name), name,
+                                 v.contiguous(), self.dim, sizes)
+
+    def _encoder(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run("encoder", x, self.config.spatial_n_compress)
+
+    def _decoder(self, z: torch.Tensor) -> torch.Tensor:
+        return self._run("decoder", z, 1)
+
+    def quantize(self, **kwargs):
+        raise ValueError("quantize the model before with_mesh: the mesh "
+                         "holds the state it was given")
+
+    def with_mesh(self, *args, **kwargs):
+        raise ValueError("this model already runs over a mesh")
 
 
 def config_for_variant(variant: str) -> VideoVAEConfig:

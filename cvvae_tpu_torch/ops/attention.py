@@ -29,6 +29,7 @@ from torch import nn
 from cvvae_tpu_torch.ops.conv import uniform_
 from cvvae_tpu_torch.ops.exact_attention import exact_attention
 from cvvae_tpu_torch.ops.kernels.attention import flash_attention
+from cvvae_tpu_torch.parallel import shard
 
 
 class Dense(nn.Module):
@@ -94,7 +95,15 @@ def single_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def spatial_self_attention(x: torch.Tensor, wq, wk, wv, *,
                            query_chunk_size: int = 512) -> torch.Tensor:
     """Per-frame single-head spatial attention, (B,T,H,W,C) -> same.
-    The caller applies the pre-norm and the output projection."""
+    The caller applies the pre-norm and the output projection.  In a net
+    call split over a mesh along H, each frame's tokens are gathered from
+    every rank and attended in full here (K4 takes q, k and v of one
+    length), and this rank keeps its rows."""
+    return _split_attention(x, 2, lambda v: _spatial(v, wq, wk, wv,
+                                                     query_chunk_size))
+
+
+def _spatial(x, wq, wk, wv, query_chunk_size):
     b, t, h, w, c = x.shape
     tokens = x.reshape(b * t, h * w, c)
     out = single_head_attention(dense(tokens, wq), dense(tokens, wk),
@@ -104,9 +113,29 @@ def spatial_self_attention(x: torch.Tensor, wq, wk, wv, *,
 
 
 def temporal_self_attention(x: torch.Tensor, wq, wk, wv) -> torch.Tensor:
-    """Per-pixel single-head temporal attention ((b h w) t c grouping)."""
+    """Per-pixel single-head temporal attention ((b h w) t c grouping).
+    Split over a mesh along T, each pixel's frames are gathered from every
+    rank, as ``spatial_self_attention`` gathers along H."""
+    return _split_attention(x, 1, lambda v: _temporal(v, wq, wk, wv))
+
+
+def _temporal(x, wq, wk, wv):
     b, t, h, w, c = x.shape
     tokens = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
     out = single_head_attention(dense(tokens, wq), dense(tokens, wk),
                                 dense(tokens, wv))
     return out.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def _split_attention(x: torch.Tensor, dim: int, attend) -> torch.Tensor:
+    """``attend(x)`` where the attention mixes along ``dim``: unsplit, or
+    split over a mesh along another axis, it runs on this rank's tensor;
+    split along ``dim``, on the gathered whole, and this rank keeps its
+    run."""
+    ctx = shard.current()
+    if ctx is None or ctx.dim != dim:
+        return attend(x)
+    sizes = ctx.sizes(x)
+    out = ctx.local(attend(ctx.gather(x)), sizes)
+    ctx.register(out, sizes)
+    return out

@@ -51,6 +51,7 @@ from torch import nn
 
 from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.kernels import stem
+from cvvae_tpu_torch.parallel import shard
 
 Pad = Tuple[int, int]
 
@@ -149,11 +150,36 @@ def conv3d(x: torch.Tensor, params, spec: Conv3DSpec) -> torch.Tensor:
     ``quant.INT8_MIN_POSITIONS`` and otherwise in float on the dequantized
     kernel.  In float, K3 first; then the causal convs (edge time, zero
     space, T > 1) to the time-axis decomposition, every other edge pad to
-    the all-axes one, and zero pads to the window."""
+    the all-axes one, and zero pads to the window.
+
+    In a net call split over a mesh (``parallel/shard.py``), ``x`` is this
+    rank's run of the split axis: the conv exchanges the halo rows its
+    windows read from the neighbours' runs, and convolves that slab with
+    the global pads only where it holds a global end (0 on interior
+    sides); the dispatch above takes the global extents."""
+    ctx = shard.current()
+    if ctx is None:
+        return _conv3d(x, params, spec, x.shape[1:4])
+    extents = ctx.extents(x)
+    a = ctx.dim - 1
+    slab, pad, out_sizes = ctx.window(x, spec.kernel[a], spec.stride[a],
+                                      *spec.pads[a])
+    pads = list(spec.pads)
+    pads[a] = pad
+    y = _conv3d(slab, params, dataclasses.replace(spec, pads=tuple(pads)),
+                extents)
+    ctx.register(y, out_sizes)
+    return y
+
+
+def _conv3d(x: torch.Tensor, params, spec: Conv3DSpec,
+            extents) -> torch.Tensor:
+    """``conv3d`` on ``x`` whose (T, H, W) is ``extents`` where the
+    dispatch is concerned (the global extents in a sharded net call)."""
     bias = params.bias
     if quant.is_quantized(params):
         quant.maybe_record_act(params, x)
-        if x.shape[1] * x.shape[2] * x.shape[3] >= quant.INT8_MIN_POSITIONS:
+        if math.prod(extents) >= quant.INT8_MIN_POSITIONS:
             return quant.conv3d_int8(x, params, spec)
         weight = quant.dequantize_kernel(params)
     else:
@@ -164,7 +190,7 @@ def conv3d(x: torch.Tensor, params, spec: Conv3DSpec) -> torch.Tensor:
     bias = None if bias is None else bias.to(x.dtype)
     edge = [m == "edge" and (p[0] or p[1])
             for m, p in zip(spec.modes, spec.pads)]
-    if edge[0] and spec.modes[1] == spec.modes[2] == "zero" and x.shape[1] > 1:
+    if edge[0] and spec.modes[1] == spec.modes[2] == "zero" and extents[0] > 1:
         y = _conv3d_edge_time_fast(x, weight, spec, bias=bias)
     elif any(edge):
         y = _conv3d_edge_fast(x, weight, spec, bias=bias)
@@ -190,6 +216,55 @@ def _edge_pad(x: torch.Tensor, pads, modes) -> torch.Tensor:
     return xn.permute(0, 2, 3, 4, 1).contiguous()
 
 
+#: elements of an fp32 conv's zero-padded input past which, with TF32 off,
+#: ``_window_conv`` splits the conv in time: cuDNN 9 runs such a conv in
+#: its int64-indexed direct kernel (``conv2d_grouped_direct_kernel_int64``),
+#: 55.6 s for v1's 720p level-0 causal conv at 17 frames on an H100, where
+#: 9 frames take 0.3 s (PERF.md §6, ``utils/profiling.py --edge_conv``)
+TIME_SPLIT_ELEMENTS = 2 ** 31 - 1
+
+
+def _split_in_time(x: torch.Tensor, weight: torch.Tensor, pads,
+                   strides) -> bool:
+    """Whether ``_window_conv`` splits this conv in time: fp32 with cuDNN's
+    TF32 off, its zero-padded input past ``TIME_SPLIT_ELEMENTS``, more
+    than one output frame."""
+    if x.dtype != torch.float32 or torch.backends.cudnn.allow_tf32:
+        return False
+    b, c = x.shape[0], x.shape[4]
+    padded = b * c * math.prod(n + lo + hi for n, (lo, hi)
+                               in zip(x.shape[1:4], pads))
+    t_out = (x.shape[1] + sum(pads[0]) - weight.shape[2]) // strides[0] + 1
+    return padded > TIME_SPLIT_ELEMENTS and t_out > 1
+
+
+def _time_split_conv(x: torch.Tensor, weight: torch.Tensor, pads, strides,
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``_window_conv`` in chunks of output frames, each from its own
+    input frames (kT − stride frames shared with the next chunk, the time
+    pads only where a chunk reaches past the clip), each chunk's padded
+    input within ``TIME_SPLIT_ELEMENTS`` where one frame allows it; the
+    chunks are written into one contiguous (B,T',H',W',O) output."""
+    b, t = x.shape[:2]
+    (lo, hi), k, s = pads[0], weight.shape[2], strides[0]
+    t_out = (t + lo + hi - k) // s + 1
+    frame = b * x.shape[4] * math.prod(n + p0 + p1 for n, (p0, p1)
+                                       in zip(x.shape[2:4], pads[1:]))
+    per = max(1, ((TIME_SPLIT_ELEMENTS // frame) - k) // s + 1)
+    out = None
+    for o0 in range(0, t_out, per):
+        o1 = min(t_out, o0 + per)
+        i0, i1 = o0 * s - lo, (o1 - 1) * s - lo + k
+        chunk = x[:, max(i0, 0):min(i1, t)]
+        y = _window_conv(chunk, weight,
+                         ((max(0, -i0), max(0, i1 - t)),) + tuple(pads[1:]),
+                         strides, bias)
+        if out is None:
+            out = y.new_empty((b, t_out) + tuple(y.shape[2:]))
+        out[:, o0:o1] = y
+    return out
+
+
 def _window_conv(x: torch.Tensor, weight: torch.Tensor, pads, strides,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Conv of (B,T,H,W,C) ``x`` with zero window pads ``pads`` (per axis
@@ -204,7 +279,11 @@ def _window_conv(x: torch.Tensor, weight: torch.Tensor, pads, strides,
     reproduces) the missing hi - lo zeros are materialised with ``F.pad``
     on the (B,T,H,W,C) tensor, one copy of it.  On the CPU a one-frame
     bf16 input's time pad is materialised too: there oneDNN's bf16 conv3d
-    returns garbage for T = 1 with a time pad (torch 2.13's CPU build)."""
+    returns garbage for T = 1 with a time pad (torch 2.13's CPU build).
+    An fp32 conv with TF32 off past ``TIME_SPLIT_ELEMENTS`` runs in time
+    chunks (``_time_split_conv``) and returns a contiguous tensor."""
+    if _split_in_time(x, weight, pads, strides):
+        return _time_split_conv(x, weight, pads, strides, bias)
     if (x.device.type == "cpu" and x.dtype == torch.bfloat16
             and x.shape[1] == 1 and any(pads[0])):
         x = F.pad(x, (0, 0, 0, 0, 0, 0) + tuple(pads[0]))

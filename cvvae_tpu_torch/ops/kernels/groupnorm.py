@@ -20,6 +20,16 @@ applied in the input dtype, SiLU in the input dtype.  In fp32 the two
 agree to about 1e-5; in bf16 the kernel's single rounding differs from the
 plain version's several by a few bf16 ulps.
 
+Split across ranks (a tensor whose rows lie on the ranks of a mesh,
+``parallel/shard.py``), ``group_norm_silu_sharded`` runs the same
+statistics in two entries around one all-gather: each rank's partial
+(count, mean, M2) per (row, group), in double on the card, then their
+combination in rank order by Chan's formula and the apply.  Each rank
+shifts by its own first row, so the moments about the shift do not add
+across ranks; (count, mean, M2) do, with no extra collective.  The plain
+version splits the JAX package's arithmetic the same way: fp32 (count,
+Σx, Σx²) per rank, summed in rank order, var = E[x²]−mean².
+
 K1.bwd (``csrc/groupnorm_bwd.cu``), the gradient, which the TPU package
 leaves to XLA's autodiff of ``group_norm`` + ``silu``: ``group_norm_silu``
 is a ``torch.autograd.Function`` whose forward keeps each (row, group)'s
@@ -51,9 +61,26 @@ from cvvae_tpu_torch.ops.kernels import _build
 #: counts again)
 launches = 0
 bwd_launches = 0
+#: launches of K1 split across ranks (``group_norm_silu_sharded``): its
+#: partial moments (gn_stats, gn_partial) and its combination with the
+#: apply (gn_combine, gn_apply), one of each a sharded norm
+partial_launches = 0
+combine_launches = 0
 #: K1.bwd's launches by (B', S, C, SiLU, dtype name)
 bwd_launches_by_shape: collections.Counter = collections.Counter()
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _grouped(x: torch.Tensor, num_groups: int,
+             per_frame: bool) -> torch.Tensor:
+    """x as (B', S, G, C/G): B' the batch (times T with ``per_frame``)."""
+    shape = x.shape
+    if per_frame:
+        x = x.reshape((shape[0] * shape[1],) + tuple(shape[2:]))
+    c = x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    return x.reshape(x.shape[0], -1, num_groups, c // num_groups)
 
 
 def _group_stats(x: torch.Tensor, num_groups: int, eps: float,
@@ -61,13 +88,7 @@ def _group_stats(x: torch.Tensor, num_groups: int, eps: float,
     """(grouped x (B', S, G, C/G), mean, 1/std (B', 1, G, 1)) in the
     plain version's arithmetic: fp32 statistics (float64 for float64
     input) with var = E[x²] − mean²."""
-    shape = x.shape
-    if per_frame:
-        x = x.reshape((shape[0] * shape[1],) + tuple(shape[2:]))
-    c = x.shape[-1]
-    if c % num_groups:
-        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    grouped = x.reshape(x.shape[0], -1, num_groups, c // num_groups)
+    grouped = _grouped(x, num_groups, per_frame)
     xf = grouped.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=(1, 3), keepdim=True)
     var = xf.square().mean(dim=(1, 3), keepdim=True) - mean.square()
@@ -87,6 +108,13 @@ def group_norm_silu_plain(x: torch.Tensor, weight: torch.Tensor,
 def _plain_forward(x, weight, bias, num_groups, eps, silu, per_frame):
     """The plain forward and its (mean, 1/std), each (B', G)."""
     grouped, mean, inv = _group_stats(x, num_groups, eps, per_frame)
+    return _apply_plain(x, grouped, mean, inv, weight, bias, silu)
+
+
+def _apply_plain(x, grouped, mean, inv, weight, bias, silu):
+    """The plain apply from (mean, 1/std), each (B', 1, G, 1): the affine
+    folded in the statistics' dtype and applied in x's; returns it with
+    (mean, 1/std) as (B', G)."""
     g, cg = grouped.shape[2:]
     acc = mean.dtype
     scale = weight.to(acc).reshape(g, cg)
@@ -98,6 +126,125 @@ def _plain_forward(x, weight, bias, num_groups, eps, silu, per_frame):
         out = _silu(out)
     return (out.reshape(x.shape), mean.reshape(mean.shape[0], g),
             inv.reshape(inv.shape[0], g))
+
+
+def partial_moments_plain(x: torch.Tensor, num_groups: int,
+                          per_frame: bool) -> torch.Tensor:
+    """One rank's share of the plain statistics: (B', G, 3) of (count,
+    Σx, Σx²) over its rows, in the plain version's arithmetic (fp32, or
+    float64 for float64 input)."""
+    grouped = _grouped(x, num_groups, per_frame)
+    xf = grouped.to(torch.promote_types(x.dtype, torch.float32))
+    n = torch.full(xf.shape[:1] + xf.shape[2:3],
+                   float(xf.shape[1] * xf.shape[3]), dtype=xf.dtype,
+                   device=xf.device)
+    return torch.stack([n, xf.sum(dim=(1, 3)), xf.square().sum(dim=(1, 3))],
+                       dim=-1)
+
+
+def combine_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  moments: torch.Tensor, *, num_groups: int, eps: float,
+                  silu: bool = False, per_frame: bool = False) -> torch.Tensor:
+    """The rest of the plain split: every rank's ``partial_moments_plain``
+    stacked (R, B', G, 3) in rank order, summed in that order, then mean,
+    var = E[x²]−mean², and the apply of ``group_norm_silu_plain``."""
+    total = moments[0]
+    for r in range(1, moments.shape[0]):
+        total = total + moments[r]
+    n, s1, s2 = total.unbind(-1)
+    mean = (s1 / n)[:, None, :, None]
+    var = (s2 / n)[:, None, :, None] - mean.square()
+    grouped = _grouped(x, num_groups, per_frame)
+    return _apply_plain(x, grouped, mean, torch.rsqrt(var + eps), weight,
+                        bias, silu)[0]
+
+
+def group_norm_silu_sharded(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor, *, num_groups: int,
+                            eps: float, silu: bool, per_frame: bool,
+                            gather) -> torch.Tensor:
+    """GroupNorm(+SiLU) of this rank's rows of a tensor whose rows (the
+    axes the statistics span) lie on several ranks: each (row, group)'s
+    statistics over every rank's rows.  ``gather`` takes this rank's
+    :func:`partial_moments` and returns every rank's, (R, B', G, 3) in
+    rank order (an all-gather); :func:`combine` then normalises.
+    Inference only.
+
+    A CPU tensor takes the plain split; a CUDA tensor launches K1's
+    partial entry, gathers, and launches its combine entry, or raises."""
+    moments = gather(partial_moments(x, num_groups, per_frame))
+    return combine(x, weight, bias, moments, num_groups=num_groups, eps=eps,
+                   silu=silu, per_frame=per_frame)
+
+
+def _split_plan(name, x, num_groups, per_frame):
+    """(B', S, C, the launch plan's arguments) of a split K1 launch."""
+    _build.refuse_gradient(f"{name} (K1 split)", "none: the mesh runs "
+                           "inference", x)
+    b, s, c = _check_shape(name, x, num_groups, per_frame)
+    plan = launch_plan(b, s, c, num_groups, x.element_size())
+    if x.data_ptr() % (plan["v"] * x.element_size()):
+        raise ValueError(f"{name}: input is not aligned to its "
+                         f"{plan['v']}-element loads")
+    return b, s, c, plan, (plan["v"], plan["ns"], plan["threads"],
+                           plan["rows_per_block"], plan["n_blocks"],
+                           x.device.index or 0, _build.stream_of(x))
+
+
+def partial_moments(x: torch.Tensor, num_groups: int,
+                    per_frame: bool) -> torch.Tensor:
+    """This rank's share of a split GroupNorm's statistics, (B', G, 3):
+    on the card K1's partial entry (gn_stats, gn_partial: count, mean and
+    M2 in double), on the CPU ``partial_moments_plain``."""
+    global partial_launches
+    if x.device.type == "cpu":
+        return partial_moments_plain(x, num_groups, per_frame)
+    b, s, c, plan, args = _split_plan("group_norm_partial", x, num_groups,
+                                      per_frame)
+    part = torch.empty((b, plan["n_blocks"], num_groups, 2), device=x.device,
+                       dtype=torch.float64)
+    moments = torch.empty((b, num_groups, 3), device=x.device,
+                          dtype=torch.float64)
+    rc = _build.library().cvvae_group_norm_partial(
+        x.data_ptr(), part.data_ptr(), moments.data_ptr(), b, s, c,
+        num_groups, _build.DTYPE_CODES[x.dtype], *args)
+    _build.check(rc, "group_norm_partial")
+    partial_launches += 1
+    return moments
+
+
+def combine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            moments: torch.Tensor, *, num_groups: int, eps: float,
+            silu: bool = False, per_frame: bool = False) -> torch.Tensor:
+    """This rank's rows of a split GroupNorm(+SiLU) from every rank's
+    :func:`partial_moments` stacked (R, B', G, 3) in rank order: on the
+    card K1's combine entry (gn_combine: Chan's formula over the ranks in
+    rank order, in double, and the affine; gn_apply), on the CPU
+    ``combine_plain``."""
+    global combine_launches
+    if x.device.type == "cpu":
+        return combine_plain(x, weight, bias, moments, num_groups=num_groups,
+                             eps=eps, silu=silu, per_frame=per_frame)
+    b, s, c, _, args = _split_plan("group_norm_combine", x, num_groups,
+                                   per_frame)
+    moments = moments.contiguous()
+    if tuple(moments.shape[1:]) != (b, num_groups, 3) or \
+            moments.dtype != torch.float64 or moments.device != x.device:
+        raise ValueError(f"group_norm_combine: moments "
+                         f"{tuple(moments.shape)} {moments.dtype} on "
+                         f"{moments.device}, expected (R, {b}, {num_groups}, "
+                         f"3) float64 on {x.device}")
+    y = torch.empty_like(x)
+    coef = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    w32 = weight.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    b32 = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    rc = _build.library().cvvae_group_norm_combine(
+        x.data_ptr(), y.data_ptr(), w32.data_ptr(), b32.data_ptr(),
+        moments.data_ptr(), moments.shape[0], coef.data_ptr(), None, b, s, c,
+        num_groups, eps, int(silu), _build.DTYPE_CODES[x.dtype], *args)
+    _build.check(rc, "group_norm_combine")
+    combine_launches += 1
+    return y
 
 
 def group_norm_silu_backward_plain(dy: torch.Tensor, x: torch.Tensor,

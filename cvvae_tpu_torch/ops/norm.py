@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvvae_tpu_torch.ops.kernels.groupnorm import group_norm_silu
+from cvvae_tpu_torch.ops.kernels.groupnorm import (group_norm_silu,
+                                                   group_norm_silu_sharded)
+from cvvae_tpu_torch.parallel import shard
 
 
 class Affine(nn.Module):
@@ -36,19 +38,32 @@ def norm_init(channels: int) -> Affine:
 def group_norm(x: torch.Tensor, params, *, num_groups: int = 32,
                eps: float = 1e-6, silu: bool = False) -> torch.Tensor:
     """GroupNorm over (B, ..., C), statistics per (batch, group) over every
-    other axis; ``silu`` applies SiLU to the result (fused on the card)."""
-    return group_norm_silu(x, params.weight, params.bias,
-                           num_groups=num_groups, eps=eps, silu=silu)
+    other axis; ``silu`` applies SiLU to the result (fused on the card).
+    In a net call split over a mesh the statistics span every rank's rows
+    (K1 split across ranks)."""
+    return _group_norm(x, params, num_groups, eps, silu, False)
 
 
 def group_norm_per_frame(x: torch.Tensor, params, *, num_groups: int = 32,
                          eps: float = 1e-6, silu: bool = False) -> torch.Tensor:
     """GroupNorm with T folded into batch: statistics per (batch, frame,
     group) over (H, W, C/G), as the reference attention blocks and the 2D
-    constraint nets compute; ``silu`` as in ``group_norm``."""
-    return group_norm_silu(x, params.weight, params.bias,
-                           num_groups=num_groups, eps=eps, silu=silu,
-                           per_frame=True)
+    constraint nets compute; ``silu`` as in ``group_norm``.  Split over a
+    mesh along H the statistics span the ranks; along T each frame is
+    whole on its rank and the norm stays local."""
+    return _group_norm(x, params, num_groups, eps, silu, True)
+
+
+def _group_norm(x, params, num_groups, eps, silu, per_frame):
+    ctx = shard.current()
+    if ctx is None or (per_frame and ctx.dim == 1):
+        return group_norm_silu(x, params.weight, params.bias,
+                               num_groups=num_groups, eps=eps, silu=silu,
+                               per_frame=per_frame)
+    return group_norm_silu_sharded(x, params.weight, params.bias,
+                                   num_groups=num_groups, eps=eps, silu=silu,
+                                   per_frame=per_frame,
+                                   gather=ctx.gather_moments)
 
 
 def layer_norm(x: torch.Tensor, params, *, eps: float = 1e-5) -> torch.Tensor:

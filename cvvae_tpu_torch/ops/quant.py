@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from cvvae_tpu_torch.ops.kernels import conv_int8 as k5
+from cvvae_tpu_torch.parallel import shard
 
 #: T*H*W below which a quantized conv runs in float on the dequantized
 #: kernel (the reference's threshold, ``cvvae_tpu/ops/quant.py:50``; the
@@ -80,8 +81,15 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def act_scale(x: torch.Tensor) -> torch.Tensor:
     """The dynamic scale of ``x``: max(max|x| / 127, 1e-12), an fp32
-    scalar tensor on x's device (one reduction, no host sync)."""
-    return torch.clamp_min(_over_127(x.float().abs().amax()), 1e-12)
+    scalar tensor on x's device (one reduction, no host sync).  In a net
+    call split over a mesh, max|x| is taken over every rank's part of the
+    tensor (an all-reduce MAX), so every shard quantizes by the scale the
+    unsplit tensor has."""
+    m = x.float().abs().amax()
+    ctx = shard.current()
+    if ctx is not None:
+        m = ctx.max(m)
+    return torch.clamp_min(_over_127(m), 1e-12)
 
 
 def quantize_act_static(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -112,9 +120,13 @@ def calibration_scope():
 
 def maybe_record_act(params: nn.Module, x: torch.Tensor) -> None:
     """Inside a calibration_scope, record max|x| (taken in fp32) for this
-    conv; a no-op otherwise."""
+    conv; a no-op otherwise.  Calibration runs unsharded (``quantize``
+    comes before ``with_mesh``)."""
     if _CALIB is None:
         return
+    if shard.current() is not None:
+        raise ValueError("calibrate before with_mesh: a shard holds part "
+                         "of each activation")
     m = float(x.float().abs().amax())
     _CALIB[params] = max(_CALIB.get(params, 0.0), m)
 

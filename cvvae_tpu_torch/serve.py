@@ -17,6 +17,11 @@ Port of ``cvvae_tpu/serve.py``.
   Query param ?sample=1 on /encode draws from the posterior (else mode).
 * warm-up runs before the socket accepts work, so the first request
   finds the kernels built and the allocator warm.
+* ``--spatial_shards N`` splits the height axis of every net call over N
+  devices (``VideoVAE.with_mesh``, ``parallel/``): this process runs the
+  HTTP front and rank 0, N − 1 follower processes the other ranks.  A
+  rank that fails closes the mesh: that request and every later one
+  answer 500, and /healthz 503.
 
 * ``--dtype int8`` (the default, as in the reference): bf16 activations
   and the int8 conv stack, its activation scales calibrated at start-up
@@ -165,6 +170,11 @@ def _make_handler(worker: VAEWorker, started: float,
 
         def do_GET(self):
             if self.path == "/healthz":
+                mesh = getattr(worker.vae, "mesh", None)
+                if mesh is not None and mesh.closed:
+                    return self._send_json(503, {
+                        "ok": False, "error": "the device mesh is closed "
+                                              "(a rank failed)"})
                 return self._send_json(200, {"ok": True})
             if self.path == "/stats":
                 s = dict(worker.stats)
@@ -273,7 +283,18 @@ def build_argparser() -> argparse.ArgumentParser:
                          "restored, skipping calibration; absent -> written "
                          "after calibration")
     ap.add_argument("--spatial_shards", type=int, default=1,
-                    help="multi-device serving: not ported yet (1 only)")
+                    help="multi-device serving: shard the height axis of "
+                         "every net call over this many devices "
+                         "(VideoVAE.with_mesh; the ops exchange conv halos "
+                         "between the ranks).  Composes with int8; outputs "
+                         "match the single-device server within "
+                         "reduction-order tolerance -- GroupNorm "
+                         "statistics combined across ranks reorder the "
+                         "last ulp, so NOT byte-identical across shard "
+                         "counts (tests/test_torch_parallel_serve.py).  "
+                         "The ranks are the cards cuda:0..N-1 over NCCL, "
+                         "or with --device cpu CPU processes over gloo.  "
+                         "1 = single device")
     return ap
 
 
@@ -329,11 +350,14 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
         for flag in ("calibration_video", "quantized_cache"):
             if getattr(args, flag):
                 raise SystemExit(f"--{flag} applies to --dtype int8 only")
-    if args.spatial_shards > 1:
-        raise SystemExit("--spatial_shards > 1 is not ported yet (ROADMAP "
-                         "queue A: multi-device)")
     dtype = torch_dtype(args.dtype)
     device = require_device(args.device)
+    if args.spatial_shards > 1:
+        n_dev = (torch.cuda.device_count() if device.type == "cuda"
+                 else os.cpu_count())
+        if args.spatial_shards > n_dev:
+            raise SystemExit(f"--spatial_shards {args.spatial_shards} "
+                             f"> {n_dev} visible devices")
     if args.vae_path:
         vae = VideoVAE.from_pretrained(args.vae_path,
                                        subfolder=args.subfolder,
@@ -345,6 +369,15 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
     warm_frames = truncate_to_4k1(args.warm_frames)
     if args.dtype == "int8":
         vae = quantized(vae, args, warm_frames)
+    mesh = None
+    if args.spatial_shards > 1:
+        from cvvae_tpu_torch.parallel import make_mesh
+        n = args.spatial_shards
+        mesh = (make_mesh(n) if device.type == "cuda"
+                else make_mesh(n, devices=["cpu"] * n, backend="gloo"))
+        vae = vae.with_mesh(mesh)
+        print(f"[serve] height axis sharded over {n} devices "
+              f"({mesh.backend})", flush=True)
 
     print(f"[serve] warming {args.height}x{args.width} x{warm_frames}f "
           f"{args.dtype} on {device} ...", flush=True)
@@ -358,6 +391,7 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
     # /stats reports steady-state requests only
     server.worker.latencies_ms.clear()
     server.worker.stats.update(reconstruct=0, frames=0, busy_s=0.0)
+    server.mesh = mesh
     print(f"[serve] warm in {time.perf_counter() - t0:.1f}s; "
           f"listening on {args.host}:{server.server_address[1]}", flush=True)
     return server
@@ -379,8 +413,12 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
-    server.serve_forever()
-    server.server_close()
+    try:
+        server.serve_forever()
+        server.server_close()
+    finally:
+        if server.mesh is not None:
+            server.mesh.close()
     print("[serve] stopped", flush=True)
 
 

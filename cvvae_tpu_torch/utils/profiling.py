@@ -71,6 +71,10 @@ GROUPS = [
     ("K4.bwd flash attention backward", r"flash_bwd|\browdot\b"),
     ("K4 flash attention", r"flash_fwd"),
     ("K1.bwd GroupNorm+SiLU backward", r"\bgn_bwd\b"),
+    # K1 split across the ranks of a mesh: its own two kernels; its
+    # gn_stats and gn_apply are K1's and fall in K1's group
+    ("K1.partial split GroupNorm moments", r"\bgn_partial\b"),
+    ("K1.combine split GroupNorm combination", r"\bgn_combine\b"),
     ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
     ("K2.bwd subpixel interleave backward",
      r"subpixel_unshuffle|\bbias_grad\b"),
@@ -96,10 +100,15 @@ GROUPS = [
 
 #: each hand-written kernel's group -> (its launch counter's key, the one
 #: kernel its wrapper runs exactly once a counted launch): K1 runs
-#: gn_stats, gn_merge and gn_apply; K2.bwd adds bias_grad with a bias;
+#: gn_stats, gn_merge and gn_apply (its split entries gn_stats and
+#: gn_partial, then gn_combine and gn_apply, so gn_merge marks K1's own
+#: launches); K2.bwd adds bias_grad with a bias;
 #: K3.bwd is the partial sums and stem_bwd_merge; K4.bwd rowdot, dkv, dq
 KERNEL_GROUPS = {
-    "K1 GroupNorm+SiLU": ("K1", r"gn_apply"),
+    "K1 GroupNorm+SiLU": ("K1", r"\bgn_merge\b"),
+    "K1.partial split GroupNorm moments": ("K1.partial", r"\bgn_partial\b"),
+    "K1.combine split GroupNorm combination": ("K1.combine",
+                                               r"\bgn_combine\b"),
     "K1.bwd GroupNorm+SiLU backward": ("K1.bwd", r"\bgn_bwd\b"),
     "K2 subpixel interleave": ("K2", r"subpixel_shuffle"),
     "K2.bwd subpixel interleave backward": ("K2.bwd", r"subpixel_unshuffle"),
@@ -114,6 +123,8 @@ KERNEL_GROUPS = {
 #: each kernel's launch counter in ``ops/kernels``: key -> (module,
 #: attribute); a wrapper adds one where it launches its kernel
 COUNTERS = {"K1": ("groupnorm", "launches"),
+            "K1.partial": ("groupnorm", "partial_launches"),
+            "K1.combine": ("groupnorm", "combine_launches"),
             "K1.bwd": ("groupnorm", "bwd_launches"),
             "K2": ("shuffle", "launches"),
             "K2.bwd": ("shuffle", "bwd_launches"),
@@ -132,7 +143,8 @@ SOURCE_KEYS = {"groupnorm.cu": "K1", "groupnorm_bwd.cu": "K1.bwd",
                "stem.cu": "K3", "stem_bwd.cu": "K3.bwd",
                "attention.cu": "K4", "attention_bwd.cu": "K4.bwd",
                "conv_int8.cu": "K5"}
-KERNEL_KEYS = {"int8_stage": "K5.stage"}
+KERNEL_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
+               "gn_combine": "K1.combine"}
 
 
 def group_of(kernel: str) -> str:

@@ -175,7 +175,9 @@ def test_nothing_is_built_at_import():
         "groupnorm_bwd.cu", "hopper.cuh", "shuffle.cu", "shuffle_bwd.cu",
         "stem.cu", "stem_bwd.cu"}
     assert set(_build._SIGNATURES) == {
-        "cvvae_group_norm", "cvvae_subpixel_interleave", "cvvae_stem_conv3d",
+        "cvvae_group_norm", "cvvae_group_norm_partial",
+        "cvvae_group_norm_combine", "cvvae_subpixel_interleave",
+        "cvvae_stem_conv3d",
         "cvvae_flash_attention", "cvvae_int8_stage", "cvvae_int8_gemm",
         "cvvae_group_norm_bwd", "cvvae_subpixel_interleave_bwd",
         "cvvae_stem_conv3d_bwd", "cvvae_flash_attention_bwd"}

@@ -334,7 +334,7 @@ def test_prepare_builds_an_sd3_server(monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--dtype", "bf16", "--calibration_video", "v.mp4"], "int8"),
     (["--dtype", "bf16", "--quantized_cache", "q"], "quantized_cache"),
-    (["--spatial_shards", "2"], "spatial_shards"),
+    (["--device", "cpu", "--spatial_shards", "100000"], "visible devices"),
     (["--device", "cuda:99"], "cuda:99"),
 ])
 def test_prepare_refuses_what_is_not_here(flags, match):

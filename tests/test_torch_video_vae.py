@@ -185,14 +185,22 @@ def test_unknown_family_raises():
         VideoVAEConfig(family="nope")
 
 
-@pytest.mark.parametrize("method,args,match", [
-    pytest.param("with_mesh", (None,), "multi-device",
-                 id="with_mesh-args1-multi-device")])
-def test_unported_features_raise(method, args, match):
+def test_with_mesh_refuses_frames_not_divisible_by_the_mesh(tmp_path):
+    """The refusal JAX's with_mesh(shard_dim="time") keeps: T must divide
+    by the mesh size (GroupNorm statistics span the sequence); a T that
+    does runs (tests/test_torch_parallel*.py hold the results)."""
+    from cvvae_tpu_torch.parallel import make_mesh
     vae = VideoVAE.from_config(VideoVAEConfig(net=VAE1Config(**NET), **BASE),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        getattr(vae, method)(*args)
+    with make_mesh(2, devices=["cpu"] * 2, backend="gloo",
+                   init_method=f"file://{tmp_path / 'rendezvous'}") as mesh:
+        tv = vae.with_mesh(mesh, shard_dim="time")
+        x = torch.zeros((1, 17, 16, 16, 3))
+        with pytest.raises(ValueError, match="divisible by 2"):
+            tv.encode(x)
+        assert tv.encode(x[:, :16]).mode().shape == (1, 4, 2, 2, 4)
+        with pytest.raises(ValueError, match="shard_dim|width"):
+            vae.with_mesh(mesh, shard_dim="width")
 
 
 def test_from_config_defaults_to_the_card(monkeypatch):
