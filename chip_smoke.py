@@ -132,10 +132,22 @@ Phases (each prints its findings; any failure exits non-zero):
    (counts set to 0 on every rank just before the served requests) of
    each kernel of the path, equal across ranks, K1's two split entries
    and one all-gather a norm, every message staged through host memory.
+12. dp -- data-parallel training, two spawned ranks on the card in a gloo
+   group (``parallel/data.py``, as torchrun's ranks run it): (a) the
+   shipped SD3 recipe at full width (random LPIPS), fp32 with TF32 off, a
+   (1,17,256,256,3) clip a rank, steps G (gate closed), D and G (the
+   adaptive weight open), each against one process on the card on the
+   batch of two from the step's start state and generator (``DP_*``
+   tolerances); (b) a bf16 SD3 D and G step; (c) a bf16 v1 G step; (d)
+   ``train.main`` on the shipped YAML for ``DP_MAIN_STEPS`` bf16 steps
+   (rank 0 alone writing); the ranks' states bit-identical after every
+   step; each rank's wall s, its collectives' bytes and host s, each
+   rank's launches (K1, K1.bwd, K2, K2.bwd, K4, K4.bwd; K3, K3.bwd in v1).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served, streamed, training,
-diffusion, tools and mesh paths, the mesh's by rank, and at each timed
+diffusion, tools, mesh and dp paths, the mesh's and dp's by rank, and at
+each timed
 shape ms, plain_ms, bound_ms,
 bound_by, share and library_ms; the top-level numbers are those of the
 bf16 shape with the largest bound).
@@ -3864,6 +3876,368 @@ def _mesh(dev, smi, summary):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: data-parallel training, two ranks on the one card
+# --------------------------------------------------------------------------
+
+#: the ranks of phase 12: two spawned processes on cuda:0 over gloo (NCCL
+#: refuses two ranks on one card), each forming the group as torchrun's
+#: ranks do and running the same steps on its own rows
+DP_DEVICE = "cuda:0"
+DP_WORLD = 2
+#: (a) the fp32 check's global clip (TF32 off): a (1,17,256,256,3) clip a
+#: rank; the data-parallel steps 0 (G, the gate closed), 1 (D) and 2 (G,
+#: the adaptive weight open, ``disc_start`` 1) each against one process
+#: on the card on the batch of two, from the state the step started from
+#: and with the same generator: loss metrics within DP_LOSS_RTOL relative
+#: (+1e-6), the other metrics within DP_LOSS_RTOL * (1 + |ref|) (phase 8's
+#: form: logits and loss/g are means that cancel to ~0.03), parameters
+#: within DP_PARAM_ATOL + DP_PARAM_RTOL * |ref| (``tests/test_parallel.py``'s
+#: DP tolerances); the ranks' states bit-identical after every step
+DP_CLIP = (2, 17, 256, 256, 3)
+DP_LOSS_RTOL = 1e-4
+DP_PARAM_ATOL, DP_PARAM_RTOL = 1e-5, 1e-4
+#: (b), (c) the kernels each rank must launch: a bf16 SD3 G and D step on
+#: its clip, then a bf16 v1 G step
+DP_KERNELS = {"sd3": ("K1", "K1.bwd", "K2", "K2.bwd", "K4", "K4.bwd"),
+              "v1": ("K1", "K1.bwd", "K2", "K2.bwd", "K3", "K3.bwd", "K4",
+                     "K4.bwd")}
+#: (d) train.main on the two ranks (bf16, the shipped YAML and batches)
+DP_MAIN_STEPS = 3
+#: seconds the ranks may take together
+DP_TIMEOUT_S = 600
+
+
+def _dp_clone(obj):
+    """A copy of a state dict on its device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _dp_clone(v) for k, v in obj.items()}
+    return obj
+
+
+def _dp_timed_step(step, st, batch, gen):
+    """(state, metrics, wall s, peak GiB) of one step, synchronised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, m = step(st, batch, gen)
+    torch.cuda.synchronize()
+    return (st, {k: float(v) for k, v in m.items()},
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _dp_against_one(eng, ref_st, start, x, k, got_m, got_st):
+    """Step ``k`` in this process on the whole batch ``x`` from ``start``
+    with the step's generator, against the data-parallel step's metrics
+    and state: (failures, worst metric error, worst parameter error over
+    its bound, largest |Δdp - Δone| / lr, seconds)."""
+    from cvvae_tpu_torch.training.engine import named_params
+    from cvvae_tpu_torch.training.trainer import step_generator
+    ref_st.load_state_dict(start)
+    _, ref_m, seconds, _ = _dp_timed_step(eng.train_step, ref_st,
+                                          {"frames": x},
+                                          step_generator(x.device, 0, k))
+    failures, worst = [], (0.0, "")
+    for name, r in ref_m.items():
+        d = abs(got_m[name] - r)
+        tol = (DP_LOSS_RTOL * abs(r) + 1e-6 if name.startswith("loss/")
+               else DP_LOSS_RTOL * (1 + abs(r)))
+        worst = max(worst, (d / tol, name))
+        if d > tol:
+            failures.append(f"step {k} {name} {got_m[name]!r} against "
+                            f"{r!r}")
+    lr = (eng.lr_schedule_g if eng.is_g_step(k) else eng.lr_schedule_d)(k)
+    over, upd = 0.0, 0.0
+    for which in ("params", "disc_params"):
+        before = start[which]
+        mine = named_params(getattr(got_st, which))
+        for name, r in named_params(getattr(ref_st, which)).items():
+            g, r = mine[name].detach(), r.detach()
+            over = max(over, ((g - r).abs() / (DP_PARAM_ATOL + DP_PARAM_RTOL
+                                               * r.abs())).max().item())
+            upd = max(upd, ((g - before[name]) - (r - before[name])).abs()
+                      .max().item() / lr)
+    if over > 1:
+        failures.append(f"step {k} parameters {over!r} times their bound")
+    return failures, worst, over, upd, seconds
+
+
+def _dp_launched(counts, family):
+    return [k for k in DP_KERNELS[family] if not counts.get(k)]
+
+
+def dp_main_argv(data_root):
+    """(d)'s ``train.main`` command line: the shipped YAML in bf16 on
+    ``write_train_data``'s data under ``data_root``."""
+    tar_dir, csv_dir, video_root = (os.path.join(data_root, d)
+                                    for d in ("tars", "csv", "videos"))
+    return ["--base", SHIPPED_CONFIG, "--train", "--device", DP_DEVICE,
+            "--max_steps", str(DP_MAIN_STEPS),
+            "--logdir", os.path.join(data_root, "run"),
+            "model.allow_random_lpips=true",
+            "model.engine.params.compute_dtype=bfloat16",
+            f"data.train.datasets.image_webdata.urls_or_dir={tar_dir}",
+            f"data.train.datasets.webvid.urls_or_dir={csv_dir}",
+            f"data.train.datasets.webvid.decoder.params.video_root="
+            f"{video_root}",
+            f"trainer.ckpt_every={DP_MAIN_STEPS}", "trainer.image_every=0"]
+
+
+def _dp_rank_work(rank, world, data_root):
+    """Everything one rank of phase 12 does; returns its findings."""
+    import dataclasses
+    import warnings
+    from cvvae_tpu_torch import train
+    from cvvae_tpu_torch.parallel import data as dp
+    from cvvae_tpu_torch.training.engine import TrainingEngine
+    from cvvae_tpu_torch.training.trainer import step_generator
+
+    dev = torch.device(DP_DEVICE)
+    mesh = dp.process_mesh(dev)
+    out = {"rank": rank, "failures": [], "steps": []}
+    # (a) fp32, TF32 off: G, D, G against one process on the batch of two
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = TrainingEngine(shipped_engine_config(num_warmup_steps=0),
+                             allow_random_lpips=True, seed=0, device=dev)
+    st = dp.put_replicated(eng.init_state(0), mesh)
+    ref_st = eng.init_state(0) if rank == 0 else None
+    x = torch.from_numpy(np.random.RandomState(21).uniform(
+        -1, 1, DP_CLIP).astype(np.float32)).to(dev)
+    batch = dp.put_batch({"frames": x}, mesh)
+    step = dp.shard_parallel_step(eng, mesh)
+    out["setup_s"] = time.perf_counter() - t0
+    for k in range(3):
+        start = _dp_clone(st.state_dict()) if rank == 0 else None
+        st, m, seconds, peak = _dp_timed_step(step, st, batch,
+                                              step_generator(dev, 0, k))
+        entry = {"k": k, "kind": "g" if eng.is_g_step(k) else "d",
+                 "dtype": "float32", "seconds": seconds, "peak": peak,
+                 "metrics": m,
+                 "reduce": dict(step.sync.counts),
+                 "digest": dp.check_replicated(st, mesh)}
+        if rank == 0:
+            fails, worst, over, upd, one_s = _dp_against_one(
+                eng, ref_st, start, x, k, m, st)
+            out["failures"] += fails
+            entry.update(worst=worst, over=over, update_lr=upd, one_s=one_s)
+            del start
+        # room for rank 0's one-process step, then for both ranks' next
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        out["steps"].append(entry)
+    del ref_st
+    # (b) bf16 SD3: a D step (3) and a G step (4) from there
+    bf = bf16_engine(eng)
+    step = dp.shard_parallel_step(bf, mesh)
+    reset_launch_counts()
+    for k in (3, 4):
+        st, m, seconds, peak = _dp_timed_step(step, st, batch,
+                                              step_generator(dev, 0, k))
+        out["steps"].append({"k": k, "kind": "g" if bf.is_g_step(k) else "d",
+                             "dtype": "bfloat16", "seconds": seconds,
+                             "peak": peak, "metrics": m,
+                             "reduce": dict(step.sync.counts)})
+    out["launches_sd3"] = launch_counts()
+    out["digest_bf16"] = dp.check_replicated(st, mesh)
+    del eng, bf, st, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) bf16 v1: one G step from its seeded init
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = TrainingEngine(dataclasses.replace(
+            v1_engine_config(num_warmup_steps=0), compute_dtype="bfloat16"),
+            allow_random_lpips=True, seed=0, device=dev)
+    st = dp.put_replicated(eng.init_state(0), mesh)
+    step = dp.shard_parallel_step(eng, mesh)
+    batch = dp.put_batch({"frames": x}, mesh)
+    reset_launch_counts()
+    st, m, seconds, peak = _dp_timed_step(step, st, batch,
+                                          step_generator(dev, 0, 0))
+    out["launches_v1"] = launch_counts()
+    out["steps"].append({"k": 0, "kind": "g", "dtype": "bfloat16 v1",
+                         "seconds": seconds, "peak": peak, "metrics": m,
+                         "reduce": dict(step.sync.counts)})
+    out["digest_v1"] = dp.check_replicated(st, mesh)
+    del eng, st, step, batch, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) train.main on both ranks
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trainer, state = train.main(dp_main_argv(data_root))
+    torch.cuda.synchronize()
+    out["main_s"] = time.perf_counter() - t0
+    out["launches_main"] = launch_counts()
+    out["main_log"] = [{k: e[k] for k in ("step", "kind", "shape", "seconds",
+                                          "reduce")} for e in trainer.step_log]
+    out["main_finite"] = all(math.isfinite(v) for e in trainer.step_log
+                             for v in e["metrics"].values())
+    out["main_writer"] = trainer.is_writer
+    out["digest_main"] = dp.check_replicated(state, mesh)
+    return out
+
+
+def _dp_rank(results, init, rank, world, data_root):
+    """A rank of phase 12: join the gloo group on the card, run
+    ``_dp_rank_work``, put its findings (pickled) or its traceback."""
+    import datetime
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=init, world_size=world,
+                                rank=rank, timeout=datetime.timedelta(
+                                    seconds=DP_TIMEOUT_S))
+        results.put((rank, "ok", pickle.dumps(_dp_rank_work(rank, world,
+                                                            data_root))))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _dp_ranks(root):
+    """The two ranks of phase 12, spawned; their findings in rank order."""
+    import multiprocessing
+    import pickle
+    import queue
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        init = f"tcp://localhost:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_dp_rank, daemon=True,
+                         args=(results, init, r, DP_WORLD, root))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + DP_TIMEOUT_S
+    try:
+        while len(got) < DP_WORLD:
+            try:
+                rank, kind, value = results.get(timeout=1.0)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"dp: no result from ranks "
+                                     f"{sorted(set(range(DP_WORLD)) - set(got))}"
+                                     f" in {DP_TIMEOUT_S}s")
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if r not in got and not p.is_alive()]
+                if dead and results.empty():
+                    time.sleep(2.0)  # a last result may be in flight
+                    if results.empty():
+                        raise SystemExit(f"dp: ranks died with no result: "
+                                         f"(rank, exit code) {dead}")
+                continue
+            if kind != "ok":
+                raise SystemExit(f"dp: rank {rank} failed:\n{value}")
+            got[rank] = pickle.loads(value)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [got[r] for r in range(DP_WORLD)]
+
+
+def _dp(dev, smi):
+    """Phase 12: data-parallel training on two ranks sharing the card
+    (spawned processes in a gloo group): (a) fp32, TF32 off, the shipped
+    SD3 recipe at full width (random LPIPS), steps G, D, G (the adaptive
+    weight open) each against one process on the batch of two; (b) a bf16
+    SD3 D and G step; (c) a bf16 v1 G step; (d) ``train.main`` for
+    DP_MAIN_STEPS bf16 steps.  Each rank's wall s, its collectives'
+    payload bytes and host s, the one process's step time; the ranks'
+    states bit-identical after every step; each rank's launches (counts
+    set to 0 on the rank just before (b), (c) and (d)).  Returns each
+    rank's launches over (b)-(d)."""
+    import tempfile
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        write_train_data(root, seed=9)
+        outs = _dp_ranks(root)
+        ckpt = os.path.join(root, "run", "rolling",
+                            f"step_{DP_MAIN_STEPS:08d}.pt")
+        written = os.path.exists(ckpt) and os.path.exists(
+            os.path.join(root, "run", "metrics.csv"))
+    failures = [f for o in outs for f in o["failures"]]
+    say(f"[dp] {DP_WORLD} ranks on {DP_DEVICE} over gloo; engines, state "
+        f"and replication {[round(o['setup_s'], 2) for o in outs]} s by "
+        f"rank. Two ranks sharing one card are no scaling figure: each "
+        f"rank's step takes the card's time of both; card {smi}")
+    for i, e0 in enumerate(outs[0]["steps"]):
+        es = [o["steps"][i] for o in outs]
+        red = "; ".join(
+            f"rank {r}: {e['seconds']:.3f}s, peak {e['peak']:.2f} GiB, "
+            f"{e['reduce']['collectives']} "
+            f"collectives of {e['reduce']['bytes']} B ({e['reduce']['grad_buckets']}"
+            f" gradient buckets, {e['reduce']['grad_bytes']} B) in "
+            f"{e['reduce']['seconds']:.3f} host s" for r, e in enumerate(es))
+        text = (f"[dp] {e0['dtype']} {e0['kind'].upper()} step {e0['k']}: "
+                f"{red}; loss/total {e0['metrics']['loss/total']!r} "
+                f"loss/disc {e0['metrics']['loss/disc']!r} d_weight "
+                f"{e0['metrics']['scalars/d_weight']!r}")
+        if "one_s" in e0:
+            same = len({e["digest"] for e in es}) == 1
+            text += (f"; one process on the batch of {DP_CLIP[0]}: "
+                     f"{e0['one_s']:.3f}s; worst metric error / its bound "
+                     f"{e0['worst'][0]!r} ({e0['worst'][1]}), worst "
+                     f"parameter error / its bound {e0['over']!r}, "
+                     f"largest |update dp - update one| / lr "
+                     f"{e0['update_lr']!r}; ranks bit-identical {same}")
+            if not same:
+                failures.append(f"step {e0['k']} ranks differ")
+        say(text + f"; card {smi}")
+    for key in ("digest_bf16", "digest_v1", "digest_main"):
+        if len({o[key] for o in outs}) != 1:
+            failures.append(f"{key}: ranks differ")
+    for o in outs:
+        r = o["rank"]
+        for key, family in (("launches_sd3", "sd3"), ("launches_v1", "v1"),
+                            ("launches_main", "sd3")):
+            missing = _dp_launched(o[key], family)
+            if missing:
+                failures.append(f"rank {r} {key}: {missing} never launched")
+        for e in o["main_log"]:
+            say(f"[dp] train.main rank {r} step {e['step']} "
+                f"{e['kind'].upper()} {e['shape']}: {e['seconds']:.3f}s, "
+                f"{e['reduce']['grad_bytes']} gradient B in "
+                f"{e['reduce']['seconds']:.3f} host s")
+        say(f"[dp] rank {r} launches: bf16 SD3 D + G "
+            f"{ {k: v for k, v in o['launches_sd3'].items() if v} }, v1 G "
+            f"{ {k: v for k, v in o['launches_v1'].items() if v} }, "
+            f"train.main {DP_MAIN_STEPS} steps in {o['main_s']:.2f}s "
+            f"{ {k: v for k, v in o['launches_main'].items() if v} }")
+    if not all(o["main_finite"] for o in outs) or not written or \
+            [o["main_writer"] for o in outs] != [True, False]:
+        failures.append(f"train.main: finite {[o['main_finite'] for o in outs]}"
+                        f", rank 0's checkpoint and metrics written {written}, "
+                        f"writers {[o['main_writer'] for o in outs]}")
+    say(f"[dp] phase 12 in {time.perf_counter() - t0:.1f}s; ranks "
+        f"bit-identical after every step: "
+        f"{not any('differ' in f for f in failures)}")
+    if failures:
+        raise SystemExit(f"data-parallel training: {failures}")
+    return [{k: o["launches_sd3"][k] + o["launches_v1"][k]
+             + o["launches_main"][k] for k in COUNTERS} for o in outs]
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3972,6 +4346,10 @@ def main() -> int:
     mesh_counts, mesh_per_rec = timed("mesh", _mesh, dev, smi, summary)
     mesh_path = "mesh-" + "-".join(MESH_SERVE_PATH)
     mesh_launches = {k: sum(c[k] for c in mesh_counts) for k in COUNTERS}
+    # phase 12: data-parallel training, two ranks on the card (each rank's
+    # launches counted from 0 on the rank just before each of its paths)
+    dp_counts = timed("dp", _dp, dev, smi)
+    dp_launches = {k: sum(c[k] for c in dp_counts) for k in COUNTERS}
 
     kernels = []
     for k in KERNELS:
@@ -3986,15 +4364,16 @@ def main() -> int:
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
                       + train_main[k] + train_bf16[k] + v1_check[k]
                       + v1_bf16[k] + diffusion[k] + tools[k]
-                      + mesh_launches[k]),
+                      + mesh_launches[k] + dp_launches[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
                    "train": train_main[k], "train-bf16": train_bf16[k],
                    "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k],
                    "diffusion": diffusion[k], "tools": tools[k],
-                   mesh_path: mesh_launches[k]}),
-            launches_by_rank={mesh_path: [c[k] for c in mesh_counts]},
+                   mesh_path: mesh_launches[k], "dp": dp_launches[k]}),
+            launches_by_rank={mesh_path: [c[k] for c in mesh_counts],
+                              "dp": [c[k] for c in dp_counts]},
             launches_per_reconstruct=dict(
                 {p: r[k] for p, (_, r, _) in by_path.items()},
                 **{mesh_path: [c[k] for c in mesh_per_rec]}),

@@ -1,6 +1,7 @@
 """Device meshes for multi-device inference over ``torch.distributed``.
 
-Port of ``cvvae_tpu/parallel/mesh.py`` (the inference half).  JAX drives a
+Port of ``cvvae_tpu/parallel/mesh.py`` (the inference half; the data-
+parallel half is ``parallel/data.py``).  JAX drives a
 mesh from one program; PyTorch runs one process a rank.  The port keeps
 the one program: :func:`make_mesh`, called by that program (the
 controller, rank 0), starts the n − 1 follower processes itself (the
@@ -24,8 +25,10 @@ a rank whose net call fails other than by a shard-plan error raise on the
 controller, and the mesh is then closed: nothing falls back.
 
 ``batch_sharding``, ``shard_parallel_step``, ``put_batch`` and
-``put_replicated`` belong to data-parallel training and are not ported
-here (ROADMAP queue A).
+``put_replicated`` belong to data-parallel training, which runs one
+process a rank instead (every rank its own ``Trainer.fit``, no
+controller): they live in ``parallel/data.py`` and are exported here
+under the JAX package's names.
 """
 
 from __future__ import annotations
@@ -541,3 +544,8 @@ def make_mesh(n_devices: Optional[int] = None,
                             rank=0, timeout=datetime.timedelta(
                                 seconds=TIMEOUT_S))
     return mesh
+
+
+# the data-parallel half of the JAX package's mesh.py, under its names
+from cvvae_tpu_torch.parallel.data import (  # noqa: E402,F401
+    batch_sharding, put_batch, put_replicated, shard_parallel_step)

@@ -1,18 +1,28 @@
-"""Training entry point: one process on one card.
+"""Training entry point: one process on one card, or one process a rank.
 
     python -m cvvae_tpu_torch.train --base configs/sd3_latent_constraint.yaml \
         --train [--max_steps N] [--logdir runs/exp] [--resume] \
-        [--device cuda|cpu] [--scale_lr] [key.path=value ...]
+        [--device cuda|cuda:N|cpu] [--scale_lr] [key.path=value ...]
+    torchrun --nproc_per_node 8 -m cvvae_tpu_torch.train --base ... --train
 
 Port of ``cvvae_tpu/train.py``.  The YAML is the JAX package's (its
 ``cvvae_tpu.*`` targets resolve to the same classes here,
 ``utils/config.resolve_target``); dotlist overrides set any key, e.g.
 ``model.allow_random_lpips=true`` or ``data.train.datasets.webvid.
 urls_or_dir=/data/csv``.  It runs on the card unless ``--device cpu``.
-Data parallelism over several cards waits for the multi-device slice.
 
-``--scale_lr`` scales base_lr by the global batch: world size (1 here)
-times the per-process batch size, which the train datasets must agree on.
+Data parallelism: under torchrun, ``multihost_init`` joins the group
+(NCCL on cards, gloo with ``--device cpu``); a caller that forms the
+default group itself (gloo for ranks sharing one card) is joined as it
+is.  Each rank trains on ``cuda:{LOCAL_RANK}`` (``--device cuda``; an
+index given is kept) on its own shard of the train and val data
+(``shard_id`` = rank), with the replicated state of
+``Trainer(mesh=process_mesh(...))``; rank 0 writes the logdir.  A rank's
+batch is the config's ``batch_size``, so the global batch is world x
+batch_size.
+
+``--scale_lr`` scales base_lr by the global batch: world size times the
+per-process batch size, which the train datasets must agree on.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import os
 from typing import Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def build_engine(model_cfg: Dict, device="cuda"):
@@ -118,6 +129,8 @@ def build_data(data_cfg: Dict, *, shard_id: int = 0,
 
 def main(argv=None, step_callback=None):
     """Run training; returns (trainer, final state) when ``--train``."""
+    from cvvae_tpu_torch.parallel.data import process_mesh
+    from cvvae_tpu_torch.parallel.mesh import multihost_init
     from cvvae_tpu_torch.training.trainer import Trainer
     from cvvae_tpu_torch.utils.config import load_configs, save_config
 
@@ -129,7 +142,7 @@ def main(argv=None, step_callback=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--device", default="cuda",
-                   help="cuda (the default) or cpu")
+                   help="cuda (the default: cuda:LOCAL_RANK), cuda:N or cpu")
     p.add_argument("--scale_lr", action="store_true",
                    help="scale base_lr by the global batch (world size x "
                         "per-process batch size)")
@@ -137,28 +150,44 @@ def main(argv=None, step_callback=None):
     bad = [u for u in unknown if "=" not in u]
     if bad:
         p.error(f"unrecognized arguments: {' '.join(bad)}")
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("train: no CUDA device; pass --device cpu to train "
-                         "on the CPU")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("train: no CUDA device; pass --device cpu to "
+                             "train on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+        torch.cuda.set_device(device)
+    multihost_init("gloo" if device.type == "cpu" else None)
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
 
     cfg = load_configs(args.base, unknown)
     if args.scale_lr:
-        apply_lr_scaling(cfg, world_size=1)
+        apply_lr_scaling(cfg, world_size=world)
     if args.logdir is None:
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         name = args.name or os.path.splitext(os.path.basename(args.base[0]))[0]
         args.logdir = os.path.join("logs", f"{now}_{name}")
-    os.makedirs(args.logdir, exist_ok=True)
-    save_config(cfg, os.path.join(args.logdir, "config.yaml"))
+    if world > 1:  # rank 0's name, which it alone writes to
+        named = [args.logdir]
+        dist.broadcast_object_list(named, src=0)
+        args.logdir = named[0]
+    if rank == 0:
+        os.makedirs(args.logdir, exist_ok=True)
+        save_config(cfg, os.path.join(args.logdir, "config.yaml"))
 
-    engine, warm_ckpt = build_engine(cfg["model"], device=args.device)
-    data = build_data(cfg["data"]["train"])
+    engine, warm_ckpt = build_engine(cfg["model"], device=device)
+    data = build_data(cfg["data"]["train"], shard_id=rank, num_shards=world)
     val_data: Optional[Iterator] = None
     if "val" in cfg.get("data", {}):
-        val_data = build_data(cfg["data"]["val"])
+        val_data = build_data(cfg["data"]["val"], shard_id=rank,
+                              num_shards=world)
     tcfg = cfg.get("trainer", {})
     trainer = Trainer(
         engine, args.logdir,
+        mesh=process_mesh(device) if world > 1 else None,
         max_steps=args.max_steps or tcfg.get("max_steps", 200_000),
         ckpt_every=tcfg.get("ckpt_every", 2000),
         permanent_every=tcfg.get("permanent_every", 10_000),

@@ -14,7 +14,10 @@ goes to one file a checkpoint, with
 
 A file is written to a temporary name and renamed, so a cut run leaves no
 half-written checkpoint.  Random draws need no saved state: the trainer
-seeds each step's generator from the step.
+seeds each step's generator from the step.  In data-parallel training
+only rank 0's manager is the ``writer``: the others write nothing and
+find no checkpoint to resume from, since their state comes from rank 0's
+broadcast.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ class CheckpointManager:
     def __init__(self, directory: str, *, rolling_every: int = 2000,
                  keep: int = 3, permanent_every: int = 10000,
                  monitor: Optional[str] = "train/loss/rec",
-                 best_k: int = 3):
+                 best_k: int = 3, writer: bool = True):
+        self.writer = writer
         self.directory = os.path.abspath(directory)
         self.rolling = os.path.join(self.directory, "rolling")
         self.best = os.path.join(self.directory, "best")
@@ -77,6 +81,8 @@ class CheckpointManager:
 
     def maybe_save(self, step: int, state, metrics: Optional[dict] = None
                    ) -> None:
+        if not self.writer:
+            return
         if self.rolling_every and step % self.rolling_every == 0:
             blob = _to_cpu(state.state_dict())
             _save(self.rolling, step, blob)
@@ -115,13 +121,19 @@ class CheckpointManager:
             index = {int(k): v for k, v in json.load(f).items()}
         return min(index, key=lambda s: (index[s], s)) if index else None
 
-    def save_now(self, step: int, state) -> str:
+    def save_now(self, step: int, state) -> Optional[str]:
         """The forced checkpoint on a signal or an exception."""
+        if not self.writer:
+            return None
         path = _save(self.rolling, step, _to_cpu(state.state_dict()))
         self._prune(self.rolling, self.keep)
         return path
 
     def latest_step(self) -> Optional[int]:
+        """The newest rolling checkpoint's step (None for a manager that
+        is not the writer)."""
+        if not self.writer:
+            return None
         steps = _steps(self.rolling)
         return steps[-1] if steps else None
 

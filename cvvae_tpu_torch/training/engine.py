@@ -36,6 +36,13 @@ taken on fp32 moments.  The discriminator's parameters stay fp32, its
 convs run in the dtype that reaches them (bf16).  On the card the SD3
 mid-blocks and the 2D constraint decoder's reach K4 at S >= 1024, and its
 gradient K4.bwd.
+
+``train_step(..., sync=)`` makes a step one rank's part of a data-parallel
+step (``parallel/data.py``, ``shard_parallel_step``): the posterior noise
+is this rank's rows of the global batch's draw, the adaptive weight's two
+gradients and then the step's gradients are their means over the ranks,
+and so are the metrics; every collective comes before the update.
+Without it the step is the one process's, unchanged.
 """
 
 from __future__ import annotations
@@ -284,11 +291,13 @@ class TrainingEngine:
 
     def _forward(self, params: VAEParams, x: torch.Tensor, *,
                  noise: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sync=None):
         """Encode -> sample -> decode (features, then head).  With an
         encoder constraint the frozen 2D encoder's moments of the
-        time-sliced frames join the batch, against the input twice.
-        Returns (posterior, z, h, xrec, x_target)."""
+        time-sliced frames join the batch, against the input twice.  A
+        data-parallel ``sync`` gives this rank's rows of the global
+        batch's noise.  Returns (posterior, z, h, xrec, x_target)."""
         cfg = self.cfg
         if self.compute_dtype != torch.float32:
             params = _cast_view(params, self.compute_dtype)
@@ -302,6 +311,9 @@ class TrainingEngine:
             moments = torch.cat([moments, moments_2d], dim=0)
             x_target = torch.cat([x, x], dim=0)
         posterior = DiagonalGaussian.from_moments(moments)
+        if noise is None and sync is not None:
+            noise = sync.noise(generator, posterior.mean, blocks=(
+                2 if cfg.constraint in ("encoder", "all") else 1))
         z = posterior.sample(generator, noise=noise)
         h = params.decoder(z, remat=cfg.remat, features_only=True)
         xrec = cfg.nets.apply_decoder_head(params.decoder.conv_out, h,
@@ -314,9 +326,11 @@ class TrainingEngine:
 
     def _adaptive_weight(self, params: VAEParams, disc: Disc3D,
                          h: torch.Tensor, x_target: torch.Tensor,
-                         logvar: torch.Tensor) -> torch.Tensor:
+                         logvar: torch.Tensor, sync=None) -> torch.Tensor:
         """||grad_W nll|| / (||grad_W g|| + 1e-4) (clipped, times
-        disc_weight) at the decoder's conv_out weight W, on h detached."""
+        disc_weight) at the decoder's conv_out weight W, on h detached.  A
+        data-parallel ``sync`` takes both gradients' means over ranks
+        first: the gradients of the global losses."""
         cfg, loss_cfg = self.cfg, self.cfg.loss
         conv_out = params.decoder.conv_out
         with torch.enable_grad():
@@ -328,17 +342,20 @@ class TrainingEngine:
             nll = nll_from_rec(rec, logvar.detach())
             (g_nll,) = torch.autograd.grad(nll, [w0], retain_graph=True)
             (g_g,) = torch.autograd.grad(generator_loss(disc(head)), [w0])
+        if sync is not None:
+            g_nll, g_g = sync.mean([g_nll, g_g])
         return adaptive_disc_weight(loss_cfg, global_norm([g_nll]),
                                     global_norm([g_g]))
 
     def _g_loss(self, params: VAEParams, disc: Disc3D, x: torch.Tensor,
                 step: int, draws: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None,
-                with_aux: bool = False):
+                with_aux: bool = False, sync=None):
         cfg, loss_cfg = self.cfg, self.cfg.loss
         draws = draws or {}
         posterior, z, h, xrec, x_target = self._forward(
-            params, x, noise=draws.get("noise"), generator=generator)
+            params, x, noise=draws.get("noise"), generator=generator,
+            sync=sync)
         kl_loss = DiagonalGaussian(posterior.mean.float(),
                                    posterior.logvar.float()).kl().mean()
         logvar = self._logvar(params, "logvar")
@@ -367,7 +384,7 @@ class TrainingEngine:
             d_weight = torch.tensor(loss_cfg.disc_weight, device=x.device)
         elif gate:
             d_weight = self._adaptive_weight(params, disc, h, x_target,
-                                             logvar)
+                                             logvar, sync)
         else:  # the weight is multiplied by the closed gate
             d_weight = torch.zeros((), device=x.device)
         d_weight = d_weight * gate
@@ -382,12 +399,12 @@ class TrainingEngine:
 
     def _d_loss(self, disc: Disc3D, params: VAEParams, x: torch.Tensor,
                 step: int, draws: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, sync=None):
         loss_cfg = self.cfg.loss
         with torch.no_grad():
             _, _, _, xrec, x_target = self._forward(
                 params, x, noise=(draws or {}).get("noise"),
-                generator=generator)
+                generator=generator, sync=sync)
         logits_real = disc(x_target)
         logits_fake = disc(xrec)
         fn = hinge_d_loss if loss_cfg.disc_loss == "hinge" else vanilla_d_loss
@@ -443,33 +460,45 @@ class TrainingEngine:
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[dict] = None
+                   draws: Optional[dict] = None, *, sync=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One G or D step on ``batch["frames"]`` (B, T, H, W, 3) in [-1, 1],
         in place.  ``draws``: {"noise": the posterior's N(0, 1) draw,
         "offsets": the random constraint frames' offsets}, each drawn from
-        ``generator`` where not given.  Returns (state, metrics: 0-d fp32
-        tensors)."""
+        ``generator`` where not given.  ``sync`` (``parallel/data.py``'s
+        ``ReplicaSync``) makes it one rank's part of a data-parallel step:
+        the draws, the adaptive weight's gradients, the gradients and the
+        metrics are taken over the ranks, every collective before the
+        update.  Returns (state, metrics: 0-d fp32 tensors)."""
         cfg = self.cfg
         x = batch["frames"]
         step = state.step
+        if sync is not None:
+            generator = sync.begin(x, generator)
         if self.is_g_step(step):
             named = named_params(state.params)
             total, log = self._g_loss(state.params, state.disc_params, x,
-                                      step, draws, generator)
+                                      step, draws, generator, sync=sync)
             grads = self._grads(total, named)
             log = _snapshot(log)  # before the update moves the logvars
+            frozen = self._frozen_names(named)
+            if sync is not None:  # frozen gradients are zeroed anyway
+                sync.mean_grads(grads, skip=frozen)
+                log = sync.mean_scalars(log)
             self.last_grad_norm = self.opt_g.step(
                 named, grads, state.opt_g, self.lr_schedule_g(step),
-                frozen=self._frozen_names(named))
+                frozen=frozen)
             if state.ema is not None:
                 ema_update(state.ema, named, cfg.ema_decay)
         else:
             named = named_params(state.disc_params)
             d, log = self._d_loss(state.disc_params, state.params, x, step,
-                                  draws, generator)
+                                  draws, generator, sync=sync)
             grads = self._grads(d, named)
             log = _snapshot(log)
+            if sync is not None:
+                sync.mean_grads(grads)
+                log = sync.mean_scalars(log)
             self.last_grad_norm = self.opt_d.step(
                 named, grads, state.opt_d, self.lr_schedule_d(step))
         self.last_grads = grads if self.keep_grads else None

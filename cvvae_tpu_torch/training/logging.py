@@ -10,6 +10,9 @@ LearningRateMonitor (main.py:778-784) and ImageLogger (main.py:310-478):
   panels, with the reference's log-scale early cadence (main.py:330:
   also log at powers of two below the interval) and diff_boost_factor 3
   (lvdm/models/autoencoder.py diff panels, :1157-1219).
+
+In data-parallel training only rank 0's loggers are ``writer``s: the
+others create no file and write nothing.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import numpy as np
 
 class MetricsLogger:
     def __init__(self, logdir: str, name: str = "metrics",
-                 print_every: int = 50):
-        os.makedirs(logdir, exist_ok=True)
+                 print_every: int = 50, writer: bool = True):
+        self.writer = writer
+        if writer:
+            os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, f"{name}.csv")
         self.print_every = print_every
         self._fieldnames = None
@@ -40,6 +45,8 @@ class MetricsLogger:
 
     def log(self, step: int, metrics: Dict[str, float],
             lr: Optional[float] = None) -> None:
+        if not self.writer:
+            return
         row = {"step": step, "wall_s": round(time.time() - self._t0, 2)}
         if lr is not None:
             row["lr"] = float(lr)
@@ -100,12 +107,20 @@ def should_log_images(step: int, every: int = 250) -> bool:
 
 class ImageLogger:
     def __init__(self, logdir: str, every: int = 250,
-                 diff_boost_factor: float = 3.0, max_images: int = 4):
+                 diff_boost_factor: float = 3.0, max_images: int = 4,
+                 writer: bool = True):
+        self.writer = writer
         self.dir = os.path.join(logdir, "images")
-        os.makedirs(self.dir, exist_ok=True)
+        if writer:
+            os.makedirs(self.dir, exist_ok=True)
         self.every = every
         self.diff_boost_factor = diff_boost_factor
         self.max_images = max_images
+
+    def due(self, step: int) -> bool:
+        """Whether this logger writes panels at ``step``."""
+        return bool(self.writer and self.every
+                    and should_log_images(step, self.every))
 
     def maybe_log(self, step: int, inputs: np.ndarray,
                   recons: np.ndarray, split: str = "train") -> Optional[str]:
@@ -115,10 +130,12 @@ class ImageLogger:
         return self.log(step, inputs, recons, split)
 
     def log(self, step: int, inputs, recons, split: str = "train",
-            logits_real=None, logits_fake=None) -> str:
+            logits_real=None, logits_fake=None) -> Optional[str]:
         """inputs/recons (B,T,H,W,C) in [-1,1]; optional patch-disc
         logit maps (B,T',H',W',1) add heatmap-overlay rows (the
         reference's log_images, discriminator_loss.py:98-209)."""
+        if not self.writer:
+            return None
         import cv2
         x = np.asarray(inputs, np.float32)[:self.max_images]
         r = np.asarray(recons, np.float32)[:x.shape[0], :x.shape[1]]

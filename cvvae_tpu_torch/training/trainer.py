@@ -11,6 +11,18 @@ from a generator seeded with (seed + 1, step), so a run resumed at step k
 draws what an uninterrupted run would.  ``step_log`` keeps each step's
 kind ("g" or "d"), batch shape and wall seconds; on the card a step is
 timed to its end (``torch.cuda.synchronize``).
+
+With ``mesh`` (``parallel.process_mesh()``, as the JAX package's
+``Trainer(mesh=)``) every rank runs ``fit`` on its own shard of the data:
+the step is ``shard_parallel_step``'s, the state starts replicated
+(``put_replicated``: rank 0's, after its resume), rank 0 alone writes
+metrics, panels and checkpoints (its loggers' and manager's ``writer``),
+the SIGUSR1 flag is agreed each step (all_reduce MAX), ``validate``
+averages the ranks' own validation batches and ``validate_tiled`` runs on
+rank 0.  A step's log entry has its collectives' counts (``reduce``).  A
+rank that fails leaves its peers' collectives to fail in turn (at once
+under gloo, whose peer is gone; at the group's timeout at the latest), and
+rank 0 checkpoints on the way out as in one process.
 """
 
 from __future__ import annotations
@@ -25,8 +37,7 @@ import torch
 from cvvae_tpu_torch.training.checkpoint import CheckpointManager
 from cvvae_tpu_torch.training.engine import (TrainingEngine, TrainState,
                                              ema_scope)
-from cvvae_tpu_torch.training.logging import (ImageLogger, MetricsLogger,
-                                              should_log_images)
+from cvvae_tpu_torch.training.logging import ImageLogger, MetricsLogger
 
 
 def step_generator(device: torch.device, seed: int,
@@ -42,16 +53,27 @@ class Trainer:
                  ckpt_every: int = 2000, ckpt_keep: int = 3,
                  permanent_every: int = 10_000,
                  log_every: int = 1, image_every: int = 250,
-                 val_every: Optional[int] = None, seed: int = 0,
+                 val_every: Optional[int] = None, mesh=None, seed: int = 0,
                  step_callback: Optional[Callable[[dict], None]] = None):
         self.engine = engine
         self.logdir = logdir
         self.max_steps = max_steps
-        self.metrics = MetricsLogger(logdir)
-        self.images = ImageLogger(logdir, every=image_every)
+        self._mesh = mesh
+        if mesh is not None:
+            from cvvae_tpu_torch.parallel.data import shard_parallel_step
+            self._step_fn = shard_parallel_step(engine, mesh)
+            self._replicas = self._step_fn.sync
+        else:
+            self._step_fn, self._replicas = engine.train_step, None
+        #: rank 0 (or the one process) writes the logs and checkpoints
+        self.is_writer = mesh is None or mesh.rank == 0
+        self.metrics = MetricsLogger(logdir, writer=self.is_writer)
+        self.images = ImageLogger(logdir, every=image_every,
+                                  writer=self.is_writer)
         self.ckpt = CheckpointManager(logdir, rolling_every=ckpt_every,
                                       keep=ckpt_keep,
-                                      permanent_every=permanent_every)
+                                      permanent_every=permanent_every,
+                                      writer=self.is_writer)
         self.val_every = val_every
         self.log_every = log_every
         self.seed = seed
@@ -76,6 +98,9 @@ class Trainer:
         if resume and self.ckpt.latest_step() is not None:
             state = self.ckpt.restore(state)
             print(f"[trainer] resumed at step {state.step}")
+        if self._mesh is not None:
+            from cvvae_tpu_torch.parallel.data import put_replicated
+            put_replicated(state, self._mesh)
         data = device_prefetch(data, engine.device)
         melk_requested = {"flag": False}
 
@@ -95,7 +120,7 @@ class Trainer:
                 kind = "g" if engine.is_g_step(step) else "d"
                 self._sync()
                 t0 = time.perf_counter()
-                state, metrics = engine.train_step(
+                state, metrics = self._step_fn(
                     state, batch, step_generator(engine.device, self.seed,
                                                  step))
                 self._sync()
@@ -103,6 +128,8 @@ class Trainer:
                          "shape": tuple(batch["frames"].shape),
                          "seconds": time.perf_counter() - t0,
                          "metrics": {k: float(v) for k, v in metrics.items()}}
+                if self._replicas is not None:
+                    entry["reduce"] = dict(self._replicas.counts)
                 self.step_log.append(entry)
                 if self.step_callback is not None:
                     self.step_callback(entry)
@@ -111,11 +138,13 @@ class Trainer:
                     self.metrics.log(step, {f"train/{k}": v for k, v in
                                             entry["metrics"].items()},
                                      lr=self._lr_schedule(step))
-                if self.images.every and should_log_images(
-                        step, self.images.every):
+                if self.images.due(step):
                     self._log_images(state, batch["frames"], step)
                 self.ckpt.maybe_save(step, state, metrics={
                     f"train/{k}": v for k, v in entry["metrics"].items()})
+                if self._replicas is not None:  # one rank's signal is all's
+                    melk_requested["flag"] = self._replicas.any(
+                        melk_requested["flag"])
                 if melk_requested["flag"]:
                     self.ckpt.save_now(step, state)
                     melk_requested["flag"] = False
@@ -177,6 +206,9 @@ class Trainer:
                                         .numpy(), split=f"{split}{tag}")
             out.update({f"{split}{tag}/{k}": v / count
                         for k, v in sums.items()})
+        if self._replicas is not None:  # the mean of the ranks' means
+            out = {k: float(v) for k, v in
+                   self._replicas.mean_scalars(out).items()}
         self.metrics.log(step, out)
         return out
 
@@ -192,7 +224,10 @@ class Trainer:
                        tile_overlap_ratio: float = 0.2222,
                        split: str = "val_tiled") -> dict:
         """Full-resolution evaluation through the serving path (temporal
-        chunking and spatial tiles): PSNR, SSIM and L1."""
+        chunking and spatial tiles): PSNR, SSIM and L1.  Rank 0's alone in
+        data-parallel training (the others return {})."""
+        if not self.is_writer:
+            return {}
         from cvvae_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
         from cvvae_tpu_torch.utils.metrics import reconstruction_report
         cfg = self.engine.cfg

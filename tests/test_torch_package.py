@@ -201,6 +201,7 @@ def test_training_modules_pull_in_no_jax():
             "cvvae_tpu_torch.models.lpips\n"
             "import cvvae_tpu_torch.data.decoders, "
             "cvvae_tpu_torch.utils.config\n"
+            "import cvvae_tpu_torch.parallel.data\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cvvae_tpu' or "
             "m.startswith('cvvae_tpu.') or m == 'optax')\n"

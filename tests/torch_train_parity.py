@@ -103,8 +103,9 @@ class Pair:
     engine on the same frozen nets."""
 
     def __init__(self, constraint, perceptual=0.0, port_remat=True,
-                 compute_dtype="float32", family="sd3"):
+                 compute_dtype="float32", family="sd3", clip=CLIP):
         self.constraint = constraint
+        self.clip = clip
         self.compute_dtype = compute_dtype
         jnet, tnet = NETS[family][:2]
         jcfg = _cfg((jnet, JDisc, JLoss, JOptim, J2D, JEngineConfig),
@@ -123,7 +124,7 @@ class Pair:
             lpips_params=frozen["lpips"],
             constraint_decoder_params=frozen.get("constraint_decoder"),
             constraint_encoder_params=frozen.get("constraint_encoder"))
-        self.x = np.random.RandomState(1).uniform(-1, 1, CLIP).astype(
+        self.x = np.random.RandomState(1).uniform(-1, 1, clip).astype(
             np.float32)
         batch = {"frames": jnp.asarray(self.x)}
         self._spread = {}
@@ -165,7 +166,7 @@ class Pair:
         def normal(k):
             return torch.from_numpy(np.asarray(
                 jax.random.normal(k, lat, dtype), np.float32))
-        b, t, h, w, _ = CLIP
+        b, t, h, w, _ = self.clip
         lat = (b * (2 if cfg.constraint in ("encoder", "all") else 1),
                (t - 1) // 4 + 1, h // 8, w // 8, cfg.latent_channels)
         key = self.key(step)
