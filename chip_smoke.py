@@ -144,13 +144,28 @@ Phases (each prints its findings; any failure exits non-zero):
    step; each rank's wall s, its collectives' bytes and host s, each
    rank's launches (K1, K1.bwd, K2, K2.bwd, K4, K4.bwd; K3, K3.bwd in v1).
 
+13. qflow -- int8 activation residency (``ops/qflow.py``): K5 from an
+   int8 input (int8 out at per-channel scales, bf16 and fp32 out) on
+   ``K5_CHECK_CASES``, K1's int8 mode on ``QFLOW_K1_CASES`` and K6 on
+   ``QFLOW_K6_CASES`` against their plain versions (K5 and K6 bit-equal,
+   K1's int8 mode by ``k1_int8_check``); each mode's agreement (dB) with
+   the fp32 chain on a ``QFLOW_NUMERICS`` clip at each width; at each of
+   ``QFLOW_SHAPES`` (the v1 decoder's two largest resblock stages, as
+   ``tools/probe_residency.py`` times them): K5 from int8 at the chain's
+   two convs (int8 and bf16 out, on the first and last output frames),
+   K1's int8 mode (a per-channel scale to int8, a scalar to bf16), K6's
+   add and requantization, each timed beside its plain version and its
+   bound; the 3-resblock chain's launches (counts set to 0 just before;
+   K5, K5.stage, K5.int8, K1.int8, K6, K6.requant, and no K1-K4); the
+   three chains (bf16, int8-conv: ``ops/quant.py``'s conv-only int8,
+   int8-res) timed in turns, ms a block.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served, streamed, training,
-diffusion, tools, mesh and dp paths, the mesh's and dp's by rank, and at
-each timed
-shape ms, plain_ms, bound_ms,
-bound_by, share and library_ms; the top-level numbers are those of the
-bf16 shape with the largest bound).
+diffusion, tools, mesh, dp and int8-res paths, the mesh's and dp's by
+rank, and at each timed shape ms, plain_ms, bound_ms, bound_by, share and
+library_ms; the top-level numbers are those of the bf16 shape with the
+largest bound, or of ``MAIN_DTYPES``' dtype).
 It imports nothing of JAX.
 """
 
@@ -500,14 +515,35 @@ KERNELS = {
     "K4.bwd": dict(name="flash_attention_backward", route="cuda",
                    source="cvvae_tpu_torch/csrc/attention_bwd.cu",
                    replaces="cvvae_tpu/ops/attention.py:82"),
+    # the int8-resident mode (phase 13; cvvae_tpu/ops/qflow.py, whose
+    # functions XLA computes, no Pallas kernel): K5 from an int8 input to
+    # an int8 output, its timed numbers stage + GEMM, its launches the
+    # GEMM's with an int8 output; K1's int8 mode; K6's residual add and
+    # requantization
+    "K5.int8": dict(name="conv3d_int8_resident", route="cuda",
+                    source="cvvae_tpu_torch/csrc/conv_int8.cu",
+                    replaces="cvvae_tpu/ops/qflow.py:79"),
+    "K1.int8": dict(name="group_norm_silu_int8", route="cuda",
+                    source="cvvae_tpu_torch/csrc/groupnorm.cu",
+                    replaces="cvvae_tpu/ops/qflow.py:138"),
+    "K6": dict(name="qadd", route="cuda",
+               source="cvvae_tpu_torch/csrc/qflow.cu",
+               replaces="cvvae_tpu/ops/qflow.py:175"),
+    "K6.requant": dict(name="requant", route="cuda",
+                       source="cvvae_tpu_torch/csrc/qflow.cu",
+                       replaces="cvvae_tpu/ops/qflow.py:69"),
 }
+#: each kernel's dtype whose timed entry with the largest bound gives the
+#: kernels line its top-level numbers (bf16 where none is named): the
+#: int8-resident modes' int8 outputs, K6.requant's bf16 input
+MAIN_DTYPES = {"K5.int8": "int8", "K1.int8": "int8", "K6": "int8"}
 
 
 def kernel_modules():
     from cvvae_tpu_torch.ops.kernels import (attention, conv_int8, groupnorm,
-                                             shuffle, stem)
+                                             qflow, shuffle, stem)
     return {"K1": groupnorm, "K2": shuffle, "K3": stem, "K4": attention,
-            "K5": conv_int8}
+            "K5": conv_int8, "K6": qflow}
 
 
 #: each kernel's launch counter: (its module's key, the attribute)
@@ -518,7 +554,11 @@ COUNTERS = {**{k: (k, "launches") for k in ("K1", "K2", "K3", "K4", "K5")},
             "K1.bwd": ("K1", "bwd_launches"),
             "K2.bwd": ("K2", "bwd_launches"),
             "K3.bwd": ("K3", "bwd_launches"),
-            "K4.bwd": ("K4", "bwd_launches")}
+            "K4.bwd": ("K4", "bwd_launches"),
+            "K5.int8": ("K5", "int8_out_launches"),
+            "K1.int8": ("K1", "int8_launches"),
+            "K6": ("K6", "qadd_launches"),
+            "K6.requant": ("K6", "requant_launches")}
 
 
 def launch_counts():
@@ -921,7 +961,13 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     the int8 kernel, fp32 scales and bias; 2*taps*Cin int8 operations an
     output element.  K5.stage shape (B, T, H, W, Cin) with ``pads`` and
     the W ``stride``: x in, the staged int8 tensor out
-    (``conv_int8.staged_shape``); one division an input value."""
+    (``conv_int8.staged_shape``); one division an input value.  The
+    int8-resident modes (``dtype`` their output's, or K6.requant's
+    input's): K5.int8 as K5 with x int8; K1.int8 shape (B, T, H, W, C): x
+    int8 in, y out, 12 fp32 operations an element (dequantize, two
+    moments, the affine, SiLU, requantize); K6 (qadd): two int8 tensors in
+    and one out, 4 operations an element; K6.requant: x in, int8 out, one
+    division an element."""
     e = torch.tensor([], dtype=dtype).element_size()
     numel = math.prod(shape)
     if key == "K1":
@@ -963,6 +1009,19 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
         from cvvae_tpu_torch.ops.kernels.conv_int8 import staged_shape
         return (numel * e + math.prod(staged_shape(shape, pads, stride[2]))
                 + 4, numel)
+    if key == "K5.int8":  # int8 x in, the output in ``dtype``
+        from cvvae_tpu_torch.ops.kernels.conv_int8 import out_extents
+        out = math.prod(out_extents(shape, kernel, stride, pads)) \
+            * shape[0] * cout
+        taps = math.prod(kernel)
+        return (numel + out * e + cout * shape[-1] * taps + 12 * cout,
+                out * 2 * shape[-1] * taps)
+    if key == "K1.int8":  # int8 x in, y out in ``dtype``; fp32 scales
+        return numel + numel * e + 3 * shape[-1] * 4, 12 * numel
+    if key == "K6":  # two int8 tensors in, int8 out; fp32 scales
+        return 3 * numel + 3 * shape[-1] * 4, 4 * numel
+    if key == "K6.requant":  # x in ``dtype``, int8 out
+        return numel * e + numel + shape[-1] * 4, numel
     raise KeyError(key)
 
 
@@ -972,8 +1031,9 @@ def bound(key, shape, dtype, **kw):
     are int8 whatever x's dtype; K5.stage's divisions fp32)."""
     nbytes, flop = work(key, shape, dtype, **kw)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = PEAK_FLOPS[{"K5": torch.int8, "K5.stage": torch.float32}.get(
-        key, dtype)]
+    peak = PEAK_FLOPS[{"K5": torch.int8, "K5.int8": torch.int8}.get(
+        key, torch.float32 if key in ("K5.stage", "K1.int8", "K6",
+                                      "K6.requant") else dtype)]
     t_ops = flop / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2766,6 +2826,45 @@ def write_train_data(root, seed=0, n_images=16, image_hw=(360, 400),
 TRAIN_MAIN_STEPS = 6
 
 
+def write_train_checkpoints(root, seed=17):
+    """The two checkpoints phase 8's ``train.main`` starts from, written
+    in the reference's layout (``reference_layout``) from the port's
+    seeded random nets at the shipped recipe's full width: the frozen
+    constraint decoder (``decoder.*``, .safetensors) and a warm start of
+    the generator (``encoder.*``, ``decoder.*``, a Lightning .ckpt).
+    Returns (decoder path, warm-start path, the decoder's state dict)."""
+    from safetensors.torch import save_file
+
+    from cvvae_tpu_torch.models.vae2d import Decoder2D
+    from cvvae_tpu_torch.training.engine import VAEParams
+
+    cfg = shipped_engine_config()
+    g = torch.Generator().manual_seed(seed)
+    dec = Decoder2D(cfg.constraint_decoder, g).state_dict()
+    dec_path = os.path.join(root, "constraint_decoder.safetensors")
+    save_file(reference_layout({f"decoder.{k}": v for k, v in dec.items()}),
+              dec_path)
+    warm = {k: v for k, v in VAEParams(cfg, g).state_dict().items()
+            if k.startswith(("encoder.", "decoder."))}
+    warm_path = os.path.join(root, "warm_start.ckpt")
+    torch.save({"state_dict": reference_layout(warm)}, warm_path)
+    return dec_path, warm_path, dec
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, line by line."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
 def k1_bwd_shape_ms(key, dev):
     """K1.bwd's CUDA-event ms at one (B', S, C, SiLU, dtype) of
     ``bwd_launches_by_shape``, on ``k1_bwd_inputs`` of shape (B', S, C)
@@ -2804,9 +2903,13 @@ def _k1_bwd_by_step(dev, compute, step_log, per_shape, smi):
 def _train_main(dev, smi, compute="float32"):
     """``cvvae_tpu_torch.train.main`` on the shipped YAML at full width
     with the shipped batches, in ``compute`` ("float32" or "bfloat16",
-    through the dotlist), on seeded local data: per-step wall time by
-    kind and batch shape, peak memory, finite losses, launches a step, and
-    a checkpoint written and reloaded.  Returns the run's launches."""
+    through the dotlist), on seeded local data, from a frozen constraint
+    decoder and a warm start written here (``write_train_checkpoints``):
+    the frozen decoder bit-equal to the written one (in the compute
+    dtype), both warm-start subtrees loaded, per-step wall time by kind
+    and batch shape, peak memory, finite losses, launches a step, and a
+    checkpoint written and reloaded.  Returns the run's launches."""
+    import contextlib
     import tempfile
     import warnings
     from cvvae_tpu_torch import train
@@ -2814,6 +2917,7 @@ def _train_main(dev, smi, compute="float32"):
 
     with tempfile.TemporaryDirectory() as tmp:
         tar_dir, csv_dir, video_root = write_train_data(tmp, seed=8)
+        dec_path, warm_path, dec_state = write_train_checkpoints(tmp)
         logdir = os.path.join(tmp, "run")
         per_step, per_shape = [], []
         by_shape = kernel_modules()["K1"].bwd_launches_by_shape
@@ -2835,18 +2939,35 @@ def _train_main(dev, smi, compute="float32"):
                 f"data.train.datasets.webvid.decoder.params.video_root="
                 f"{video_root}",
                 f"trainer.ckpt_every={TRAIN_MAIN_STEPS}",
-                "trainer.image_every=0"]
+                "trainer.image_every=0",
+                f"model.frozen_ckpts.constraint_decoder={dec_path}",
+                f"model.ckpt_path={warm_path}"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         last[:] = [launch_counts(), by_shape.copy()]
         t0 = time.perf_counter()
-        with warnings.catch_warnings():
+        tee = _Tee(sys.stdout)
+        with warnings.catch_warnings(), contextlib.redirect_stdout(tee):
             warnings.simplefilter("ignore")
             trainer, state = train.main(argv, step_callback=on_step)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        frozen = trainer.engine.frozen["constraint_decoder"].state_dict()
+        dtype = getattr(torch, compute)
+        frozen_same = set(frozen) == set(dec_state) and all(
+            torch.equal(frozen[k].cpu(), v.to(dtype)) for k, v in
+            dec_state.items())
+        warm_line = "[train] warm-started 2 subtree(s) ['decoder', 'encoder']"
+        warm = any(s.startswith(warm_line) for s in "".join(
+            tee.text).splitlines())
+        say(f"[train] main {compute}: the frozen constraint decoder bit-equal "
+            f"to the checkpoint written ({compute}): {frozen_same}; both "
+            f"warm-start subtrees loaded: {warm}")
+        if not (frozen_same and warm):
+            raise SystemExit("train.main: the frozen decoder or the warm "
+                             "start is not the checkpoint's")
         _k1_bwd_by_step(dev, compute, trainer.step_log, per_shape, smi)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         by = {}
@@ -4238,6 +4359,542 @@ def _dp(dev, smi):
              + o["launches_main"][k] for k in COUNTERS} for o in outs]
 
 
+# --------------------------------------------------------------------------
+# phase 13: int8 activation residency (ops/qflow.py)
+# --------------------------------------------------------------------------
+
+#: phase 13's chains: the v1 decoder's two largest resblock stages at full
+#: width, as ``tools/probe_residency.py`` times them (name, (B, T, H, W, C))
+QFLOW_SHAPES = [("blocks0", (1, 17, 720, 672, 128)),
+                ("blocks1", (1, 17, 360, 336, 256))]
+#: resblocks a chain (GN+SiLU -> 3x3x3 conv -> GN+SiLU -> 1x3x3 conv ->
+#: residual add), its GroupNorms' groups and eps
+QFLOW_BLOCKS, QFLOW_GROUPS, QFLOW_EPS = 3, 32, 1e-5
+#: the numerics clip (B, T, H, W) at each chain's width: each mode's
+#: agreement with the fp32 chain, in dB, calibrated on the clip itself
+QFLOW_NUMERICS = (1, 5, 96, 96)
+#: the calibration slice (T, H, W) of a timed chain's input
+QFLOW_CALIB = (3, 256, 256)
+#: K1's int8 mode against its plain version.  int8 output: codes within 1,
+#: and at most QFLOW_K1_FLIPS of them off by one (the kernel's moments are
+#: summed in another order than PyTorch's, and its SiLU's exp is not
+#: torch's, so a value a few fp32 ulps from a .5 quotient rounds the other
+#: way).  Float outputs: |got - ref| <= tol * (1 + |ref|): fp32 1e-5 (the
+#: moments and exp in other orders), bf16 2^-7 more (one bf16 rounding of
+#: values a few fp32 ulps apart lands at most one bf16 ulp apart)
+QFLOW_K1_FLIPS = 1e-3
+QFLOW_K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7 + 1e-5}
+#: K1's int8 mode's small cases ((B, T, H, W, C), groups): 16-value loads
+#: spanning 1, 2, 4 or 8 groups, 2-value loads (one channel a group) and
+#: 1-value loads (C 96, 3 a group)
+QFLOW_K1_CASES = [((2, 3, 5, 7, 64), 8), ((1, 4, 9, 11, 128), 32),
+                  ((1, 2, 6, 6, 96), 32), ((1, 3, 5, 5, 256), 32),
+                  ((1, 2, 4, 4, 512), 32), ((1, 2, 4, 6, 64), 32),
+                  ((1, 2, 4, 6, 32), 32)]
+#: K6's small cases (N, ..., C): a tail past the last 16 values, channels
+#: off 16 (24, 7), one of 128
+QFLOW_K6_CASES = [(2, 3, 5, 7, 24), (1, 3, 9, 11, 128), (1, 1, 3, 5, 7)]
+
+
+def qflow_codes(shape, dev, seed, spread=30.0):
+    """int8 codes round(N(0, 1) * spread + m_c), clipped to +-127, the
+    channel means m_c running from -spread to +spread, so the groups'
+    statistics differ."""
+    c = shape[-1]
+    shift = torch.linspace(-spread, spread, c, device=dev)
+    x = randn(shape, seed, dev, torch.float32, spread) + shift
+    return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+
+
+def qflow_scale(c, dev, per_channel):
+    """A dequantizing scale: 1/127, or one a channel from 0.5/127 to
+    2/127."""
+    if per_channel:
+        return torch.linspace(0.5, 2.0, c, device=dev) / 127
+    return torch.tensor(1.0 / 127, device=dev)
+
+
+def k1_int8_inputs(shape, dev, per_channel, seed=70):
+    """q, its scale, and K1's weight and bias for a check of its int8
+    mode."""
+    c = shape[-1]
+    return (qflow_codes(shape, dev, seed), qflow_scale(c, dev, per_channel),
+            torch.linspace(0.5, 1.5, c, device=dev),
+            torch.linspace(-0.3, 0.3, c, device=dev))
+
+
+def codes_check(got, ref, flips):
+    """(max |d|, excess, text) of int8 codes against the plain version's:
+    within 1, and at most ``flips`` of them off."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return math.inf, math.inf, f"{got.shape} {got.dtype} != {ref.shape}"
+    worst, off = 0, 0
+    g, r = got.reshape(-1), ref.reshape(-1)
+    for i in range(0, g.numel(), 1 << 28):
+        d = (g[i:i + (1 << 28)].int() - r[i:i + (1 << 28)].int()).abs_()
+        worst = max(worst, d.max().item())
+        off += (d > 0).sum().item()
+    frac = off / g.numel()
+    return (float(worst), max(worst - 1.0, frac - flips),
+            f"int8 codes: max|d| {worst} (<= 1), {off} of {g.numel()} off "
+            f"by one ({frac!r} <= {flips})")
+
+
+def k1_int8_check(got, q, scale, w, b, groups, out_scale, out_dtype):
+    """(max |d|, excess, text) of K1's int8 mode against its plain
+    version: codes by ``codes_check``, float outputs by QFLOW_K1_TOL."""
+    from cvvae_tpu_torch.ops.kernels.groupnorm import \
+        group_norm_silu_int8_plain
+
+    ref = group_norm_silu_int8_plain(
+        q, scale, w, b, num_groups=groups, eps=QFLOW_EPS,
+        out_scale=out_scale, out_dtype=out_dtype)
+    if out_scale is not None:
+        return codes_check(got, ref, QFLOW_K1_FLIPS)
+    if got.dtype != ref.dtype:
+        return math.inf, math.inf, f"{got.dtype} != {ref.dtype}"
+    tol = QFLOW_K1_TOL[out_dtype]
+    err, excess, _, rms = compare(got, ref, tol)
+    return err, excess, f"tol={tol!r}*(1+|ref|) rms={rms!r}"
+
+
+def k5_int8_inputs(shape, cout, kernel, dev, with_bias=True, seed=80):
+    """int8 codes x (``qflow_codes``), an int8 kernel, per-channel scales,
+    scale_x, a bias (or None) and a per-channel out_scale that leaves some
+    outputs clipped."""
+    _, wq, sw, _, b = k5_inputs(shape, cout, kernel, dev, torch.float32,
+                                with_bias, seed)
+    xq = qflow_codes(shape, dev, seed + 3)
+    sx = torch.tensor(1.0 / 127, device=dev)
+    # about 3 sigma of the outputs (codes of sigma 30 against weights of
+    # sigma 73 over Cin * taps products) at code 127 / linspace(0.5, 1.5)
+    n = shape[-1] * math.prod(kernel)
+    so = (torch.linspace(0.5, 1.5, cout, device=dev) * 3 * 30 * 73 * n ** 0.5
+          * sx * sw / 127)
+    return xq, wq, sw, sx, b, so
+
+
+def k5_int8_check(xq, wq, sw, sx, b, kernel, stride, pads, modes, so,
+                  out_dtype, frames=None, wpk=None):
+    """K5 from an int8 input (K5.stage padding it, K5.gemm writing int8 at
+    ``so`` or ``out_dtype``) against ``conv3d_int8_resident_plain``, bit
+    for bit: (bit-equal, max|d|), on every output frame, or with
+    ``frames`` on the first K5_HEAD_FRAMES and last K5_TAIL_FRAMES."""
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+
+    kw = dict(out_scale=so) if out_dtype == torch.int8 else dict(
+        out_dtype=out_dtype)
+    got = conv_int8.conv3d_int8_resident(xq, wq, sw, sx, b, stride, pads,
+                                         modes, wpk, **kw)
+    torch.cuda.synchronize()
+    t_out = got.shape[1]
+    spans = (((0, K5_HEAD_FRAMES), (t_out - K5_TAIL_FRAMES, t_out))
+             if frames else ((0, t_out),))
+    exact, err = True, 0.0
+    for first, last in spans:
+        xs, t_pads = k5_frames(xq, kernel, stride, pads, modes, first, last)
+        ref = conv_int8.conv3d_int8_resident_plain(
+            xs, wq, sw, sx, b, stride, (t_pads,) + tuple(pads[1:]), modes,
+            **kw)
+        part = got[:, first:last].contiguous()
+        same = k2_exact(part, ref) if part.dtype != torch.int8 else (
+            part.shape == ref.shape and torch.equal(part, ref))
+        exact &= same
+        if not same:
+            err = max(err, (part.float() - ref.float()).abs().max().item()
+                      if part.shape == ref.shape else math.inf)
+        del xs, ref, part
+    del got
+    return exact, err
+
+
+def k6_cases(shape, dev, seed=90):
+    """(requant's x, its per-channel scale, qadd's two code tensors) of a
+    K6 check at ``shape``: x ~ N(0, 1) * 3 with every 7th value (k + 1/2)
+    / 32, |k| < 100 (exact in bf16), a tie of the scalar scale 1/32."""
+    c = shape[-1]
+    x = randn(shape, seed, dev, torch.float32, 3.0)
+    ties = x.view(-1)[::7]
+    ties.copy_((torch.clamp(torch.round(ties * 32), -100, 99) + 0.5) / 32)
+    s = qflow_scale(c, dev, True) * 3
+    xq, hq = qflow_codes(shape, dev, seed + 1), qflow_codes(shape, dev,
+                                                            seed + 2)
+    return x, s, xq, hq
+
+
+def k6_checks(shape, dev):
+    """K6 bit-equal to its plain versions at ``shape``: requant of bf16
+    and fp32 at a scalar and a per-channel scale; qadd with scalar and
+    per-channel input scales and per-channel and scalar out scales.
+    Returns [(label, bit-equal)]."""
+    from cvvae_tpu_torch.ops.kernels import qflow as k6
+
+    x, s, xq, hq = k6_cases(shape, dev)
+    c = shape[-1]
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for scale in (torch.tensor(1 / 32, device=dev), s):
+            xd = x.to(dtype)
+            same = torch.equal(k6.requant(xd, scale),
+                               k6.requant_plain(xd, scale))
+            out.append((f"K6.requant {tuple(shape)} {dtype} scale "
+                        f"{tuple(scale.shape)}", same))
+    # the last: (qx + qh) / 64 at 1/32, a tie wherever qx + qh is odd
+    pow2 = [torch.tensor(v, device=dev) for v in (1 / 64, 1 / 64, 1 / 32)]
+    for sx, sh, so in ((qflow_scale(c, dev, False), qflow_scale(c, dev, True),
+                        qflow_scale(c, dev, True) * 1.7),
+                       (qflow_scale(c, dev, True), qflow_scale(c, dev, False),
+                        torch.tensor(0.02, device=dev)), pow2):
+        same = torch.equal(k6.qadd(xq, sx, hq, sh, so),
+                           k6.qadd_plain(xq, sx, hq, sh, so))
+        out.append((f"K6 qadd {tuple(shape)} scales {tuple(sx.shape)} "
+                    f"{tuple(sh.shape)} -> {tuple(so.shape)}", same))
+    torch.cuda.synchronize()
+    return out
+
+
+def _qflow_small(record, dev):
+    """Every new mode on small ragged cases: K5 from int8 on
+    K5_CHECK_CASES (int8 out at per-channel scales, bf16 and fp32 out),
+    K1's int8 mode on QFLOW_K1_CASES (scalar and per-channel scales; int8,
+    bf16, fp32 out), K6 on QFLOW_K6_CASES."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
+
+    for i, (shape, cout, kernel, stride, pads, modes, with_bias) in \
+            enumerate(K5_CHECK_CASES):
+        xq, wq, sw, sx, b, so = k5_int8_inputs(shape, cout, kernel, dev,
+                                               with_bias)
+        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+            exact, err = k5_int8_check(xq, wq, sw, sx, b, kernel, stride,
+                                       pads, modes, so, out_dtype)
+            record("K5.int8", f"case {i} {shape}->{cout} k={kernel} "
+                   f"s={stride} pads={pads} {modes} bias={with_bias} out "
+                   f"{out_dtype} bit-exact={exact}", err,
+                   0.0 if exact else 1.0, "tol=bit-exact")
+    for shape, groups in QFLOW_K1_CASES:
+        for per_channel in (False, True):
+            q, s, w, b = k1_int8_inputs(shape, dev, per_channel)
+            for out_scale, out_dtype in ((torch.tensor(0.03, device=dev),
+                                          torch.int8),
+                                         (None, torch.bfloat16),
+                                         (None, torch.float32)):
+                got = groupnorm.group_norm_silu_int8(
+                    q, s, w, b, num_groups=groups, eps=QFLOW_EPS,
+                    out_scale=out_scale, out_dtype=out_dtype)
+                err, excess, text = k1_int8_check(got, q, s, w, b, groups,
+                                                  out_scale, out_dtype)
+                record("K1.int8", f"{shape} G={groups} per_channel="
+                       f"{per_channel} out {out_dtype}", err, excess, text)
+    for shape in QFLOW_K6_CASES:
+        for label, same in k6_checks(shape, dev):
+            key = "K6.requant" if label.startswith("K6.requant") else "K6"
+            record(key, f"{label} bit-exact={same}", 0.0 if same else 1.0,
+                   0.0 if same else 1.0, "tol=bit-exact")
+
+
+def qflow_master(c, dev, seed=0):
+    """QFLOW_BLOCKS resblocks of width ``c`` in fp32 on ``dev``: each a
+    dict of norm1, conv1 (3x3x3, zero pads: the decoder is non-causal),
+    norm2, conv2 (1x3x3), with torch's conv init and norm weights and
+    biases off 1 and 0."""
+    from cvvae_tpu_torch.ops.conv import Conv, Conv3DSpec
+    from cvvae_tpu_torch.ops.norm import norm_init
+
+    g = torch.Generator().manual_seed(seed)
+    blocks = []
+    for _ in range(QFLOW_BLOCKS):
+        blk = {}
+        for i, spec in ((1, Conv3DSpec.v1_plain()), (2,
+                                                     Conv3DSpec.spatial2d())):
+            n = norm_init(c)
+            with torch.no_grad():
+                n.weight.uniform_(0.8, 1.2, generator=g)
+                n.bias.uniform_(-0.1, 0.1, generator=g)
+            blk[f"norm{i}"] = n.to(dev)
+            blk[f"conv{i}"] = Conv(spec, c, c, g).to(dev)
+        blocks.append(blk)
+    return blocks
+
+
+def qflow_run(blocks, h):
+    """The float chain (K1, the port's conv3d: cuDNN, or K5 on quantized
+    convs), the activations in h's dtype."""
+    from cvvae_tpu_torch.ops.conv import conv3d
+    from cvvae_tpu_torch.ops.norm import group_norm
+
+    for blk in blocks:
+        r = group_norm(h, blk["norm1"], num_groups=QFLOW_GROUPS,
+                       eps=QFLOW_EPS, silu=True)
+        r = conv3d(r, blk["conv1"], blk["conv1"].spec)
+        r = group_norm(r, blk["norm2"], num_groups=QFLOW_GROUPS,
+                       eps=QFLOW_EPS, silu=True)
+        r = conv3d(r, blk["conv2"], blk["conv2"].spec)
+        h = h + r
+    return h
+
+
+def qflow_modes(master, calib):
+    """The three modes' blocks: bf16 (a bf16 copy), int8-conv (the convs
+    quantized, ``quant.quantize_conv_params``, and calibrated on ``calib``
+    in bf16, as ``serve --dtype int8`` calibrates) and int8-res (each
+    conv's quantized tensors, packed kernel and ``scale_x``, and the
+    residency scales of an fp32 pass over ``calib`` through the quantized
+    blocks, ``tools/probe_residency.py``'s scheme: the entry's per-tensor
+    max, each conv output's and each residual's per channel, over 127)."""
+    import copy
+
+    from cvvae_tpu_torch.ops import quant
+    from cvvae_tpu_torch.ops.conv import conv3d
+    from cvvae_tpu_torch.ops.kernels import conv_int8
+    from cvvae_tpu_torch.ops.norm import group_norm
+
+    bf16 = [{k: copy.deepcopy(m).to(torch.bfloat16) for k, m in b.items()}
+            for b in master]
+    int8 = [{k: copy.deepcopy(m) for k, m in b.items()} for b in master]
+    for b in int8:
+        for k in ("conv1", "conv2"):
+            quant.quantize_conv_params(b[k], min_cin=64)
+    with quant.calibration_scope() as rec:
+        qflow_run(int8, calib.to(torch.bfloat16))
+    quant.attach_activation_scales(rec)
+
+    def chan(t):
+        return t.float().abs().amax(dim=(0, 1, 2, 3)) / 127.0
+
+    res, h = [], calib.float()
+    for b in int8:
+        blk = {k: dict(weight=b[k].weight, bias=b[k].bias)
+               for k in ("norm1", "norm2")}
+        blk["scale_entry"] = h.abs().amax() / 127.0
+        r = h
+        for i in (1, 2):
+            conv = b[f"conv{i}"]
+            r = group_norm(r, b[f"norm{i}"], num_groups=QFLOW_GROUPS,
+                           eps=QFLOW_EPS, silu=True)
+            r = conv3d(r, conv, conv.spec)
+            blk[f"conv{i}"] = dict(
+                weight_q=conv.weight_q, scale_w=conv.scale_w, bias=conv.bias,
+                scale_x=conv.scale_x, scale_y=chan(r), spec=conv.spec,
+                k5_wpk=conv_int8.pack_weight(conv.weight_q))
+        h = h + r
+        blk["scale_res"] = chan(h)
+        res.append(blk)
+    return bf16, int8, res
+
+
+def qflow_residency(blocks, x):
+    """The int8-resident chain (``ops/qflow.py``): x requantized once
+    (K6), then each block's GN+SiLU (K1's int8 mode) writing int8 at the
+    next conv's scale_x, the convs (K5 from int8) writing int8 at their
+    per-channel scale_y, the residual add (K6) at scale_res; dequantized
+    to bf16 at the end."""
+    from cvvae_tpu_torch.ops import qflow
+
+    h = qflow.requant(x, blocks[0]["scale_entry"])
+    for blk in blocks:
+        r = h
+        for i in (1, 2):
+            conv = blk[f"conv{i}"]
+            r = qflow.qgroup_norm_silu(r, blk[f"norm{i}"],
+                                       num_groups=QFLOW_GROUPS,
+                                       eps=QFLOW_EPS,
+                                       out_scale=conv["scale_x"])
+            r = qflow.qconv3d(r, conv, conv["spec"],
+                              out_scale=conv["scale_y"])
+        h = qflow.qadd(h, r, blk["scale_res"])
+    return qflow.dequant(h, torch.bfloat16)
+
+
+def agreement_db(a, b):
+    """10 log10(mean b^2 / mean (a - b)^2), as tools/probe_residency.py
+    reads each mode against the fp32 chain."""
+    a, b = a.double(), b.double()
+    mse = (a - b).square().mean().item()
+    return 10 * math.log10(b.square().mean().item() / max(mse, 1e-12))
+
+
+def _qflow_numerics(dev, c, smi):
+    """Each mode against the fp32 chain (TF32 off) on a QFLOW_NUMERICS
+    clip of width ``c``, calibrated on the clip: dB."""
+    master = qflow_master(c, dev, seed=c)
+    x = randn(QFLOW_NUMERICS + (c,), 5, dev, torch.float32)
+    ref = qflow_run(master, x)
+    bf16, int8, res = qflow_modes(master, x)
+    got = {"bf16": qflow_run(bf16, x.to(torch.bfloat16)),
+           "int8-conv": qflow_run(int8, x.to(torch.bfloat16)),
+           "int8-res": qflow_residency(res, x.to(torch.bfloat16))}
+    db = {k: agreement_db(v, ref) for k, v in got.items()}
+    say(f"[qflow] numerics {QFLOW_NUMERICS + (c,)}: agreement with the fp32 "
+        f"chain (dB) {json.dumps(db)}; card {smi}")
+    if not all(math.isfinite(v) and v > 20.0 for v in db.values()):
+        raise SystemExit(f"qflow numerics: a mode is off the fp32 chain {db}")
+    return db
+
+
+def _qflow_shape(dev, name, shape, record, smi, count):
+    """One chain shape: each new mode against its plain version and timed
+    (K5 from int8 at conv1's and conv2's convs, K1's int8 mode, K6), then
+    the three chains timed in turns, ms a block.  With ``count``, the
+    launches of one int8-res chain (counts set to 0 just before)."""
+    from cvvae_tpu_torch.ops.kernels import conv_int8, groupnorm
+    from cvvae_tpu_torch.ops.kernels import qflow as k6
+
+    c = shape[-1]
+    master = qflow_master(c, dev)
+    x = randn(shape, 3, dev, torch.bfloat16)
+    calib = x[:, :QFLOW_CALIB[0], :QFLOW_CALIB[1], :QFLOW_CALIB[2]].float()
+    bf16, int8, res = qflow_modes(master, calib)
+    del master, calib
+    # K5 from int8, both convs of block 0, int8 and bf16 out
+    q = qflow_codes(shape, dev, 11)
+    for i in (1, 2):
+        conv = res[0][f"conv{i}"]
+        spec = conv["spec"]
+        args = (q, conv["weight_q"], conv["scale_w"], conv["scale_x"],
+                conv["bias"], spec.kernel, spec.stride, spec.pads,
+                spec.modes, conv["scale_y"])
+        for out_dtype in (torch.int8, torch.bfloat16):
+            exact, err = k5_int8_check(*args, out_dtype, frames=True,
+                                       wpk=conv["k5_wpk"])
+            timing = extra = None
+            if i == 1:
+                kw = (dict(out_scale=conv["scale_y"]) if out_dtype ==
+                      torch.int8 else dict(out_dtype=out_dtype))
+                xs, t_pads = k5_frames(q, spec.kernel, spec.stride,
+                                       spec.pads, spec.modes, 0,
+                                       K5_HEAD_FRAMES)
+                ms = turns({
+                    "plain": lambda: conv_int8.conv3d_int8_resident_plain(
+                        xs, *args[1:5], spec.stride,
+                        (t_pads,) + tuple(spec.pads[1:]), spec.modes, **kw),
+                    "kernel": lambda: conv_int8.conv3d_int8_resident(
+                        q, *args[1:5], spec.stride, spec.pads, spec.modes,
+                        conv["k5_wpk"], **kw)})
+                timing = (shape, out_dtype, ms["kernel"], ms["plain"], None,
+                          dict(cout=c, kernel=spec.kernel, stride=spec.stride,
+                               pads=spec.pads))
+                extra = dict(name=f"{name} conv1", plain_frames=K5_HEAD_FRAMES)
+                del xs
+            record("K5.int8", f"{name} conv{i} {shape} k={spec.kernel} out "
+                   f"{out_dtype}, output frames [0, {K5_HEAD_FRAMES}) and "
+                   f"the last {K5_TAIL_FRAMES} bit-exact={exact}", err,
+                   0.0 if exact else 1.0, "tol=bit-exact", timing, extra)
+            torch.cuda.empty_cache()
+    # K1's int8 mode: a residual's per-channel scale to int8, a conv
+    # output's scalar scale to bf16
+    for per_channel, out_scale, out_dtype in (
+            (True, torch.tensor(0.03, device=dev), torch.int8),
+            (False, None, torch.bfloat16)):
+        q1, s, w, b = k1_int8_inputs(shape, dev, per_channel)
+        kw = dict(num_groups=QFLOW_GROUPS, eps=QFLOW_EPS, out_scale=out_scale,
+                  out_dtype=out_dtype)
+        got = groupnorm.group_norm_silu_int8(q1, s, w, b, **kw)
+        torch.cuda.synchronize()
+        err, excess, text = k1_int8_check(got, q1, s, w, b, QFLOW_GROUPS,
+                                          out_scale, out_dtype)
+        del got
+        torch.cuda.empty_cache()
+        k_ms, p_ms, _ = in_turns(
+            lambda: groupnorm.group_norm_silu_int8_plain(q1, s, w, b, **kw),
+            lambda: groupnorm.group_norm_silu_int8(q1, s, w, b, **kw))
+        record("K1.int8", f"{name} {shape} per_channel={per_channel} out "
+               f"{out_dtype}", err, excess, text,
+               (shape, out_dtype, k_ms, p_ms, None, {}), dict(name=name))
+        del q1
+        torch.cuda.empty_cache()
+    # K6
+    for label, same in k6_checks(shape, dev):
+        key = "K6.requant" if label.startswith("K6.requant") else "K6"
+        record(key, f"{name} {label} bit-exact={same}", 0.0 if same else 1.0,
+               0.0 if same else 1.0, "tol=bit-exact")
+    xq, hq = qflow_codes(shape, dev, 21), qflow_codes(shape, dev, 22)
+    sx, so = qflow_scale(c, dev, True), qflow_scale(c, dev, True) * 1.7
+    k_ms, p_ms, _ = in_turns(lambda: k6.qadd_plain(xq, sx, hq, sx, so),
+                             lambda: k6.qadd(xq, sx, hq, sx, so))
+    record("K6", f"{name} qadd {shape} timed", 0.0, 0.0, "tol=bit-exact",
+           (shape, torch.int8, k_ms, p_ms, None, {}), dict(name=name))
+    del xq, hq
+    entry = res[0]["scale_entry"]
+    k_ms, p_ms, _ = in_turns(lambda: k6.requant_plain(x, entry),
+                             lambda: k6.requant(x, entry))
+    record("K6.requant", f"{name} requant {shape} bf16 timed", 0.0, 0.0,
+           "tol=bit-exact", (shape, torch.bfloat16, k_ms, p_ms, None, {}),
+           dict(name=name))
+    torch.cuda.empty_cache()
+    # the three chains
+    counts = None
+    if count:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = qflow_residency(res, x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if out.shape != x.shape or not torch.isfinite(out).all():
+            raise SystemExit(f"qflow: the int8-res chain's output "
+                             f"{tuple(out.shape)} is not finite")
+        del out
+    ms = turns({"bf16": lambda: qflow_run(bf16, x),
+                "int8-conv": lambda: qflow_run(int8, x),
+                "int8-res": lambda: qflow_residency(res, x)})
+    per_block = {k: v / QFLOW_BLOCKS for k, v in ms.items()}
+    say(f"[qflow] {name} {shape}: ms a block (of {QFLOW_BLOCKS}, CUDA "
+        f"events, median of turns) {json.dumps(per_block)}; card {smi}")
+    del x, bf16, int8, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_block, counts
+
+
+def _qflow(dev, smi, summary):
+    """Phase 13: int8 activation residency on the card.  Each new kernel
+    mode against its plain version on small cases and at both chain
+    shapes (int8 and bf16 outputs), timed there; the three chains (bf16,
+    int8-conv, int8-res) timed, ms a block; each mode's agreement with
+    the fp32 chain.  Returns the int8-res chain's launches (counts set to
+    0 just before one chain at the first shape)."""
+    t0 = time.perf_counter()
+
+    def record(key, label, err, excess, tol_text, timing=None, extra=None):
+        """Print one check, as phase 3's ``record``; fail it where
+        ``excess`` > 0."""
+        ok = excess <= 0.0
+        line = f"[qflow] {key} {label}: max_abs_err={err!r} {tol_text}"
+        if timing:
+            shape, dtype, k_ms, p_ms, lib_ms, kw = timing
+            b_ms, by = bound(key, shape, dtype, **kw)
+            summary[key]["timed"].append(dict(
+                shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                share=b_ms / k_ms, library_ms=lib_ms, **(extra or {})))
+            line += (f" kernel_ms={k_ms!r} plain_ms={p_ms!r} "
+                     f"bound_ms={b_ms!r} ({by}) share={b_ms / k_ms!r}; "
+                     f"card {smi}")
+        say(f"{line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{key} {label}: disagrees with its plain "
+                             f"version (max_abs_err {err}; {tol_text})")
+        summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"], err)
+
+    with torch.no_grad():  # int8 is inference-only
+        _qflow_small(record, dev)
+        dbs = {c: _qflow_numerics(dev, c, smi)
+               for c in sorted({s[-1] for _, s in QFLOW_SHAPES})}
+        chains, launches = {}, None
+        for i, (name, shape) in enumerate(QFLOW_SHAPES):
+            chains[name], counts = _qflow_shape(dev, name, shape, record,
+                                                smi, count=i == 0)
+            launches = launches or counts
+    need = ("K5", "K5.stage", "K5.int8", "K1.int8", "K6", "K6.requant")
+    say(f"[qflow] phase 13 in {time.perf_counter() - t0:.1f}s; one int8-res "
+        f"chain's launches {json.dumps({k: v for k, v in launches.items() if v})}"
+        f"; ms a block {json.dumps(chains)}; dB against fp32 "
+        f"{json.dumps(dbs)}; card {smi}")
+    if any(launches[k] == 0 for k in need) or any(
+            launches[k] for k in ("K1", "K4", "K2", "K3")):
+        raise SystemExit(f"qflow: the int8-res chain launched {launches}")
+    return launches
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4350,6 +5007,9 @@ def main() -> int:
     # launches counted from 0 on the rank just before each of its paths)
     dp_counts = timed("dp", _dp, dev, smi)
     dp_launches = {k: sum(c[k] for c in dp_counts) for k in COUNTERS}
+    # phase 13: int8 activation residency (the int8-res chain's launches
+    # counted from 0 just before one chain)
+    qflow_launches = timed("qflow", _qflow, dev, smi, summary)
 
     kernels = []
     for k in KERNELS:
@@ -4357,21 +5017,24 @@ def main() -> int:
         # the largest bound (its largest shape on a path); the backward
         # kernels are timed in both dtypes since the training path runs both
         timed_k = summary[k]["timed"]
-        main_shape = max([e for e in timed_k if e["dtype"] == "bfloat16"]
+        main_dtype = MAIN_DTYPES.get(k, "bfloat16")
+        main_shape = max([e for e in timed_k if e["dtype"] == main_dtype]
                          or timed_k, key=lambda e: e["bound_ms"])
         kernels.append(dict(
             KERNELS[k],
             launches=(sum(n[k] for n, _, _ in by_path.values()) + stream[k]
                       + train_main[k] + train_bf16[k] + v1_check[k]
                       + v1_bf16[k] + diffusion[k] + tools[k]
-                      + mesh_launches[k] + dp_launches[k]),
+                      + mesh_launches[k] + dp_launches[k]
+                      + qflow_launches[k]),
             launches_by_path=dict(
                 {p: n[k] for p, (n, _, _) in by_path.items()},
                 **{"stream-" + "-".join(STREAM_PATH): stream[k],
                    "train": train_main[k], "train-bf16": train_bf16[k],
                    "train-v1": v1_check[k], "train-v1-bf16": v1_bf16[k],
                    "diffusion": diffusion[k], "tools": tools[k],
-                   mesh_path: mesh_launches[k], "dp": dp_launches[k]}),
+                   mesh_path: mesh_launches[k], "dp": dp_launches[k],
+                   "qflow-int8-res": qflow_launches[k]}),
             launches_by_rank={mesh_path: [c[k] for c in mesh_counts],
                               "dp": [c[k] for c in dp_counts]},
             launches_per_reconstruct=dict(

@@ -22,7 +22,10 @@
 //   int8 with every pad materialised: edge-mode axes replicate, zero-mode
 //   axes, channels past Cin (Cp is Cin rounded up to the 128-channel K
 //   chunk) and the columns past W + pW (W' is rounded up to a multiple of
-//   the W stride) are 0.  Each value is rounded by quant8 below, once.
+//   the W stride) are 0.  Each value is rounded by quant8 (common.cuh),
+//   once.  An int8 input (an int8-resident activation,
+//   cvvae_tpu/ops/qflow.py:90-92) is only padded: 16 bytes copied a
+//   thread, no quantization.
 //
 // K5.gemm: a pure s8 implicit GEMM over xq, with no quantization, pad
 //   logic or input dtype in its inner loop; only the epilogue's output
@@ -56,8 +59,10 @@
 //     flight share their input rows in L2, and the producer loads the next
 //     tile while the consumers write this one out.
 //   * Epilogue: __fmul_rn(float(acc), __fmul_rn(scale_x, scale_w[o])),
-//     then __fadd_rn of the bias, cast to x's dtype; the ragged W' and O
-//     tails are masked.
+//     then __fadd_rn of the bias, cast to the output dtype (x's, or the
+//     one the caller names), or with an int8 output requantized by
+//     quant8 at out_scale[o] (qflow.py:97-103: the int8-resident mode);
+//     the ragged W' and O tails are masked.
 //
 // kBN, kKC, kMaxKW and kMaxSW are read by ops/kernels/conv_int8.py (and
 // its CPU tests) from this file.
@@ -101,25 +106,6 @@ __device__ __forceinline__ float value(const Group<T>& g, int i) {
     const uint32_t w = word(g.v[i / 8], (i % 8) / 2);
     return __uint_as_float(i % 2 ? (w & 0xffff0000u) : (w << 16));
   }
-}
-
-// round-half-even(fl(v / s)) clipped to +-127, bit for bit as
-// quantize_act_static (which divides, rounding once).  The correctly
-// rounded quotient costs an IEEE division (__fdiv_rn: a reciprocal, its
-// refinement and a range check).  So the product t = v * fl(1/s) is taken
-// first: t is within 2^-23 |v/s| of v/s (two roundings), and fl(v/s)
-// within 2^-24 |v/s|, so below |t| = 128 the two differ by less than
-// 2^-15.  Where t lies farther than 2^-13 from every half-integer,
-// fl(v/s) lies in the same open interval between half-integers, so both
-// round to rint(t); where |t| >= 128, |fl(v/s)| > 127.5 and both clip.
-// Only the values within 2^-13 of a half-integer (about 1 in 2^12) take
-// the division.
-__device__ __forceinline__ int quant8(float v, float s, float r) {
-  const float t = __fmul_rn(v, r);
-  if (fabsf(t) >= 128.f) return t > 0.f ? 127 : -127;
-  const float n = rintf(t);
-  if (0.5f - fabsf(t - n) > 0x1p-13f) return max(-127, min(127, (int)n));
-  return max(-127, min(127, __float2int_rn(__fdiv_rn(v, s))));
 }
 
 // 16 channels from p, of which the first n are valid (the rest read 0)
@@ -178,6 +164,17 @@ __device__ __forceinline__ int source(int i, int lo, int n, int edge) {
   return i;
 }
 
+// 16 int8 values from p, of which the first n are valid (the rest read 0)
+__device__ __forceinline__ uint4 load_int8(const int8_t* p, int n,
+                                           bool vec) {
+  if (vec && n >= 16) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i < n) w[i / 4] |= (uint32_t)(uint8_t)p[i] << (8 * (i % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 struct StageArgs {
   int T, H, W, Cin, Cp;
   int Tp, Hp, Wp, Wv;  // staged extents; columns from Wv on are zeros
@@ -206,16 +203,21 @@ int8_stage(const T* __restrict__ x, const float* __restrict__ scale_x,
       out[j] = make_uint4(0u, 0u, 0u, 0u);
     return;
   }
-  const float sx = *scale_x, rx = __frcp_rn(sx);
+  // an int8 input is copied as it is (scale_x is not read)
+  const float sx = sizeof(T) == 1 ? 1.f : *scale_x, rx = __frcp_rn(sx);
   const T* src = x + ((b * a.T + ti) * a.H + hi) * (int64_t)a.W * a.Cin;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const int w = j / groups, c = (j - w * groups) * 16;
     const int wi = w < a.Wv ? source(w, a.lW, a.W, a.edgeW) : -1;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (wi >= 0 && c < a.Cin) {
-      Group<T> g;
-      load_group(src + (int64_t)wi * a.Cin + c, a.Cin - c, a.vec != 0, g);
-      v = quant_group(g, sx, rx);
+      if constexpr (sizeof(T) == 1) {
+        v = load_int8(src + (int64_t)wi * a.Cin + c, a.Cin - c, a.vec != 0);
+      } else {
+        Group<T> g;
+        load_group(src + (int64_t)wi * a.Cin + c, a.Cin - c, a.vec != 0, g);
+        v = quant_group(g, sx, rx);
+      }
     }
     out[j] = v;
   }
@@ -375,16 +377,27 @@ __device__ __forceinline__ void advance(int& stage, int& phase, int n) {
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float v0, float v1, bool two,
                                        bool pair) {
-  if (pair) {
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  if constexpr (sizeof(T) == 1) {  // v0, v1 are int8 codes
+    if (pair) {
+      *reinterpret_cast<char2*>(p) = make_char2((signed char)v0,
+                                                (signed char)v1);
+      return;
     }
-    return;
+    p[0] = (T)v0;
+    if (two) p[1] = (T)v1;
+  } else {
+    if (pair) {
+      if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(p) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+      return;
+    }
+    p[0] = from_f32<T>(v0);
+    if (two) p[1] = from_f32<T>(v1);
   }
-  p[0] = from_f32<T>(v0);
-  if (two) p[1] = from_f32<T>(v1);
 }
 
 // Warps 0-7: two consumer warpgroups, warpgroup wg computing the tile's
@@ -401,7 +414,8 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
           const __grid_constant__ CUtensorMap map_b,
           const float* __restrict__ scale_x,
           const float* __restrict__ scale_w, const float* __restrict__ bias,
-          T* __restrict__ y, const GemmArgs a) {
+          const float* __restrict__ out_scale, T* __restrict__ y,
+          const GemmArgs a) {
   using S = Smem<NP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -545,6 +559,9 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
       const int c0 = even ? c : c - 1;  // the pair's first channel
       const float sc = c < a.O ? scale(c) : 0.f;
       const float bc = bias != nullptr && c < a.O ? __ldg(bias + c) : 0.f;
+      // an int8 output: channel c's requantizing scale and its reciprocal
+      const float os = sizeof(T) == 1 && c < a.O ? __ldg(out_scale + c) : 1.f;
+      const float ro = __frcp_rn(os);
 #pragma unroll
       for (int j = 0; j < NP / 8; ++j) {
         float v0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), sc);
@@ -552,6 +569,10 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
         if (bias != nullptr) {
           v0 = __fadd_rn(v0, bc);
           v1 = __fadd_rn(v1, bc);
+        }
+        if constexpr (sizeof(T) == 1) {  // requantized in channel c
+          v0 = (float)quant8(v0, os, ro);
+          v1 = (float)quant8(v1, os, ro);
         }
         const float other = __shfl_xor_sync(0xffffffffu, even ? v1 : v0, 4);
         const int wo = t.wo0 + 8 * j + 2 * q4 + (even ? 0 : 1);
@@ -591,8 +612,8 @@ int num_sms(int device) {
 template <typename T, int NP>
 int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mt,
                 const CUtensorMap& mb, const void* scale_x,
-                const void* scale_w, const void* bias, void* y,
-                const GemmArgs& a, int n_sms, cudaStream_t s) {
+                const void* scale_w, const void* bias, const void* out_scale,
+                void* y, const GemmArgs& a, int n_sms, cudaStream_t s) {
   using S = Smem<NP>;
   const cudaError_t e = cudaFuncSetAttribute(
       int8_gemm<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -602,14 +623,15 @@ int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mt,
   const int grid = a.n_tiles > n_sms ? n_sms : a.n_tiles;
   int8_gemm<T, NP><<<grid, kThreads, S::kBytes, s>>>(
       ma, mt, mb, (const float*)scale_x, (const float*)scale_w,
-      (const float*)bias, (T*)y, a);
+      (const float*)bias, (const float*)out_scale, (T*)y, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K5.stage.  x (B,T,H,W,cin) bf16|fp32 contiguous; scale_x a device fp32
-// scalar; xq (B,tp,hp,wp,cp) int8 with tp = T + both T pads, hp likewise,
+// K5.stage.  x (B,T,H,W,cin) bf16|fp32 contiguous, or int8 (padded
+// only); scale_x a device fp32 scalar (not read for int8, may be null);
+// xq (B,tp,hp,wp,cp) int8 with tp = T + both T pads, hp likewise,
 // wv = W + both W pads <= wp, cp a multiple of 16 >= cin.  lo pads per
 // axis; edge_* 1 for a replicated axis, 0 for zeros.  vec: x's rows may be
 // read as 16-byte vectors.
@@ -636,6 +658,9 @@ CVVAE_EXPORT int cvvae_int8_stage(const void* x, const void* scale_x,
   else if (dtype == CVVAE_F32)
     int8_stage<float><<<(unsigned)rows, 256, 0, s>>>(
         (const float*)x, (const float*)scale_x, (uint4*)xq, a);
+  else if (dtype == CVVAE_I8)
+    int8_stage<int8_t><<<(unsigned)rows, 256, 0, s>>>(
+        (const int8_t*)x, (const float*)scale_x, (uint4*)xq, a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -645,11 +670,13 @@ CVVAE_EXPORT int cvvae_int8_stage(const void* x, const void* scale_x,
 // cp of kKC; wpk (o_pad, kT*kH*kW, cp) int8, o_pad a multiple of kBN,
 // zeros past O and past the input channels; scale_x a device fp32 scalar,
 // scale_w (O,) fp32, bias (O,) fp32 or null; y (B,To,Ho,Wo,O) in
-// ``dtype``.  Output pixel (t, h, w) tap (dt, dh, dw) reads xq at
+// ``dtype``: bf16, fp32, or int8 requantized by out_scale (O,) fp32 (read
+// only for an int8 output).  Output pixel (t, h, w) tap (dt, dh, dw) reads xq at
 // (oT + t*sT + dt, oH + h*sH + dh, oW + w*sW + dw), inside the tensor.
 CVVAE_EXPORT int cvvae_int8_gemm(const void* xq, const void* wpk,
                                  const void* scale_x, const void* scale_w,
-                                 const void* bias, void* y, int B, int tp,
+                                 const void* bias, const void* out_scale,
+                                 void* y, int B, int tp,
                                  int hp, int wp, int cp, int O, int o_pad,
                                  int kT, int kH, int kW, int sT, int sH,
                                  int sW, int oT, int oH, int oW, int To,
@@ -660,7 +687,8 @@ CVVAE_EXPORT int cvvae_int8_gemm(const void* xq, const void* wpk,
       sW < 1 || sW > kMaxSW || wp % sW || oT < 0 || oH < 0 || oW < 0 ||
       To < 1 || Ho < 1 || Wo < 1 || oT + (To - 1) * sT + kT > tp ||
       oH + (Ho - 1) * sH + kH > hp || oW + (Wo - 1) * sW + kW > wp ||
-      (int64_t)B * tp >= INT32_MAX)
+      (int64_t)B * tp >= INT32_MAX ||
+      (dtype == CVVAE_I8 && out_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   const int n_sms = num_sms(device);
@@ -717,13 +745,20 @@ CVVAE_EXPORT int cvvae_int8_gemm(const void* xq, const void* wpk,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == CVVAE_BF16)
     return wide ? launch_gemm<__nv_bfloat16, 256>(ma, mt, mb, scale_x, scale_w,
-                                                bias, y, a, n_sms, s)
+                                                bias, out_scale, y, a, n_sms,
+                                                s)
                 : launch_gemm<__nv_bfloat16, 128>(ma, mt, mb, scale_x, scale_w,
-                                                bias, y, a, n_sms, s);
+                                                bias, out_scale, y, a, n_sms,
+                                                s);
   if (dtype == CVVAE_F32)
     return wide ? launch_gemm<float, 256>(ma, mt, mb, scale_x, scale_w, bias,
-                                        y, a, n_sms, s)
+                                        out_scale, y, a, n_sms, s)
                 : launch_gemm<float, 128>(ma, mt, mb, scale_x, scale_w, bias,
-                                        y, a, n_sms, s);
+                                        out_scale, y, a, n_sms, s);
+  if (dtype == CVVAE_I8)
+    return wide ? launch_gemm<int8_t, 256>(ma, mt, mb, scale_x, scale_w, bias,
+                                         out_scale, y, a, n_sms, s)
+                : launch_gemm<int8_t, 128>(ma, mt, mb, scale_x, scale_w, bias,
+                                         out_scale, y, a, n_sms, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,6 +35,25 @@
 //      folds the ranks' (count, mean, M2) in rank order by Chan's formula
 //      in double (deterministic, independent of timing) and the affine as
 //      gn_merge does; then gn_apply, unchanged.
+// The int8 mode (cvvae_group_norm_int8), for an int8-resident activation
+// (cvvae_tpu/ops/qflow.py:138-172, qgroup_norm_silu), computes the JAX
+// package's function, not K1's own statistics:
+//   gnq_stats: the same plan over int8 x (16 values a load); each value is
+//      dequantized in registers, xf = q * s[c] (s a scalar or per channel),
+//      and xf and xf * xf (each rounded to fp32) are summed, no shift, in
+//      fp32 over a thread's batch of loads and then in double; the block's
+//      per-group sums written as gn_stats writes them.
+//   gnq_merge: one warp per (batch row, group) adds the blocks' sums in a
+//      fixed order and takes JAX's one-pass moments: the fp32 mean and
+//      mean of squares, var = E[x^2] - mean^2 in fp32 (not clamped: it
+//      can go slightly negative, as JAX's can), inv = rsqrt(var + eps)
+//      correctly rounded, then the folded affine a = inv * w[c] * s[c], b
+//      = bias[c] - mean * inv * w[c], each product rounded as JAX writes it.
+//   gnq_apply: h = q * a + b (two roundings, as the reference's), SiLU in
+//      fp32 (h * 1 / (1 + exp(-h))), written as int8 requantized at the
+//      consumer's scalar out_scale (quant8, common.cuh), or bf16 / fp32.
+//   Its statistics run over every axis but the batch and the channels
+//   (T, H, W, C/G); 2 bytes an element of traffic with an int8 output.
 // Bound: device memory.  One read and one write of x is the least
 // traffic (8.02 GB at (1,17,720,1280,128) bf16: 2.39 ms at 3.35 TB/s);
 // this design reads x twice (the statistics must be complete before the
@@ -302,6 +321,187 @@ __global__ void __launch_bounds__(max_threads<V>())
   }
 }
 
+// ---------------------------------------------------------------- int8 --
+
+// the int8 mode's dequantizing scales: channel c's is s[c * per_channel]
+struct QScale {
+  const float* s;
+  int per_channel;
+};
+
+// gn_stats over int8 x: the sums of xf = q * s[c] and of xf * xf about 0
+template <int V, int NS>
+__global__ void __launch_bounds__(max_threads<V>())
+    gnq_stats(const int8_t* __restrict__ x, QScale qs,
+              double* __restrict__ part, Plan p) {
+  extern __shared__ double sh[];  // [rows_per_iter][nvc * NS][2]
+  const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int8_t* xb = x + (int64_t)b * p.S * p.C;
+  const int c0 = tx * V;
+  const int64_t r0 = (int64_t)blk * p.rows_per_block;
+  const int64_t r1 = min_i64(p.S, r0 + p.rows_per_block);
+  const int64_t step = (int64_t)p.rows_per_iter * kUnroll;
+  float sc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sc[j] = qs.s[(c0 + j) * qs.per_channel];
+  double s1[NS], s2[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) s1[s] = s2[s] = 0.0;
+  if (ty < p.rows_per_iter) {
+    for (int64_t r = r0 + ty; r < r1; r += step) {
+      Pack<int8_t, V> v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t row = r + (int64_t)u * p.rows_per_iter;
+        if (row < r1)
+          v[u] = *reinterpret_cast<const Pack<int8_t, V>*>(xb + row * p.C +
+                                                           c0);
+      }
+      float f1[NS], f2[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) f1[s] = f2[s] = 0.f;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (r + (int64_t)u * p.rows_per_iter < r1) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const int s = j / (V / NS);
+            const float xf = __fmul_rn((float)v[u].v[j], sc[j]);
+            f1[s] = __fadd_rn(f1[s], xf);
+            f2[s] = __fadd_rn(f2[s], __fmul_rn(xf, xf));
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        s1[s] += (double)f1[s];
+        s2[s] += (double)f2[s];
+      }
+    }
+    const int w = p.nvc * NS;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      sh[(ty * w + tx * NS + s) * 2] = s1[s];
+      sh[(ty * w + tx * NS + s) * 2 + 1] = s2[s];
+    }
+  }
+  __syncthreads();
+  const int w = p.nvc * NS;
+  const int per = NS > 1 ? 1 : p.cg / V;
+  for (int g = threadIdx.x; g < p.G; g += blockDim.x) {
+    double a1 = 0.0, a2 = 0.0;
+    for (int y = 0; y < p.rows_per_iter; ++y)
+      for (int k = g * per; k < (g + 1) * per; ++k) {
+        a1 += sh[(y * w + k) * 2];
+        a2 += sh[(y * w + k) * 2 + 1];
+      }
+    double* out = part + (((int64_t)b * p.n_blocks + blk) * p.G + g) * 2;
+    out[0] = a1;
+    out[1] = a2;
+  }
+}
+
+// one warp per (batch row, group): JAX's one-pass moments and the folded
+// affine of the int8 mode
+__global__ void gnq_merge(const double* __restrict__ part, QScale qs,
+                          const float* __restrict__ weight,
+                          const float* __restrict__ bias,
+                          float* __restrict__ coef, int B, Plan p,
+                          float eps) {
+  const int lane = threadIdx.x & 31;
+  const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (wid >= B * p.G) return;
+  const int b = wid / p.G, g = wid % p.G;
+  double a1, a2;
+  block_moments(part, b, g, lane, p, &a1, &a2);
+  const double n = (double)p.S * p.cg;
+  const float mean = (float)(a1 / n), msq = (float)(a2 / n);
+  const float var = __fsub_rn(msq, __fmul_rn(mean, mean));
+  const float inv = __frsqrt_rn(__fadd_rn(var, eps));
+  const float mi = __fmul_rn(mean, inv);
+  for (int c = g * p.cg + lane; c < (g + 1) * p.cg; c += 32) {
+    const float s = qs.s[c * qs.per_channel];
+    coef[(int64_t)b * 2 * p.C + c] = __fmul_rn(__fmul_rn(inv, weight[c]), s);
+    coef[(int64_t)b * 2 * p.C + p.C + c] =
+        __fsub_rn(bias[c], __fmul_rn(mi, weight[c]));
+  }
+}
+
+// int8 x -> SiLU(q * a + b) as O: int8 requantized at *out_scale, or bf16
+// or fp32
+template <typename O, int V>
+__global__ void __launch_bounds__(max_threads<V>())
+    gnq_apply(const int8_t* __restrict__ x, O* __restrict__ y,
+              const float* __restrict__ coef,
+              const float* __restrict__ out_scale, Plan p) {
+  const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
+  if (ty >= p.rows_per_iter) return;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int64_t off = (int64_t)b * p.S * p.C;
+  const int c0 = tx * V;
+  float a[V], bb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    a[j] = coef[(int64_t)b * 2 * p.C + c0 + j];
+    bb[j] = coef[(int64_t)b * 2 * p.C + p.C + c0 + j];
+  }
+  const float os = sizeof(O) == 1 ? *out_scale : 1.f, ro = __frcp_rn(os);
+  const int64_t r0 = (int64_t)blk * p.rows_per_block;
+  const int64_t r1 = min_i64(p.S, r0 + p.rows_per_block);
+  const int64_t step = (int64_t)p.rows_per_iter * kUnroll;
+  for (int64_t r = r0 + ty; r < r1; r += step) {
+    Pack<int8_t, V> v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t row = r + (int64_t)u * p.rows_per_iter;
+      if (row < r1)
+        v[u] = *reinterpret_cast<const Pack<int8_t, V>*>(x + off + row * p.C +
+                                                         c0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t row = r + (int64_t)u * p.rows_per_iter;
+      if (row < r1) {
+        Pack<O, V> o;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float h = __fadd_rn(__fmul_rn((float)v[u].v[j], a[j]), bb[j]);
+          const float t = __fmul_rn(h, 1.f / (1.f + expf(-h)));
+          if constexpr (sizeof(O) == 1)
+            o.v[j] = (int8_t)quant8(t, os, ro);
+          else
+            o.v[j] = from_f32<O>(t);
+        }
+        *reinterpret_cast<Pack<O, V>*>(y + off + row * p.C + c0) = o;
+      }
+    }
+  }
+}
+
+template <int V, int NS>
+int launch_int8(const int8_t* x, QScale qs, void* y, const float* weight,
+                const float* bias, double* part, float* coef,
+                const float* out_scale, int out_dtype, int B, int threads,
+                float eps, const Plan& p, cudaStream_t stream) {
+  const dim3 grid(p.n_blocks, B);
+  const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
+  gnq_stats<V, NS><<<grid, threads, smem, stream>>>(x, qs, part, p);
+  const int warps = B * p.G;
+  gnq_merge<<<(warps + 7) / 8, 256, 0, stream>>>(part, qs, weight, bias,
+                                                  coef, B, p, eps);
+  if (out_dtype == CVVAE_I8)
+    gnq_apply<int8_t, V><<<grid, threads, 0, stream>>>(x, (int8_t*)y, coef,
+                                                        out_scale, p);
+  else if (out_dtype == CVVAE_BF16)
+    gnq_apply<__nv_bfloat16, V><<<grid, threads, 0, stream>>>(
+        x, (__nv_bfloat16*)y, coef, out_scale, p);
+  else
+    gnq_apply<float, V><<<grid, threads, 0, stream>>>(x, (float*)y, coef,
+                                                       out_scale, p);
+  return (int)cudaGetLastError();
+}
+
 // what one entry launches: the whole norm (gn_stats, gn_merge, gn_apply),
 // one rank's partial moments (gn_stats, gn_partial), or the cross-rank
 // combination and the apply (gn_combine, gn_apply)
@@ -462,4 +662,51 @@ CVVAE_EXPORT int cvvae_group_norm_combine(const void* x, void* y,
                eps, silu};
   return run(kCombine, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
              device, stream);
+}
+
+// The int8 mode: x (B, S, C) int8 contiguous, 16-byte aligned; scale: a
+// device fp32 scalar (per_channel 0) or (C,) (per_channel 1); y (B, S, C)
+// in out_dtype (CVVAE_I8, requantized at the device fp32 scalar
+// out_scale, or CVVAE_BF16 / CVVAE_F32); weight, bias (C,) fp32; part and
+// coef scratch as cvvae_group_norm's.  SiLU always (qgroup_norm_silu).  The
+// plan comes from ops/kernels/groupnorm.py::launch_plan with 1-byte
+// elements.
+CVVAE_EXPORT int cvvae_group_norm_int8(const void* x, const void* scale,
+                                       int per_channel, void* y,
+                                       const void* weight, const void* bias,
+                                       void* part, void* coef,
+                                       const void* out_scale, int B,
+                                       int64_t S, int C, int G, float eps,
+                                       int out_dtype, int V, int NS,
+                                       int threads, int64_t rows_per_block,
+                                       int n_blocks, int device,
+                                       void* stream) {
+  Plan p;
+  const int rc = make_plan(B, S, C, G, V, NS, threads, rows_per_block,
+                           n_blocks, &p);
+  if (rc != 0) return rc;
+  if ((out_dtype == CVVAE_I8) != (out_scale != nullptr) ||
+      (out_dtype != CVVAE_I8 && out_dtype != CVVAE_BF16 &&
+       out_dtype != CVVAE_F32) ||
+      (per_channel != 0 && per_channel != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaSetDevice(device);
+  cudaStream_t s = (cudaStream_t)stream;
+  const QScale qs{(const float*)scale, per_channel};
+  const auto* xi = (const int8_t*)x;
+#define CVVAE_GNQ(v, ns)                                                   \
+  if (V == v && NS == ns)                                                  \
+    return launch_int8<v, ns>(xi, qs, y, (const float*)weight,             \
+                              (const float*)bias, (double*)part,           \
+                              (float*)coef, (const float*)out_scale,       \
+                              out_dtype, B, threads, eps, p, s);
+  CVVAE_GNQ(16, 1)
+  CVVAE_GNQ(16, 2)
+  CVVAE_GNQ(16, 4)
+  CVVAE_GNQ(16, 8)
+  CVVAE_GNQ(2, 1)
+  CVVAE_GNQ(2, 2)
+  CVVAE_GNQ(1, 1)
+#undef CVVAE_GNQ
+  return (int)cudaErrorInvalidValue;
 }

@@ -29,6 +29,9 @@ LIB_NAME = "libcvvae_kernels.so"
 
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: ... and int8's, which only the int8 entries take (K5.stage's input,
+#: K5.gemm's output, K1's int8 mode)
+INT8_CODE = 2
 
 #: seconds the last build took (0.0 when an existing library was loaded)
 last_build_seconds = 0.0
@@ -56,6 +59,9 @@ _SIGNATURES = {
     "cvvae_group_norm_combine": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _I,
                                  _I, _F, _I, _I, _I, _I, _I, _L, _I, _I, _P],
     "cvvae_group_norm_bwd": [_P] * 9 + [GroupNormBwdPlan, _P],
+    "cvvae_group_norm_int8": [_P, _P, _I] + [_P] * 6 + [_I, _L, _I, _I, _F,
+                                                        _I, _I, _I, _I, _L,
+                                                        _I, _I, _P],
     "cvvae_subpixel_interleave_bwd": [_P] * 7 + [_L] + [_I] * 12 + [_P],
     "cvvae_subpixel_interleave": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -65,7 +71,9 @@ _SIGNATURES = {
     "cvvae_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "cvvae_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
     "cvvae_int8_stage": [_P] * 3 + [_I] * 19 + [_P],
-    "cvvae_int8_gemm": [_P] * 6 + [_I] * 21 + [_P],
+    "cvvae_int8_gemm": [_P] * 7 + [_I] * 21 + [_P],
+    "cvvae_qflow_requant": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _P],
+    "cvvae_qflow_add": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _L, _I, _I, _P],
 }
 
 

@@ -43,6 +43,16 @@ fixed order in double, a second barrier, then dγ, dβ and dx.  It reads x
 and dy twice (the second time from L2 where they fit), writes dx once, and
 is deterministic.  It reads the forward's (B', G, 2) statistics and γ, β
 as they are (no copies), and writes dγ, dβ in γ's dtype.
+
+K1's int8 mode (``group_norm_silu_int8``, for ``ops/qflow.py``'s
+``qgroup_norm_silu``, ``cvvae_tpu/ops/qflow.py:138-172``) reads an int8
+tensor with a scalar or per-channel scale and computes the JAX package's
+function there, not K1's own statistics: the fp32 mean and mean of
+squares of the dequantized values, var = E[x²] − mean² (not clamped), the
+dequant folded into the affine, SiLU in fp32, and an int8 output at the
+consumer's scalar scale (or bf16 / fp32).  Its plan is ``launch_plan``
+with 1-byte elements (16 a load).  Bound: device memory, 2 bytes an
+element with an int8 output.
 """
 
 from __future__ import annotations
@@ -66,6 +76,8 @@ bwd_launches = 0
 #: apply (gn_combine, gn_apply), one of each a sharded norm
 partial_launches = 0
 combine_launches = 0
+#: launches of K1's int8 mode (``group_norm_silu_int8``)
+int8_launches = 0
 #: K1.bwd's launches by (B', S, C, SiLU, dtype name)
 bwd_launches_by_shape: collections.Counter = collections.Counter()
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -289,13 +301,16 @@ TARGET_BLOCKS = 132 * 8
 def launch_plan(b: int, s: int, c: int, g: int, elem_size: int) -> dict:
     """The kernel's plan for (b, s, c) with g groups: the vector width v
     (elements a load: 16 bytes, else 2 or 1, the widest that divides C and
-    divides or is a multiple of C/G), the groups a vector spans (ns), the
+    divides or is a multiple of C/G, spanning at most 8 groups: the stats
+    pass keeps 16 bytes of shared memory a thread a group it spans, within
+    the 48 KB a launch has), the groups a vector spans (ns), the
     threads a block, and the blocks a batch row with their rows.  Block k
     of a batch row reads rows [k * rows_per_block, min(s, (k + 1) *
     rows_per_block))."""
     cg = c // g
     v = next(v for v in (16 // elem_size, 2, 1)
-             if c % v == 0 and (cg % v == 0 or v % cg == 0))
+             if c % v == 0 and (cg % v == 0 or (v % cg == 0
+                                                and v // cg <= 8)))
     nvc = c // v
     threads = 256 if nvc <= 256 else -(-nvc // 32) * 32
     rows_per_iter = threads // nvc
@@ -543,3 +558,126 @@ def _param_layout(weight, bias, device):
         dtype = torch.float32
     return (weight.to(device=device, dtype=dtype).contiguous(),
             bias.to(device=device, dtype=dtype).contiguous())
+
+
+def _int8_requant(h: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor:
+    so = out_scale.to(device=h.device, dtype=torch.float32)
+    return torch.clamp(torch.round(h / so), -127, 127).to(torch.int8)
+
+
+def _fp32_means(xf: torch.Tensor, axes) -> tuple:
+    """(mean, mean of squares) of fp32 ``xf`` over ``axes``, kept as size-1
+    axes, each an fp32 sum divided by the count.  On the CPU the sum runs
+    one value at a time in the row-major order of the reduced axes, in
+    fp32, as XLA's CPU reduction sums: the JAX package's moments there, bit
+    for bit (the residency chain is chaotic at int8, so a last-bit change
+    of a moment flips codes that the next convs spread).  On the card it is
+    PyTorch's own fp32 sum."""
+    n = xf.new_tensor(float(math.prod(xf.shape[a] for a in axes)))
+    if xf.device.type != "cpu":
+        return (xf.sum(dim=axes, keepdim=True) / n,
+                xf.square().sum(dim=axes, keepdim=True) / n)
+    kept = [a for a in range(xf.ndim) if a not in axes]
+    rows = xf.permute(kept + list(axes)).reshape(
+        [xf.shape[a] for a in kept] + [-1])
+    squares = rows.square()
+    s1 = torch.zeros(rows.shape[:-1], dtype=torch.float32)
+    s2 = torch.zeros_like(s1)
+    for i in range(rows.shape[-1]):
+        s1.add_(rows[..., i])
+        s2.add_(squares[..., i])
+    shape = [1 if a in axes else xf.shape[a] for a in range(xf.ndim)]
+    return (s1 / n).reshape(shape), (s2 / n).reshape(shape)
+
+
+def group_norm_silu_int8_plain(q: torch.Tensor, scale: torch.Tensor,
+                               weight: torch.Tensor, bias: torch.Tensor, *,
+                               num_groups: int, eps: float,
+                               out_scale=None,
+                               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K1's int8 mode in plain PyTorch, the JAX package's arithmetic
+    (``cvvae_tpu/ops/qflow.py:138-172``): ``q`` (B, ..., C) int8 with
+    ``scale`` an fp32 scalar or (C,); fp32 moments over every axis but B
+    and C/G's groups (``_fp32_means``), var = E[x²] − mean², a = inv·γ·s,
+    b = β − mean·inv·γ,
+    h = q·a + b, SiLU; int8 requantized at the scalar ``out_scale``, or
+    ``out_dtype``."""
+    c = q.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups "
+                         f"{num_groups}")
+    cg = c // num_groups
+    grouped = q.reshape(q.shape[:-1] + (num_groups, cg))
+    s = scale.to(device=q.device, dtype=torch.float32)
+    s_g = s.expand(c).reshape(num_groups, cg) if s.ndim else s
+    axes = tuple(range(1, grouped.ndim - 2)) + (grouped.ndim - 1,)
+    xf = grouped.float() * s_g
+    mean, msq = _fp32_means(xf, axes)
+    inv = torch.rsqrt(msq - mean.square() + eps)
+    w = weight.to(device=q.device, dtype=torch.float32).reshape(num_groups,
+                                                                 cg)
+    b = bias.to(device=q.device, dtype=torch.float32).reshape(num_groups, cg)
+    a = inv * w * s_g
+    shift = b - mean * inv * w
+    h = grouped.float() * a + shift
+    h = (h * torch.sigmoid(h)).reshape(q.shape)
+    if out_scale is None:
+        return h.to(out_dtype)
+    return _int8_requant(h, out_scale)
+
+
+def group_norm_silu_int8(q: torch.Tensor, scale: torch.Tensor,
+                         weight: torch.Tensor, bias: torch.Tensor, *,
+                         num_groups: int, eps: float, out_scale=None,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """GroupNorm + SiLU of a contiguous int8 (B, ..., C) tensor ``q`` with
+    dequantizing ``scale`` (an fp32 scalar or (C,)): int8 at the scalar
+    ``out_scale``, or ``out_dtype`` (bf16 or fp32) without one; statistics
+    per (batch, group) over every other axis.  Inference only.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K1's int8
+    mode or raises."""
+    global int8_launches
+    if q.device.type == "cpu":
+        return group_norm_silu_int8_plain(
+            q, scale, weight, bias, num_groups=num_groups, eps=eps,
+            out_scale=out_scale, out_dtype=out_dtype)
+    name = "group_norm_silu_int8"
+    _build.refuse_gradient(f"{name} (K1 int8)", "none: int8 is "
+                           "inference-only", weight, bias)
+    if not (q.is_cuda and q.dtype == torch.int8 and q.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous int8 CUDA tensor, "
+                         f"got {q.dtype} on {q.device}")
+    b, s, c = _dims(name, q.shape, num_groups, False)
+    if scale.numel() not in (1, c) or (out_scale is not None
+                                      and out_scale.numel() != 1):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} (a scalar or "
+                         f"({c},)) and out_scale (a scalar) do not fit")
+    if out_scale is None and out_dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: out_dtype {out_dtype}: bfloat16 or "
+                         f"float32, or give out_scale for int8")
+    plan = launch_plan(b, s, c, num_groups, 1)
+    if q.data_ptr() % plan["v"]:
+        raise ValueError(f"{name}: input is not aligned to its "
+                         f"{plan['v']}-byte loads")
+    dev = q.device
+    dtype = torch.int8 if out_scale is not None else out_dtype
+    y = torch.empty(q.shape, device=dev, dtype=dtype)
+    part = torch.empty((b, plan["n_blocks"], num_groups, 2), device=dev,
+                       dtype=torch.float64)
+    coef = torch.empty((b, 2, c), device=dev, dtype=torch.float32)
+    s32 = scale.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+    o32 = (None if out_scale is None else
+           out_scale.to(device=dev, dtype=torch.float32).reshape(1))
+    w32 = weight.detach().to(device=dev, dtype=torch.float32).contiguous()
+    b32 = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
+    rc = _build.library().cvvae_group_norm_int8(
+        q.data_ptr(), s32.data_ptr(), int(s32.numel() > 1), y.data_ptr(),
+        w32.data_ptr(), b32.data_ptr(), part.data_ptr(), coef.data_ptr(),
+        None if o32 is None else o32.data_ptr(), b, s, c, num_groups, eps,
+        _build.INT8_CODE if o32 is not None else _build.DTYPE_CODES[dtype],
+        plan["v"], plan["ns"], plan["threads"], plan["rows_per_block"],
+        plan["n_blocks"], dev.index or 0, _build.stream_of(q))
+    _build.check(rc, name)
+    int8_launches += 1
+    return y

@@ -66,7 +66,52 @@ def build_engine(model_cfg: Dict, device="cuda"):
                 if k.startswith(prefix + ".")}
     engine = TrainingEngine(engine_cfg, seed=model_cfg.get("seed", 0),
                             device=device, **kwargs)
+    for name, module in engine.left_out.items():
+        print(f"[train] {name}: {frozen[name]} has no {module}; the frozen "
+              f"net runs without it (legacy_quant_conv asked for it)")
     return engine, model_cfg.get("ckpt_path")
+
+
+def _subtree(key: str) -> str:
+    return key.split(".", 1)[0]
+
+
+def _some(keys, n: int = 20) -> str:
+    keys = sorted(keys)
+    more = f" and {len(keys) - n} more" if len(keys) > n else ""
+    return f"{keys[:n]}{more}"
+
+
+def warm_start(params: torch.nn.Module, tree: Dict[str, torch.Tensor],
+               path: str = "the checkpoint") -> list:
+    """Load a warm-start checkpoint's converted state dict ``tree`` into
+    ``params`` (the generator's ``VAEParams``), as the JAX package does:
+    each top-level subtree of the params that the checkpoint also has is
+    replaced whole, the others keep their init.  A shared subtree whose
+    keys do not match the checkpoint's one for one raises a ValueError
+    naming the missing and extra keys (the JAX package fails there too,
+    at the first forward); so does a checkpoint that shares no subtree
+    with the params (which the JAX package trains past from its init).
+    Returns the names of the subtrees loaded."""
+    own = params.state_dict()
+    shared = sorted({_subtree(k) for k in own} & {_subtree(k) for k in tree})
+    if not shared:
+        raise ValueError(
+            f"warm start from {path}: it shares no top-level subtree with "
+            f"the params (it has {sorted({_subtree(k) for k in tree})}, the "
+            f"params {sorted({_subtree(k) for k in own})})")
+    new = dict(own)
+    for name in shared:
+        mine = {k for k in own if _subtree(k) == name}
+        theirs = {k for k in tree if _subtree(k) == name}
+        if mine != theirs:
+            raise ValueError(
+                f"warm start from {path}: subtree {name!r} does not match "
+                f"the params: missing {_some(mine - theirs)}, extra "
+                f"{_some(theirs - mine)}")
+        new.update({k: tree[k] for k in theirs})
+    params.load_state_dict(new, strict=True)
+    return shared
 
 
 def apply_lr_scaling(cfg: Dict, world_size: int = 1) -> float:
@@ -200,11 +245,9 @@ def main(argv=None, step_callback=None):
         from cvvae_tpu_torch.utils.convert import load_torch_checkpoint_file
         state = engine.init_state(cfg["model"].get("seed", 0))
         tree, skipped = load_torch_checkpoint_file(warm_ckpt)
-        own = state.params.state_dict()
-        state.params.load_state_dict(
-            {k: tree.get(k, v) for k, v in own.items()}, strict=True)
-        print(f"[train] warm-started from {warm_ckpt} "
-              f"({len(skipped)} keys skipped)")
+        loaded = warm_start(state.params, tree, warm_ckpt)
+        print(f"[train] warm-started {len(loaded)} subtree(s) {loaded} from "
+              f"{warm_ckpt} ({len(skipped)} keys skipped)")
     if args.train:
         state = trainer.fit(data, state=state, resume=args.resume,
                             val_data=val_data)

@@ -131,6 +131,23 @@ class VAEParams(nn.Module):
                     torch.tensor(float(cfg.loss.logvar_init)))
 
 
+def load_frozen(net: nn.Module, params: Dict[str, torch.Tensor],
+                legacy: str) -> bool:
+    """Load a frozen 2D net's checkpoint subtree strictly.  A legacy quant
+    conv (``legacy``: ``post_quant_conv`` / ``quant_conv``) that the config
+    asks for and the subtree lacks is taken out of the net first, so the
+    net runs without it, as the JAX package's does (its frozen tree holds
+    only the ``decoder.`` / ``encoder.`` prefix, and its 2D nets apply the
+    conv only where the tree has it).  Any other missing or extra key
+    raises, naming the keys.  Returns whether the conv was left out."""
+    drop = hasattr(net, legacy) and not any(
+        k.startswith(legacy + ".") for k in params)
+    if drop:
+        delattr(net, legacy)
+    net.load_state_dict(params, strict=True)
+    return drop
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
@@ -234,16 +251,20 @@ class TrainingEngine:
                 stacklevel=2)
             lpips = init_lpips(g)
         self.frozen: Dict[str, Optional[nn.Module]] = {"lpips": lpips}
-        if cfg.constraint in ("latent", "all"):
-            net = Decoder2D(cfg.constraint_decoder, g)
-            if constraint_decoder_params is not None:
-                net.load_state_dict(constraint_decoder_params, strict=True)
-            self.frozen["constraint_decoder"] = net
-        if cfg.constraint in ("encoder", "all"):
-            net = Encoder2D(cfg.constraint_encoder, g)
-            if constraint_encoder_params is not None:
-                net.load_state_dict(constraint_encoder_params, strict=True)
-            self.frozen["constraint_encoder"] = net
+        #: frozen net -> the legacy quant conv its checkpoint lacked, which
+        #: the net was built without (``load_frozen``)
+        self.left_out: Dict[str, str] = {}
+        for name, Net, params, legacy, constraints in (
+                ("constraint_decoder", Decoder2D, constraint_decoder_params,
+                 "post_quant_conv", ("latent", "all")),
+                ("constraint_encoder", Encoder2D, constraint_encoder_params,
+                 "quant_conv", ("encoder", "all"))):
+            if cfg.constraint not in constraints:
+                continue
+            net = Net(getattr(cfg, name), g)
+            if params is not None and load_frozen(net, params, legacy):
+                self.left_out[name] = legacy
+            self.frozen[name] = net
         for net in self.frozen.values():
             if net is not None:
                 net.to(self.device).eval().requires_grad_(False)

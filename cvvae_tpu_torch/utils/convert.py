@@ -14,6 +14,9 @@ Two sources:
   - a norm's scale / bias                  -> its weight / bias
   - a quantized conv's kernel_q (kT, kH, kW, I, O) int8 -> weight_q
     (O, I, kT, kH, kW); its scale_w and scale_x as they are
+  - the int8-residency scales of ``cvvae_tpu/ops/qflow.py`` (a conv's
+    per-output-channel ``scale_y``, a block's ``scale_res``,
+    ``scale_entry`` and ``scale_up``) as they are
   - CLIP's bare ``token_embedding`` / ``position_embedding`` tables ->
     that embedding's weight, as they are
 
@@ -60,6 +63,8 @@ import torch
 
 #: the bare embedding tables of the JAX CLIP tree
 _EMBEDDINGS = {"token_embedding", "position_embedding"}
+#: the calibrated scales of the int8-resident mode (``ops/qflow.py``)
+_RESIDENCY_SCALES = ("scale_y", "scale_res", "scale_entry", "scale_up")
 
 
 def _convert_leaf(leaf: str, value: np.ndarray, conv2d: bool = False):
@@ -80,7 +85,7 @@ def _convert_leaf(leaf: str, value: np.ndarray, conv2d: bool = False):
     if leaf == "kernel_q":
         return "weight_q", value.transpose(4, 3, 0, 1, 2)
     if leaf in ("bias", "scale_w", "scale_x", "mean", "var", "loc",
-                "initialized", "logvar", "logvar_2d"):
+                "initialized", "logvar", "logvar_2d") + _RESIDENCY_SCALES:
         return leaf, value
     raise ValueError(f"unexpected leaf {leaf!r}")
 

@@ -76,6 +76,8 @@ GROUPS = [
     ("K1.partial split GroupNorm moments", r"\bgn_partial\b"),
     ("K1.combine split GroupNorm combination", r"\bgn_combine\b"),
     ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
+    # K1's int8 mode (the int8-resident activations, ops/qflow.py)
+    ("K1.int8 GroupNorm+SiLU on int8", r"\bgnq_(stats|merge|apply)\b"),
     ("K2.bwd subpixel interleave backward",
      r"subpixel_unshuffle|\bbias_grad\b"),
     ("K2 subpixel interleave", r"subpixel|interleave"),
@@ -83,6 +85,8 @@ GROUPS = [
     ("K3 stem conv", r"stem"),
     ("K5.gemm int8 GEMM", r"int8_gemm"),
     ("K5.stage int8 staging", r"int8_stage"),
+    ("K6 int8 residual add", r"\bqflow_add\b"),
+    ("K6.requant int8 requantization", r"\bqflow_requant\b"),
     # cuBLAS's products before cuDNN's: both name kernels sm90_xmma_*
     ("GEMMs (dense, attention)", r"xmma_gemm|nvjet|cublas|gemv"),
     # cuDNN's fp32 weight-gradient engine names no conv
@@ -118,6 +122,9 @@ KERNEL_GROUPS = {
     "K4.bwd flash attention backward": ("K4.bwd", r"\browdot\b"),
     "K5.gemm int8 GEMM": ("K5", r"int8_gemm"),
     "K5.stage int8 staging": ("K5.stage", r"int8_stage"),
+    "K1.int8 GroupNorm+SiLU on int8": ("K1.int8", r"\bgnq_merge\b"),
+    "K6 int8 residual add": ("K6", r"\bqflow_add\b"),
+    "K6.requant int8 requantization": ("K6.requant", r"\bqflow_requant\b"),
 }
 
 #: each kernel's launch counter in ``ops/kernels``: key -> (module,
@@ -133,7 +140,13 @@ COUNTERS = {"K1": ("groupnorm", "launches"),
             "K4": ("attention", "launches"),
             "K4.bwd": ("attention", "bwd_launches"),
             "K5": ("conv_int8", "launches"),
-            "K5.stage": ("conv_int8", "stage_launches")}
+            "K5.stage": ("conv_int8", "stage_launches"),
+            # the int8-resident mode (ops/qflow.py): K5's GEMMs with an
+            # int8 output (also in K5's count), K1's int8 mode, K6
+            "K5.int8": ("conv_int8", "int8_out_launches"),
+            "K1.int8": ("groupnorm", "int8_launches"),
+            "K6": ("qflow", "qadd_launches"),
+            "K6.requant": ("qflow", "requant_launches")}
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -142,9 +155,11 @@ SOURCE_KEYS = {"groupnorm.cu": "K1", "groupnorm_bwd.cu": "K1.bwd",
                "shuffle.cu": "K2", "shuffle_bwd.cu": "K2.bwd",
                "stem.cu": "K3", "stem_bwd.cu": "K3.bwd",
                "attention.cu": "K4", "attention_bwd.cu": "K4.bwd",
-               "conv_int8.cu": "K5"}
+               "conv_int8.cu": "K5", "qflow.cu": "K6"}
 KERNEL_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
-               "gn_combine": "K1.combine"}
+               "gn_combine": "K1.combine", "gnq_stats": "K1.int8",
+               "gnq_merge": "K1.int8", "gnq_apply": "K1.int8",
+               "qflow_requant": "K6.requant"}
 
 
 def group_of(kernel: str) -> str:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K5, K1.bwd, K2.bwd, K3.bwd,
-K4.bwd and of the edge-pad convs:
+"""Planted faults against the checks of K1-K6, K1.bwd, K2.bwd, K3.bwd,
+K4.bwd, K5 from int8, K1's int8 mode and of the edge-pad convs:
 do the bounds that ``chip_smoke.py`` and the card tests hold them to
 catch a broken kernel or decomposition?
 
@@ -34,7 +34,13 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   ``chip_smoke.K3_BWD_CHECK_SHAPES``, held by ``chip_smoke.k3_bwd_check``
   (the float64 sums within the bound of ``stem.bwd_plan``);
 - K4.bwd at ``chip_smoke.K4_BWD_CHECK_SHAPES``, held by
-  ``chip_smoke.k4_bwd_check``.
+  ``chip_smoke.k4_bwd_check``;
+- the int8-resident modes on phase 13's small cases: K5 from an int8
+  input (int8, bf16 and fp32 out) at ``chip_smoke.K5_CHECK_CASES``, held
+  bit-exact (``chip_smoke.k5_int8_check``); K1's int8 mode at
+  ``chip_smoke.QFLOW_K1_CASES``, held by ``chip_smoke.k1_int8_check``; K6
+  at ``chip_smoke.QFLOW_K6_CASES``, held bit-exact
+  (``chip_smoke.k6_checks``, whose inputs hold ties of the quotient).
 
 A fault is one replacement of text in a source, or several (tuples of
 texts and their replacements).
@@ -234,6 +240,22 @@ FAULTS = {
         "K4.bwd", "attention_bwd.cu",
         "  const int group = rank * SL / kBox;",
         "  const int group = 0;"),
+    "K6 rounding with roundf (ties away from zero), not half to even": (
+        "K6", "qflow.cu",
+        "  return (uint32_t)(quant8(v, s, __frcp_rn(s)) & 0xff);",
+        "  return (uint32_t)(max(-127, min(127, (int)roundf(v / s))) & 0xff);"),
+    "K1's int8 mode reading the scalar scale where it is per channel": (
+        "K1.int8", "groupnorm.cu",
+        ("  for (int j = 0; j < V; ++j) sc[j] = qs.s[(c0 + j) * qs.per_channel];",
+         "    const float s = qs.s[c * qs.per_channel];"),
+        ("  for (int j = 0; j < V; ++j) sc[j] = qs.s[0];",
+         "    const float s = qs.s[0];")),
+    "K5's int8 epilogue skipping the bias": (
+        "K5.int8", "conv_int8.cu",
+        "      const float bc = bias != nullptr && c < a.O ? __ldg(bias + c) "
+        ": 0.f;",
+        "      const float bc = bias != nullptr && c < a.O && sizeof(T) > 1\n"
+        "                           ? __ldg(bias + c) : 0.f;"),
 }
 
 
@@ -429,6 +451,54 @@ def _k5_cases():
                    not exact)
 
 
+def _k5_int8_cases():
+    """(label, fails) of every case of K5 from an int8 input on the library
+    now loaded: ``chip_smoke.K5_CHECK_CASES``, int8 out at per-channel
+    scales and bf16 and fp32 out, bit-exact."""
+    dev = torch.device("cuda", 0)
+    for i, (shape, cout, kernel, stride, pads, modes, with_bias) in \
+            enumerate(chip_smoke.K5_CHECK_CASES):
+        xq, wq, sw, sx, b, so = chip_smoke.k5_int8_inputs(
+            shape, cout, kernel, dev, with_bias)
+        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+            exact, err = chip_smoke.k5_int8_check(
+                xq, wq, sw, sx, b, kernel, stride, pads, modes, so, out_dtype)
+            yield (f"K5.int8 case {i} {shape}->{cout} bias={with_bias} out "
+                   f"{out_dtype}: bit-exact={exact} max|d|={err!r}",
+                   not exact)
+
+
+def _k1_int8_cases():
+    """(label, fails) of every case of K1's int8 mode on the library now
+    loaded: ``chip_smoke.QFLOW_K1_CASES``, scalar and per-channel scales,
+    int8, bf16 and fp32 out, held by ``chip_smoke.k1_int8_check``."""
+    dev = torch.device("cuda", 0)
+    for shape, groups in chip_smoke.QFLOW_K1_CASES:
+        for per_channel in (False, True):
+            q, s, w, b = chip_smoke.k1_int8_inputs(shape, dev, per_channel)
+            for out_scale, out_dtype in (
+                    (torch.tensor(0.03, device=dev), torch.int8),
+                    (None, torch.bfloat16), (None, torch.float32)):
+                got = groupnorm.group_norm_silu_int8(
+                    q, s, w, b, num_groups=groups, eps=chip_smoke.QFLOW_EPS,
+                    out_scale=out_scale, out_dtype=out_dtype)
+                _, excess, text = chip_smoke.k1_int8_check(
+                    got, q, s, w, b, groups, out_scale, out_dtype)
+                yield (f"K1.int8 {shape} G={groups} per_channel="
+                       f"{per_channel} out {out_dtype}: {text}", excess > 0.0)
+
+
+def _k6_cases():
+    """(label, fails) of every K6 case on the library now loaded:
+    ``chip_smoke.QFLOW_K6_CASES`` through ``chip_smoke.k6_checks``,
+    bit-exact."""
+    dev = torch.device("cuda", 0)
+    with torch.no_grad():
+        for shape in chip_smoke.QFLOW_K6_CASES:
+            for label, same in chip_smoke.k6_checks(shape, dev):
+                yield f"{label}: bit-exact={same}", not same
+
+
 def edge_cases(module=None, dev=None, cases=None,
                dtypes=(torch.bfloat16,)):
     """(label, fails) of every edge-conv case (by default
@@ -477,7 +547,9 @@ def planted_conv(tmp: Path, i: int, replacements):
 #: each kernel's cases, and the edge convs'
 CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
          "K5": _k5_cases, "K1.bwd": _k1_bwd_cases, "K2.bwd": _k2_bwd_cases,
-         "K3.bwd": _k3_bwd_cases, "K4.bwd": _k4_bwd_cases, "edge": edge_cases}
+         "K3.bwd": _k3_bwd_cases, "K4.bwd": _k4_bwd_cases,
+         "K5.int8": _k5_int8_cases, "K1.int8": _k1_int8_cases,
+         "K6": _k6_cases, "edge": edge_cases}
 
 
 def _build_copy(tmp: Path, i: int, fault) -> Path:

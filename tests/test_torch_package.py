@@ -172,15 +172,16 @@ def test_nothing_is_built_at_import():
     assert _build.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in _build._sources()} == {
         "attention.cu", "attention_bwd.cu", "common.cuh", "conv_int8.cu", "groupnorm.cu",
-        "groupnorm_bwd.cu", "hopper.cuh", "shuffle.cu", "shuffle_bwd.cu",
-        "stem.cu", "stem_bwd.cu"}
+        "groupnorm_bwd.cu", "hopper.cuh", "qflow.cu", "shuffle.cu",
+        "shuffle_bwd.cu", "stem.cu", "stem_bwd.cu"}
     assert set(_build._SIGNATURES) == {
         "cvvae_group_norm", "cvvae_group_norm_partial",
         "cvvae_group_norm_combine", "cvvae_subpixel_interleave",
         "cvvae_stem_conv3d",
         "cvvae_flash_attention", "cvvae_int8_stage", "cvvae_int8_gemm",
         "cvvae_group_norm_bwd", "cvvae_subpixel_interleave_bwd",
-        "cvvae_stem_conv3d_bwd", "cvvae_flash_attention_bwd"}
+        "cvvae_stem_conv3d_bwd", "cvvae_flash_attention_bwd",
+        "cvvae_group_norm_int8", "cvvae_qflow_requant", "cvvae_qflow_add"}
 
 
 def test_layout_check_names_the_fix():

@@ -35,7 +35,7 @@ EXPECTED = {"groupnorm.cu": "K1", "groupnorm_bwd.cu": "K1.bwd",
             "shuffle.cu": "K2", "shuffle_bwd.cu": "K2.bwd",
             "stem.cu": "K3", "stem_bwd.cu": "K3.bwd",
             "attention.cu": "K4", "attention_bwd.cu": "K4.bwd",
-            "conv_int8.cu": "K5"}
+            "conv_int8.cu": "K5", "qflow.cu": "K6"}
 
 
 def csrc_globals():
@@ -55,14 +55,17 @@ def csrc_globals():
 GLOBALS = csrc_globals()
 
 
-#: kernels whose key is not their source's: K5's staging pass and K1's
-#: two kernels of its split across ranks
+#: kernels whose key is not their source's: K5's staging pass, K1's two
+#: kernels of its split across ranks and the three of its int8 mode, K6's
+#: requantization
 OWN_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
-            "gn_combine": "K1.combine"}
+            "gn_combine": "K1.combine", "gnq_stats": "K1.int8",
+            "gnq_merge": "K1.int8", "gnq_apply": "K1.int8",
+            "qflow_requant": "K6.requant"}
 
 
 def test_csrc_holds_the_known_kernels():
-    assert len(GLOBALS) == 20
+    assert len(GLOBALS) == 25
     assert {f for f, _ in GLOBALS} == set(EXPECTED)
     assert profiling.csrc_kernels() == {
         n: OWN_KEYS.get(n, EXPECTED[f]) for f, n in GLOBALS}
