@@ -146,19 +146,25 @@ Phases (each prints its findings; any failure exits non-zero):
 
 13. qflow -- int8 activation residency (``ops/qflow.py``): K5 from an
    int8 input (int8 out at per-channel scales, bf16 and fp32 out) on
-   ``K5_CHECK_CASES``, K1's int8 mode on ``QFLOW_K1_CASES`` and K6 on
+   ``K5_CHECK_CASES`` and through its staged int8 epilogue on
+   ``K5_INT8_CASES``, K1's int8 mode on ``QFLOW_K1_CASES`` and K6 on
    ``QFLOW_K6_CASES`` against their plain versions (K5 and K6 bit-equal,
-   K1's int8 mode by ``k1_int8_check``); each mode's agreement (dB) with
+   K1's int8 mode by ``k1_int8_check``, and its table and every output
+   bit-equal to the plain table of its own affine, ``k1_int8_table_check``);
+   quant8 through K6.requant on every fp32 value of |v / s| <= 128 at
+   ``QUANT8_SCALES`` (``quant8_exhaustive``); each mode's agreement (dB) with
    the fp32 chain on a ``QFLOW_NUMERICS`` clip at each width; at each of
    ``QFLOW_SHAPES`` (the v1 decoder's two largest resblock stages, as
    ``tools/probe_residency.py`` times them): K5 from int8 at the chain's
-   two convs (int8 and bf16 out, on the first and last output frames),
-   K1's int8 mode (a per-channel scale to int8, a scalar to bf16), K6's
+   two convs (int8 and bf16 out, on the first and last output frames,
+   both timed), K1's int8 mode (a per-channel scale to int8, a scalar to
+   bf16; its table against the plain table), K6's
    add and requantization, each timed beside its plain version and its
    bound; the 3-resblock chain's launches (counts set to 0 just before;
    K5, K5.stage, K5.int8, K1.int8, K6, K6.requant, and no K1-K4); the
    three chains (bf16, int8-conv: ``ops/quant.py``'s conv-only int8,
-   int8-res) timed in turns, ms a block.
+   int8-res) timed in turns, ms a block, and one int8-res chain's
+   device ms by kernel group (``utils/profiling.group_kernels``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary (launches on the served, streamed, training,
@@ -171,6 +177,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import functools
 import gc
 import http.client
@@ -3933,39 +3940,57 @@ def _mesh_serve(dev, smi, mesh):
     return counts, per_rec
 
 
-def _mesh_profile(mv, x):
-    """Rank 0 under ``torch.profiler`` over one split encode + decode of
-    ``x``: {kernel key: (launches of its ``profiling.GROUPS`` group, its
-    counter's launches)} for every key either saw, each split K1 entry
-    held to its own group as every kernel of csrc/ is (phase 10), and the
-    device's busy share of the span.  A first pass warms the trace (the
-    profiler can lose the first kernels of a trace started right before
-    them: K3 and the first K1.partial on an H100); a spin kernel
-    (``torch.cuda._sleep``) marks where the measured pass begins, and
-    only the device events after it are read."""
+#: the host-side range that marks a profile's measured call
+MEASURED = "chip_smoke.measured"
+
+
+def profile_measured(fn):
+    """(the device events of ``fn``'s second call, {counter key: its
+    launches in that call}), from one ``torch.profiler`` trace over two
+    calls.  The first call absorbs what the profiler can lose of the
+    kernels right after a trace starts (K3 and the first K1.partial of a
+    split pass, the first kernels of an int8-res chain, on an H100, also
+    in a cycle after a warm-up one); the second runs in a host-side range
+    (``record_function``), and the device events that start after the
+    range does are its.  A marker kernel between the calls can be lost
+    with the device's records; the host range is not."""
     from cvvae_tpu_torch.utils import profiling
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode(), \
-            torch.profiler.profile(activities=acts) as prof:
-        mv.decode(mv.encode(x).mode())
-        torch.cuda._sleep(1_000_000)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
         torch.cuda.synchronize()
+        time.sleep(0.01)
         before = profiling.launch_counts()
-        mv.decode(mv.encode(x).mode())
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(MEASURED):
+            fn()
+            torch.cuda.synchronize()
         after = profiling.launch_counts()
-    events = profiling.kernel_events(prof)
-    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    marks = [e.time_range.start for e in prof.events() if e.name == MEASURED
+             and e.device_type == torch.autograd.DeviceType.CPU]
     if not marks:
-        raise SystemExit("mesh profile: no spin_kernel event marks the "
-                         "measured pass")
-    events = [e for e in events if e.time_range.start >= max(marks)]
+        raise SystemExit("profile: no host range marks the measured call")
+    events = [e for e in profiling.kernel_events(prof)
+              if e.name != MEASURED and e.time_range.start >= marks[0]]
+    return events, {k: after[k] - before[k] for k in after}
+
+
+def _mesh_profile(mv, x):
+    """Rank 0 under ``torch.profiler`` over one split encode + decode of
+    ``x`` (``profile_measured``, after a first pass): {kernel key:
+    (launches of its ``profiling.GROUPS`` group, its counter's launches)}
+    for every key either saw, each split K1 entry held to its own group as
+    every kernel of csrc/ is (phase 10), and the device's busy share of
+    the span."""
+    from cvvae_tpu_torch.utils import profiling
+
+    with torch.inference_mode():
+        events, counted = profile_measured(
+            lambda: mv.decode(mv.encode(x).mode()))
     seen = {profiling.key_of(g): row["launches"]
             for g, row in profiling.group_kernels(events).items()
             if profiling.key_of(g)}
-    counted = {k: after[k] - before[k] for k in after}
     held = {k: (seen.get(k, 0), counted.get(k, 0))
             for k in set(seen) | {k for k, n in counted.items() if n}}
     line = profiling.device_timeline(events)
@@ -4384,16 +4409,44 @@ QFLOW_CALIB = (3, 256, 256)
 #: values a few fp32 ulps apart lands at most one bf16 ulp apart)
 QFLOW_K1_FLIPS = 1e-3
 QFLOW_K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7 + 1e-5}
-#: K1's int8 mode's small cases ((B, T, H, W, C), groups): 16-value loads
-#: spanning 1, 2, 4 or 8 groups, 2-value loads (one channel a group) and
-#: 1-value loads (C 96, 3 a group)
+#: K1's int8 mode's small cases ((B, T, H, W, C), groups): groups of 8,
+#: 4, 3, 2 and 1 channels; tables of 64-, 128- and 32-channel slices
+#: (C 96: three 32-channel slices) and C 48, no multiple of 32, on the
+#: arithmetic apply
 QFLOW_K1_CASES = [((2, 3, 5, 7, 64), 8), ((1, 4, 9, 11, 128), 32),
                   ((1, 2, 6, 6, 96), 32), ((1, 3, 5, 5, 256), 32),
                   ((1, 2, 4, 4, 512), 32), ((1, 2, 4, 6, 64), 32),
-                  ((1, 2, 4, 6, 32), 32)]
+                  ((1, 2, 4, 6, 32), 32), ((1, 3, 4, 6, 48), 16)]
 #: K6's small cases (N, ..., C): a tail past the last 16 values, channels
 #: off 16 (24, 7), one of 128
 QFLOW_K6_CASES = [(2, 3, 5, 7, 24), (1, 3, 9, 11, 128), (1, 1, 3, 5, 7)]
+#: K5 from int8 to int8 through its staged epilogue (O a multiple of 16),
+#: as K5_CHECK_CASES lists them: 256-pixel tiles ragged (W 130, 200) and
+#: 128-pixel ones, O below one channel tile (48, 64), one and a part (144),
+#: two (256), stride 2, no bias
+K5_INT8_CASES = [
+    ((1, 3, 6, 130, 64), 128, (3, 3, 3), (1, 1, 1),
+     ((1, 1), (1, 1), (1, 1)), ("zero", "zero", "zero"), True),
+    ((1, 2, 4, 200, 64), 64, (3, 3, 3), (1, 1, 1),
+     ((1, 1), (1, 1), (1, 1)), ("zero", "zero", "zero"), True),
+    ((1, 3, 5, 37, 96), 48, (1, 3, 3), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), ("zero", "zero", "zero"), True),
+    ((2, 3, 4, 9, 128), 144, (3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1)), ("edge", "zero", "zero"), False),
+    ((1, 5, 9, 11, 32), 32, (3, 3, 3), (2, 2, 2),
+     ((2, 0), (0, 1), (0, 1)), ("edge", "zero", "zero"), True),
+    ((1, 2, 3, 300, 128), 256, (1, 3, 3), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), ("zero", "zero", "zero"), True),
+]
+#: quant8's scales held exhaustively (every fp32 v with |v / s| <= 128,
+#: through K6.requant): a power of two, an all-ones mantissa, and two a
+#: calibration gives (max |x| / 127 of 1 and of 3.1), as fp32
+QUANT8_SCALES = [2.0 ** -5, float(torch.tensor(0x3C7FFFFF, dtype=torch.int32)
+                                  .view(torch.float32)),
+                 float(torch.tensor(1.0) / 127), float(torch.tensor(3.1)
+                                                      / 127)]
+#: values a chunk of the exhaustive quant8 check
+QUANT8_CHUNK = 1 << 27
 
 
 def qflow_codes(shape, dev, seed, spread=30.0):
@@ -4456,6 +4509,62 @@ def k1_int8_check(got, q, scale, w, b, groups, out_scale, out_dtype):
     tol = QFLOW_K1_TOL[out_dtype]
     err, excess, _, rms = compare(got, ref, tol)
     return err, excess, f"tol={tol!r}*(1+|ref|) rms={rms!r}"
+
+
+def k1_int8_table_check(q, scale, w, b, groups, out_scale, out_dtype,
+                        lookup=True):
+    """K1's int8 mode's per-code outputs against the plain table
+    (``groupnorm.int8_table_plain``) built from the kernel's own folded
+    affine: the kernel's table bit-equal to it, and (``lookup``) every
+    output bit-equal to its entry.  Returns (bit-equal, text)."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
+
+    y, coef, words, plan = groupnorm._int8_launch(
+        q, scale, w, b, groups, QFLOW_EPS, out_scale, out_dtype)
+    ref = groupnorm.int8_table_plain(coef[:, 0], coef[:, 1], out_scale,
+                                     out_dtype)
+    same, text = True, f"cs={plan['cs']}"
+    if words is not None:
+        got = groupnorm.int8_table_entries(words, q.shape[-1], plan["cs"],
+                                           y.dtype)
+        off = (got.view(torch.uint8) != ref.view(torch.uint8)).sum().item()
+        same &= off == 0
+        text += f" table bytes off {off}"
+    if lookup:
+        off = (y.view(torch.uint8) != groupnorm.int8_lookup(ref, q).view(
+            torch.uint8)).sum().item()
+        same &= off == 0
+        text += f" outputs off their entry {off}"
+    return same, text
+
+
+def quant8_exhaustive(dev, scales=None):
+    """quant8 through K6.requant on every fp32 v with |v / s| <= 128, for
+    each of QUANT8_SCALES (a scalar scale), in chunks of QUANT8_CHUNK,
+    against torch.round(v / s).clamp(-127, 127) on the card, bit-equal.
+    Returns ([(scale, values, codes off)], seconds)."""
+    from cvvae_tpu_torch.ops.kernels import qflow as k6
+
+    t0 = time.perf_counter()
+    out = []
+    for sv in scales or QUANT8_SCALES:
+        s = torch.tensor(sv, device=dev, dtype=torch.float32)
+        top = int(torch.tensor(128 * sv, dtype=torch.float32).view(
+            torch.int32))
+        n = off = 0
+        for sign in (0, -(1 << 31)):
+            for lo in range(0, top + 1, QUANT8_CHUNK):
+                bits = torch.arange(lo, min(top + 1, lo + QUANT8_CHUNK),
+                                    device=dev, dtype=torch.int32) + sign
+                v = bits.view(torch.float32)
+                got = k6.requant(v, s)
+                ref = torch.round(v / s).clamp_(-127, 127).to(torch.int8)
+                off += (got != ref).sum().item()
+                n += v.numel()
+                del bits, v, got, ref
+        out.append((sv, n, off))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def k5_int8_inputs(shape, cout, kernel, dev, with_bias=True, seed=80):
@@ -4555,19 +4664,25 @@ def k6_checks(shape, dev):
 
 def _qflow_small(record, dev):
     """Every new mode on small ragged cases: K5 from int8 on
-    K5_CHECK_CASES (int8 out at per-channel scales, bf16 and fp32 out),
-    K1's int8 mode on QFLOW_K1_CASES (scalar and per-channel scales; int8,
-    bf16, fp32 out), K6 on QFLOW_K6_CASES."""
+    K5_CHECK_CASES (int8 out at per-channel scales by direct stores, bf16
+    and fp32 out) and K5_INT8_CASES (int8 out, staged), K1's int8 mode on
+    QFLOW_K1_CASES (scalar and per-channel scales; int8, bf16, fp32 out;
+    its per-code outputs against the plain table), K6 on
+    QFLOW_K6_CASES."""
     from cvvae_tpu_torch.ops.kernels import groupnorm
 
-    for i, (shape, cout, kernel, stride, pads, modes, with_bias) in \
-            enumerate(K5_CHECK_CASES):
+    cases = [(f"case {i}", c, dtypes) for i, c in enumerate(K5_CHECK_CASES)
+             for dtypes in [(torch.int8, torch.bfloat16, torch.float32)]]
+    cases += [(f"staged case {i}", c, (torch.int8,))
+              for i, c in enumerate(K5_INT8_CASES)]
+    for label, (shape, cout, kernel, stride, pads, modes, with_bias), \
+            dtypes in cases:
         xq, wq, sw, sx, b, so = k5_int8_inputs(shape, cout, kernel, dev,
                                                with_bias)
-        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+        for out_dtype in dtypes:
             exact, err = k5_int8_check(xq, wq, sw, sx, b, kernel, stride,
                                        pads, modes, so, out_dtype)
-            record("K5.int8", f"case {i} {shape}->{cout} k={kernel} "
+            record("K5.int8", f"{label} {shape}->{cout} k={kernel} "
                    f"s={stride} pads={pads} {modes} bias={with_bias} out "
                    f"{out_dtype} bit-exact={exact}", err,
                    0.0 if exact else 1.0, "tol=bit-exact")
@@ -4585,6 +4700,13 @@ def _qflow_small(record, dev):
                                                   out_scale, out_dtype)
                 record("K1.int8", f"{shape} G={groups} per_channel="
                        f"{per_channel} out {out_dtype}", err, excess, text)
+                same, text = k1_int8_table_check(q, s, w, b, groups,
+                                                 out_scale, out_dtype)
+                record("K1.int8", f"{shape} G={groups} per_channel="
+                       f"{per_channel} out {out_dtype}: the table and every "
+                       f"output against the plain table", 0.0 if same else
+                       1.0, 0.0 if same else 1.0,
+                       f"tol=bit-exact {text}")
     for shape in QFLOW_K6_CASES:
         for label, same in k6_checks(shape, dev):
             key = "K6.requant" if label.startswith("K6.requant") else "K6"
@@ -4731,6 +4853,29 @@ def _qflow_numerics(dev, c, smi):
     return db
 
 
+def device_ms_by_group(fn, tries=3):
+    """({group: device ms}, {kernel key: (launches the profile holds, its
+    counter's launches)}) of one call of ``fn`` (``profile_measured``):
+    its kernels' device time summed by ``profiling.group_kernels``, the
+    largest first.  A profile that lost a counted launch is taken again,
+    up to ``tries`` in all; the last is returned, ``held`` showing what
+    it lost."""
+    from cvvae_tpu_torch.utils import profiling
+
+    keys = {k for k, _ in profiling.KERNEL_GROUPS.values()}
+    for _ in range(tries):
+        events, counted = profile_measured(fn)
+        groups = profiling.group_kernels(events)
+        seen = {profiling.key_of(g): r["launches"]
+                for g, r in groups.items() if profiling.key_of(g)}
+        held = {k: (seen.get(k, 0), counted[k]) for k in keys
+                if seen.get(k) or counted[k]}
+        if all(a == b for a, b in held.values()):
+            break
+    return {g: r["us"] / 1e3 for g, r in sorted(
+        groups.items(), key=lambda kv: -kv[1]["us"])}, held
+
+
 def _qflow_shape(dev, name, shape, record, smi, count):
     """One chain shape: each new mode against its plain version and timed
     (K5 from int8 at conv1's and conv2's convs, K1's int8 mode, K6), then
@@ -4756,25 +4901,25 @@ def _qflow_shape(dev, name, shape, record, smi, count):
         for out_dtype in (torch.int8, torch.bfloat16):
             exact, err = k5_int8_check(*args, out_dtype, frames=True,
                                        wpk=conv["k5_wpk"])
-            timing = extra = None
-            if i == 1:
-                kw = (dict(out_scale=conv["scale_y"]) if out_dtype ==
-                      torch.int8 else dict(out_dtype=out_dtype))
-                xs, t_pads = k5_frames(q, spec.kernel, spec.stride,
-                                       spec.pads, spec.modes, 0,
-                                       K5_HEAD_FRAMES)
-                ms = turns({
-                    "plain": lambda: conv_int8.conv3d_int8_resident_plain(
-                        xs, *args[1:5], spec.stride,
-                        (t_pads,) + tuple(spec.pads[1:]), spec.modes, **kw),
-                    "kernel": lambda: conv_int8.conv3d_int8_resident(
-                        q, *args[1:5], spec.stride, spec.pads, spec.modes,
-                        conv["k5_wpk"], **kw)})
-                timing = (shape, out_dtype, ms["kernel"], ms["plain"], None,
-                          dict(cout=c, kernel=spec.kernel, stride=spec.stride,
-                               pads=spec.pads))
-                extra = dict(name=f"{name} conv1", plain_frames=K5_HEAD_FRAMES)
-                del xs
+            # both convs timed: conv2 is half the chain's K5.int8 launches
+            kw = (dict(out_scale=conv["scale_y"]) if out_dtype ==
+                  torch.int8 else dict(out_dtype=out_dtype))
+            xs, t_pads = k5_frames(q, spec.kernel, spec.stride,
+                                   spec.pads, spec.modes, 0,
+                                   K5_HEAD_FRAMES)
+            ms = turns({
+                "plain": lambda: conv_int8.conv3d_int8_resident_plain(
+                    xs, *args[1:5], spec.stride,
+                    (t_pads,) + tuple(spec.pads[1:]), spec.modes, **kw),
+                "kernel": lambda: conv_int8.conv3d_int8_resident(
+                    q, *args[1:5], spec.stride, spec.pads, spec.modes,
+                    conv["k5_wpk"], **kw)})
+            timing = (shape, out_dtype, ms["kernel"], ms["plain"], None,
+                      dict(cout=c, kernel=spec.kernel, stride=spec.stride,
+                           pads=spec.pads))
+            extra = dict(name=f"{name} conv{i}",
+                         plain_frames=K5_HEAD_FRAMES)
+            del xs
             record("K5.int8", f"{name} conv{i} {shape} k={spec.kernel} out "
                    f"{out_dtype}, output frames [0, {K5_HEAD_FRAMES}) and "
                    f"the last {K5_TAIL_FRAMES} bit-exact={exact}", err,
@@ -4800,6 +4945,12 @@ def _qflow_shape(dev, name, shape, record, smi, count):
         record("K1.int8", f"{name} {shape} per_channel={per_channel} out "
                f"{out_dtype}", err, excess, text,
                (shape, out_dtype, k_ms, p_ms, None, {}), dict(name=name))
+        same, text = k1_int8_table_check(q1, s, w, b, QFLOW_GROUPS,
+                                         out_scale, out_dtype, lookup=False)
+        record("K1.int8", f"{name} {shape} per_channel={per_channel} out "
+               f"{out_dtype}: the table against the plain table",
+               0.0 if same else 1.0, 0.0 if same else 1.0,
+               f"tol=bit-exact {text}")
         del q1
         torch.cuda.empty_cache()
     # K6
@@ -4839,6 +4990,16 @@ def _qflow_shape(dev, name, shape, record, smi, count):
     per_block = {k: v / QFLOW_BLOCKS for k, v in ms.items()}
     say(f"[qflow] {name} {shape}: ms a block (of {QFLOW_BLOCKS}, CUDA "
         f"events, median of turns) {json.dumps(per_block)}; card {smi}")
+    # where one int8-res chain's device time goes, by kernel group
+    groups, held = device_ms_by_group(lambda: qflow_residency(res, x))
+    if not groups:
+        raise SystemExit("qflow: the int8-res chain's profile holds no "
+                         "device event")
+    say(f"[qflow] {name} {shape}: one int8-res chain's device ms by "
+        f"group {json.dumps(groups)}, in all {sum(groups.values())!r}; "
+        f"launches (profiled, counted) {json.dumps(held)}"
+        + ("" if all(a == b for a, b in held.values()) else
+           " (the profile lost launches: its ms fall short)"))
     del x, bf16, int8, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -4877,6 +5038,14 @@ def _qflow(dev, smi, summary):
 
     with torch.no_grad():  # int8 is inference-only
         _qflow_small(record, dev)
+        held, secs = quant8_exhaustive(dev)
+        for sv, n, off in held:
+            record("K6.requant", f"quant8 exhaustive at scale {sv!r}: {n} "
+                   f"fp32 values (|v / s| <= 128), {off} codes off "
+                   f"torch.round(v / s).clamp(-127, 127)", float(off),
+                   float(off), "tol=bit-exact")
+        say(f"[qflow] quant8 exhaustive: {sum(n for _, n, _ in held)} "
+            f"values at {len(held)} scales in {secs:.2f}s")
         dbs = {c: _qflow_numerics(dev, c, smi)
                for c in sorted({s[-1] for _, s in QFLOW_SHAPES})}
         chains, launches = {}, None

@@ -60,9 +60,20 @@
 //     tile while the consumers write this one out.
 //   * Epilogue: __fmul_rn(float(acc), __fmul_rn(scale_x, scale_w[o])),
 //     then __fadd_rn of the bias, cast to the output dtype (x's, or the
-//     one the caller names), or with an int8 output requantized by
-//     quant8 at out_scale[o] (qflow.py:97-103: the int8-resident mode);
-//     the ragged W' and O tails are masked.
+//     one the caller names) and stored from registers, two channels a
+//     lane, the ragged W' and O tails masked.  With an int8 output
+//     (qflow.py:97-103: the int8-resident mode) each value is requantized
+//     at out_scale[o] by quant8's fast path (common.cuh: a multiply, a
+//     clamp and an add that rounds, no division or conversion), the
+//     warp's vote sending only a warp with a value near a half-integer
+//     through the exact tie path; the codes are written byte by byte into
+//     a staged tile in shared memory (128-byte swizzled, conflict-free)
+//     and the tile leaves by one TMA store (cp.async.bulk.tensor) that
+//     drains while the consumers go on to the next tile; TMA drops what
+//     lies past Wo or O.  The staged tile takes the B ring's sixth stage
+//     at 256 pixels (kBStagesI8).  Where O is no multiple of 16 (TMA
+//     needs 16-byte rows) the codes go out by direct stores, each by
+//     quant8 (its tie path a call where a lane needs it).
 //
 // kBN, kKC, kMaxKW and kMaxSW are read by ops/kernels/conv_int8.py (and
 // its CPU tests) from this file.
@@ -79,6 +90,9 @@ constexpr int kBox = 128;       // A rows a TMA box
 constexpr int kTail = 8;        // rows of a strip's tail box (kW - 1 <= 8)
 constexpr int kAStages = 3;     // A strips in the ring
 constexpr int kBStages = 6;     // B taps in the ring
+// B taps in the ring of the int8-output GEMM at 256 pixels, whose staged
+// output tile (32 KB) leaves no room for a sixth
+constexpr int kBStagesI8 = 5;
 constexpr int kConsumers = 2;   // consumer warpgroups
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
 // one A strip a (dt, dh, chunk), read by its kW taps (W stride 1)
@@ -227,15 +241,22 @@ int8_stage(const T* __restrict__ x, const float* __restrict__ scale_x,
 
 // shared memory of a block, from a 1024-byte-aligned base: the A ring
 // (strips of BM + kTail rows of 128 bytes), the B ring (kBN rows of 128
-// bytes a tap), then the barriers
-template <int NP>
+// bytes a tap), an int8 output's staged tile (BM pixel rows of the tile's
+// kBN channels, 128-byte swizzled, as its TMA store reads them), then the
+// barriers.  At 256 pixels with an int8 output: 101,376 + 5 x 16,384 +
+// 32,768 + 128 + 1,024 = 217,216 bytes of the 232,448 a block may have
+template <typename T, int NP>
 struct Smem {
   static constexpr int kBM = NP;
   static constexpr int kABytes = (kBM + kTail) * 128;
   static constexpr int kBBytes = kBN * 128;
+  static constexpr int kBS = sizeof(T) == 1 && NP == 256 ? kBStagesI8
+                                                         : kBStages;
   static constexpr int kBOff = kAStages * kABytes;
-  static constexpr int kBarOff = kBOff + kBStages * kBBytes;
-  static constexpr int kBytes = kBarOff + 2 * (kAStages + kBStages) * 8 + 1024;
+  static constexpr int kYOff = kBOff + kBS * kBBytes;
+  static constexpr int kYBytes = sizeof(T) == 1 ? NP * kBN : 0;
+  static constexpr int kBarOff = kYOff + kYBytes;
+  static constexpr int kBytes = kBarOff + 2 * (kAStages + kBS) * 8 + 1024;
 };
 
 struct GemmArgs {
@@ -245,6 +266,7 @@ struct GemmArgs {
   int To, Ho, Wo;
   int n_wt, n_nt, n_cc, n_tiles;
   int reuse;       // one A strip a (dt, dh, chunk)
+  int staged;      // an int8 output stored by TMA from shared memory
 };
 
 struct Tile {
@@ -400,6 +422,37 @@ __device__ __forceinline__ void store2(T* p, float v0, float v1, bool two,
   }
 }
 
+// the staged int8 tile out to y (shared -> global, one TMA store of the
+// tile's BM pixels x kBN channels; what lies past Wo or O is not written)
+__device__ __forceinline__ void tma_store_y(const CUtensorMap* map,
+                                            uint32_t src, int c, int w,
+                                            int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(w), "r"(row)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until this thread's TMA stores have read their tiles (READ) or finished
+template <bool kRead>
+__device__ __forceinline__ void tma_store_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the consumer warpgroups' own barrier (the producer warp takes no part)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u8(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // Warps 0-7: two consumer warpgroups, warpgroup wg computing the tile's
 // 64 channels [64 wg, + 64) x its NP pixels, each k-step one wgmma with
 // the weights as A and the pixels as B (both warpgroups read the same
@@ -412,11 +465,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 int8_gemm(const __grid_constant__ CUtensorMap map_a,
           const __grid_constant__ CUtensorMap map_tail,
           const __grid_constant__ CUtensorMap map_b,
+          const __grid_constant__ CUtensorMap map_y,
           const float* __restrict__ scale_x,
           const float* __restrict__ scale_w, const float* __restrict__ bias,
           const float* __restrict__ out_scale, T* __restrict__ y,
           const GemmArgs a) {
-  using S = Smem<NP>;
+  using S = Smem<T, NP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -425,14 +479,14 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
   uint64_t* a_full = bars;
   uint64_t* a_empty = bars + kAStages;
   uint64_t* b_full = bars + 2 * kAStages;
-  uint64_t* b_empty = b_full + kBStages;
+  uint64_t* b_empty = b_full + S::kBS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
     for (int i = 0; i < kAStages; ++i) {
       mbar_init(&a_full[i], 1);
       mbar_init(&a_empty[i], 4 * kConsumers);
     }
-    for (int i = 0; i < kBStages; ++i) {
+    for (int i = 0; i < S::kBS; ++i) {
       mbar_init(&b_full[i], 1);
       mbar_init(&b_empty[i], 4 * kConsumers);
     }
@@ -483,7 +537,7 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
             mbar_expect_tx(&b_full[bs], S::kBBytes);
             tma_load_b(base + S::kBOff + bs * S::kBBytes, &map_b, &b_full[bs],
                        cc * kKC, r * a.kW + dw, t.nt * kBN);
-            advance(bs, bp, kBStages);
+            advance(bs, bp, S::kBS);
           }
         }
       }
@@ -534,7 +588,7 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
           }
           rel_b = bs;
           rel_a = (!a.reuse || dw == a.kW - 1) ? strip : -1;
-          advance(bs, bp, kBStages);
+          advance(bs, bp, S::kBS);
           first = false;
         }
       }
@@ -547,9 +601,83 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
     }
 
     // epilogue: accumulator 4j + 2h + e of (warp wq, lane (g, q4)) is
-    // channel 64 wg + 16 wq + g + 8h, pixel 8j + 2 q4 + e.  Lanes g and
-    // g ^ 1 swap a value, so that each holds two adjacent channels of one
-    // pixel (g even: pixel 8j + 2 q4, g odd: the next) for one store.
+    // channel 64 wg + 16 wq + g + 8h, pixel 8j + 2 q4 + e.
+    if constexpr (sizeof(T) == 1) {
+      if (a.staged) {
+        // An int8 output, staged: the codes by quant8's fast path (a vote
+        // of the warp takes the rare path only where a lane needs it), one
+        // byte each into the staged tile, then one TMA store of the tile
+        // that drains while the consumers go on to the next tile's
+        // products.  Pixel p, channel cl of the tile lie at byte p * 128 +
+        // ((cl / 16) ^ (p % 8)) * 16 + cl % 16 (the 128-byte swizzle), so
+        // this thread's bytes lie at st[e] + 1024 j + 8 h, and the 32 lanes
+        // of a store write 8 distinct banks' words, 4 bytes each.
+        if (tid == 0) tma_store_wait<true>();  // the last tile's store read
+        consumers_sync();
+        const uint32_t ybase = base + S::kYOff;
+        uint32_t st[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pr = 2 * q4 + e;
+          st[e] = ybase + pr * 128 + (((4 * wg + wq) ^ pr) << 4) + g;
+        }
+        // channel h's dequantizing scale, bias, and requantizing scale
+        // (os; the fast path's rq, the tie path's os and its reciprocal)
+        auto out_scale_of = [&](int h) {
+          const int c = t.nt * kBN + wg * 64 + 16 * wq + g + 8 * h;
+          return c < a.O ? __ldg(out_scale + c) : 1.f;
+        };
+        float sc[2], bq[2], rq[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = t.nt * kBN + wg * 64 + 16 * wq + g + 8 * h;
+          sc[h] = c < a.O ? scale(c) : 0.f;
+          bq[h] = bias != nullptr && c < a.O ? __ldg(bias + c) : 0.f;
+          rq[h] = quant8_rq(__frcp_rn(out_scale_of(h)));
+        }
+        // value k = 2h + e of step j: acc[4j + k], channel h, at byte
+        // st[e] + 1024 j + 8 h
+        auto value = [&](int q, int h) {
+          const float v = __fmul_rn(__int2float_rn(q), sc[h]);
+          return bias != nullptr ? __fadd_rn(v, bq[h]) : v;
+        };
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j) {
+          bool rare[4] = {false, false, false, false};
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            st_shared_u8(st[k & 1] + 1024 * j + 8 * (k >> 1),
+                         quant8_fast(value(acc[4 * j + k], k >> 1),
+                                     rq[k >> 1], rare[k]));
+          uint32_t more = rare[0] | rare[1] << 1 | rare[2] << 2 | rare[3] << 3;
+          if (__any_sync(0xffffffffu, more)) {
+            // the rare values again, one at a time (one copy of the tie
+            // path a step), over their fast codes
+            while (more) {
+              const int k = __ffs(more) - 1, h = k >> 1;
+              more &= more - 1;
+              const int q = k == 0   ? acc[4 * j]
+                            : k == 1 ? acc[4 * j + 1]
+                            : k == 2 ? acc[4 * j + 2]
+                                     : acc[4 * j + 3];
+              const float os = out_scale_of(h);
+              st_shared_u8((k & 1 ? st[1] : st[0]) + 1024 * j + 8 * h,
+                           quant8_tie(value(q, h), os, __frcp_rn(os)));
+            }
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        consumers_sync();
+        if (tid == 0)
+          tma_store_y(&map_y, ybase, t.nt * kBN, t.wo0,
+                      (t.b * a.To + t.to) * a.Ho + t.ho);
+        continue;
+      }
+    }
+    // Direct stores (bf16 and fp32, and int8 where O is no multiple of 16,
+    // which TMA cannot address): lanes g and g ^ 1 swap a value, so that
+    // each holds two adjacent channels of one pixel (g even: pixel 8j + 2
+    // q4, g odd: the next) for one store.
     const int64_t row =
         (((int64_t)t.b * a.To + t.to) * a.Ho + t.ho) * (int64_t)a.Wo;
     const bool even = (g & 1) == 0;
@@ -582,6 +710,9 @@ int8_gemm(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
+  // the block's shared memory must outlive its last store's read
+  if constexpr (sizeof(T) == 1)
+    if (a.staged && tid == 0) tma_store_wait<false>();
 }
 
 // an int8 tensor of ``rank`` dims (innermost first) read in ``box``es of
@@ -611,10 +742,11 @@ int num_sms(int device) {
 
 template <typename T, int NP>
 int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mt,
-                const CUtensorMap& mb, const void* scale_x,
-                const void* scale_w, const void* bias, const void* out_scale,
-                void* y, const GemmArgs& a, int n_sms, cudaStream_t s) {
-  using S = Smem<NP>;
+                const CUtensorMap& mb, const CUtensorMap& my,
+                const void* scale_x, const void* scale_w, const void* bias,
+                const void* out_scale, void* y, const GemmArgs& a, int n_sms,
+                cudaStream_t s) {
+  using S = Smem<T, NP>;
   const cudaError_t e = cudaFuncSetAttribute(
       int8_gemm<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kBytes);
@@ -622,7 +754,7 @@ int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mt,
   // about one block an SM, each walking tiles
   const int grid = a.n_tiles > n_sms ? n_sms : a.n_tiles;
   int8_gemm<T, NP><<<grid, kThreads, S::kBytes, s>>>(
-      ma, mt, mb, (const float*)scale_x, (const float*)scale_w,
+      ma, mt, mb, my, (const float*)scale_x, (const float*)scale_w,
       (const float*)bias, (const float*)out_scale, (T*)y, a);
   return (int)cudaGetLastError();
 }
@@ -718,13 +850,17 @@ CVVAE_EXPORT int cvvae_int8_gemm(const void* xq, const void* wpk,
   a.n_nt = o_pad / kBN;
   a.n_cc = cp / kKC;
   a.reuse = kReuseA && sW == 1;
+  // an int8 output goes out through shared memory by TMA, whose rows (O
+  // bytes a pixel) must be a multiple of 16 bytes
+  a.staged = dtype == CVVAE_I8 && O % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const int64_t n_tiles = (int64_t)B * To * Ho * a.n_wt * a.n_nt;
   if (n_tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
   a.n_tiles = (int)n_tiles;
 
   // A: (cp, sW, wp / sW, hp, B * tp), boxes of 128 channels x kBox (or
   // kTail) pixels; B: (cp, taps, o_pad), boxes of 128 channels x kBN
-  CUtensorMap ma, mt, mb;
+  CUtensorMap ma, mt, mb, my;
   const cuuint64_t a_dims[5] = {(cuuint64_t)cp, (cuuint64_t)sW,
                                 (cuuint64_t)(wp / sW), (cuuint64_t)hp,
                                 (cuuint64_t)B * tp};
@@ -738,27 +874,27 @@ CVVAE_EXPORT int cvvae_int8_gemm(const void* xq, const void* wpk,
                                 (cuuint64_t)o_pad};
   const cuuint64_t b_strides[2] = {(cuuint64_t)cp, (cuuint64_t)taps * cp};
   const cuuint32_t b_box[3] = {kKC, 1, kBN};
+  // y (int8, staged): (O, Wo, B * To * Ho), stored in boxes of kBN
+  // channels x BM pixels; else a copy of the B map, not read
+  const cuuint64_t y_dims[3] = {(cuuint64_t)O, (cuuint64_t)Wo,
+                                (cuuint64_t)B * To * Ho};
+  const cuuint64_t y_strides[2] = {(cuuint64_t)O, (cuuint64_t)Wo * O};
+  const cuuint32_t y_box[3] = {kBN, (cuuint32_t)bm, 1};
   if (!make_map(&ma, xq, 5, a_dims, a_strides, a_box) ||
       !make_map(&mt, xq, 5, a_dims, a_strides, t_box) ||
-      !make_map(&mb, wpk, 3, b_dims, b_strides, b_box))
+      !make_map(&mb, wpk, 3, b_dims, b_strides, b_box) ||
+      !(a.staged ? make_map(&my, y, 3, y_dims, y_strides, y_box)
+                 : make_map(&my, wpk, 3, b_dims, b_strides, b_box)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == CVVAE_BF16)
-    return wide ? launch_gemm<__nv_bfloat16, 256>(ma, mt, mb, scale_x, scale_w,
-                                                bias, out_scale, y, a, n_sms,
-                                                s)
-                : launch_gemm<__nv_bfloat16, 128>(ma, mt, mb, scale_x, scale_w,
-                                                bias, out_scale, y, a, n_sms,
-                                                s);
-  if (dtype == CVVAE_F32)
-    return wide ? launch_gemm<float, 256>(ma, mt, mb, scale_x, scale_w, bias,
-                                        out_scale, y, a, n_sms, s)
-                : launch_gemm<float, 128>(ma, mt, mb, scale_x, scale_w, bias,
-                                        out_scale, y, a, n_sms, s);
-  if (dtype == CVVAE_I8)
-    return wide ? launch_gemm<int8_t, 256>(ma, mt, mb, scale_x, scale_w, bias,
-                                         out_scale, y, a, n_sms, s)
-                : launch_gemm<int8_t, 128>(ma, mt, mb, scale_x, scale_w, bias,
-                                         out_scale, y, a, n_sms, s);
+#define CVVAE_GEMM(T)                                                       \
+  return wide ? launch_gemm<T, 256>(ma, mt, mb, my, scale_x, scale_w, bias, \
+                                    out_scale, y, a, n_sms, s)              \
+              : launch_gemm<T, 128>(ma, mt, mb, my, scale_x, scale_w, bias, \
+                                    out_scale, y, a, n_sms, s);
+  if (dtype == CVVAE_BF16) CVVAE_GEMM(__nv_bfloat16)
+  if (dtype == CVVAE_F32) CVVAE_GEMM(float)
+  if (dtype == CVVAE_I8) CVVAE_GEMM(int8_t)
+#undef CVVAE_GEMM
   return (int)cudaErrorInvalidValue;
 }

@@ -37,23 +37,33 @@
 //      gn_merge does; then gn_apply, unchanged.
 // The int8 mode (cvvae_group_norm_int8), for an int8-resident activation
 // (cvvae_tpu/ops/qflow.py:138-172, qgroup_norm_silu), computes the JAX
-// package's function, not K1's own statistics:
-//   gnq_stats: the same plan over int8 x (16 values a load); each value is
-//      dequantized in registers, xf = q * s[c] (s a scalar or per channel),
-//      and xf and xf * xf (each rounded to fp32) are summed, no shift, in
-//      fp32 over a thread's batch of loads and then in double; the block's
-//      per-group sums written as gn_stats writes them.
-//   gnq_merge: one warp per (batch row, group) adds the blocks' sums in a
-//      fixed order and takes JAX's one-pass moments: the fp32 mean and
-//      mean of squares, var = E[x^2] - mean^2 in fp32 (not clamped: it
-//      can go slightly negative, as JAX's can), inv = rsqrt(var + eps)
-//      correctly rounded, then the folded affine a = inv * w[c] * s[c], b
-//      = bias[c] - mean * inv * w[c], each product rounded as JAX writes it.
-//   gnq_apply: h = q * a + b (two roundings, as the reference's), SiLU in
-//      fp32 (h * 1 / (1 + exp(-h))), written as int8 requantized at the
-//      consumer's scalar out_scale (quant8, common.cuh), or bf16 / fp32.
+// package's function, not K1's own statistics.  Its output is a function
+// of (batch row, channel, code) only, 256 codes, so it is applied as a
+// lookup:
+//   gnq_stats: one block an SM over int8 x (4 codes a load); exact
+//      per-channel int32 sums of q and q^2 in a thread's registers (no
+//      conversion, no float product), added over the block's threads and
+//      written per channel; the plan keeps a block's rows below
+//      kMaxBlockRows, where q^2's sum still fits.
+//   gnq_merge: one block per (group, batch row): s[c] * sum q and s[c]^2 *
+//      sum q^2 (s the dequantizing scale, a scalar or per channel) added
+//      in double in a fixed order, then JAX's one-pass moments: the fp32
+//      mean and mean of squares, var = E[x^2] - mean^2 in fp32 (not
+//      clamped: it can go slightly negative, as JAX's can), inv = rsqrt(var
+//      + eps) correctly rounded, the folded affine a = inv * w[c] * s[c], b
+//      = bias[c] - mean * inv * w[c], each product rounded as JAX writes
+//      it; then the table: for each channel and each of the 256 codes, h =
+//      q * a + b (two roundings, as the reference's), SiLU in fp32 (h * 1 /
+//      (1 + exp(-h))), as int8 at the consumer's scalar out_scale (quant8,
+//      common.cuh) or bf16 / fp32 bits, in a 32-bit entry.
+//   gnq_apply: y = table[code]: a 4-byte load, 4 shared-memory lookups
+//      that no two lanes of a warp make in one bank, one 4-, 8- or 16-byte
+//      store (the layout is at the kernel).  Where C is no multiple of 32
+//      the plan gives no table and gnq_apply_arith computes the same
+//      arithmetic per element from a and b.
 //   Its statistics run over every axis but the batch and the channels
-//   (T, H, W, C/G); 2 bytes an element of traffic with an int8 output.
+//   (T, H, W, C/G); 2 bytes an element of traffic with an int8 output, x
+//   read twice: 1.5 * 2 bytes, 0.943 ms at (1,17,720,672,128).
 // Bound: device memory.  One read and one write of x is the least
 // traffic (8.02 GB at (1,17,720,1280,128) bf16: 2.39 ms at 3.35 TB/s);
 // this design reads x twice (the statistics must be complete before the
@@ -329,112 +339,303 @@ struct QScale {
   int per_channel;
 };
 
-// gn_stats over int8 x: the sums of xf = q * s[c] and of xf * xf about 0
-template <int V, int NS>
-__global__ void __launch_bounds__(max_threads<V>())
-    gnq_stats(const int8_t* __restrict__ x, QScale qs,
-              double* __restrict__ part, Plan p) {
-  extern __shared__ double sh[];  // [rows_per_iter][nvc * NS][2]
+// rows a stats block may take: its per-channel sums of q^2 (q^2 <= 127^2)
+// stay below 2^31 in int32
+constexpr int kMaxBlockRows = 133000;
+// the stats pass: codes a load (where C allows), loads in flight a thread
+// and threads a block at most (one block an SM)
+constexpr int kStatsV = 4;
+constexpr int kStatsUnroll = 16;
+constexpr int kStatsThreads = 1024;
+// threads of a merge block, one block a (group, batch row)
+constexpr int kMergeThreads = 256;
+// the table apply: threads of its block (one an SM), rows in flight a
+// thread, and the table's layout: 64 channels a half (a code's row of 64
+// words, 256 bytes, so 64 KB a half), two halves at most (128 channels)
+constexpr int kApplyThreads = 1024;
+constexpr int kApplyUnroll = 16;
+constexpr int kHalfChannels = 64;
+constexpr int kHalfBytes = 256 * kHalfChannels * 4;
+// the apply reads the per-channel table (false: the arithmetic apply)
+constexpr bool kTableApply = true;
+
+// gnq_stats: exact per-channel integer sums of q and q^2 over a block's
+// rows (the dequantizing scales are applied once, in gnq_merge): a
+// thread's V channels (4 codes, one 32-bit load; a warp one 128-byte row
+// at 128 channels) in int32 registers, kStatsUnroll loads in flight, one
+// block of up to kStatsThreads an SM, so 64 KB in flight an SM; then the
+// block's rows_per_iter threads of each channel added through shared
+// memory and written as int32 (B, n_blocks, C, 2)
+template <int V>
+__global__ void __launch_bounds__(kStatsThreads, 1)
+    gnq_stats(const int8_t* __restrict__ x, int* __restrict__ part, Plan p) {
+  extern __shared__ int shq[];  // [rows_per_iter][C][2]
   const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
   const int b = blockIdx.y, blk = blockIdx.x;
   const int8_t* xb = x + (int64_t)b * p.S * p.C;
   const int c0 = tx * V;
   const int64_t r0 = (int64_t)blk * p.rows_per_block;
   const int64_t r1 = min_i64(p.S, r0 + p.rows_per_block);
-  const int64_t step = (int64_t)p.rows_per_iter * kUnroll;
-  float sc[V];
+  int s1[V], s2[V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) sc[j] = qs.s[(c0 + j) * qs.per_channel];
-  double s1[NS], s2[NS];
+  for (int j = 0; j < V; ++j) s1[j] = s2[j] = 0;
+  auto add = [&](const Pack<int8_t, V>& v) {
 #pragma unroll
-  for (int s = 0; s < NS; ++s) s1[s] = s2[s] = 0.0;
-  if (ty < p.rows_per_iter) {
-    for (int64_t r = r0 + ty; r < r1; r += step) {
-      Pack<int8_t, V> v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t row = r + (int64_t)u * p.rows_per_iter;
-        if (row < r1)
-          v[u] = *reinterpret_cast<const Pack<int8_t, V>*>(xb + row * p.C +
-                                                           c0);
-      }
-      float f1[NS], f2[NS];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) f1[s] = f2[s] = 0.f;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (r + (int64_t)u * p.rows_per_iter < r1) {
-#pragma unroll
-          for (int j = 0; j < V; ++j) {
-            const int s = j / (V / NS);
-            const float xf = __fmul_rn((float)v[u].v[j], sc[j]);
-            f1[s] = __fadd_rn(f1[s], xf);
-            f2[s] = __fadd_rn(f2[s], __fmul_rn(xf, xf));
-          }
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        s1[s] += (double)f1[s];
-        s2[s] += (double)f2[s];
-      }
+    for (int j = 0; j < V; ++j) {
+      const int q = v.v[j];
+      s1[j] += q;
+      s2[j] += q * q;
     }
-    const int w = p.nvc * NS;
+  };
+  if (ty < p.rows_per_iter) {
+    // this thread's rows r0 + ty + i * rows_per_iter, i < n: kStatsUnroll
+    // loads at once, by a pointer stepped a stride of rows_per_iter rows
+    const int64_t n = (r1 - r0 - ty + p.rows_per_iter - 1) / p.rows_per_iter;
+    const int stride = p.rows_per_iter * p.C;
+    const int8_t* ptr = xb + (r0 + ty) * p.C + c0;
+    int64_t i = 0;
+    for (; i + kStatsUnroll <= n; i += kStatsUnroll) {
+      Pack<int8_t, V> v[kStatsUnroll];
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      sh[(ty * w + tx * NS + s) * 2] = s1[s];
-      sh[(ty * w + tx * NS + s) * 2 + 1] = s2[s];
+      for (int u = 0; u < kStatsUnroll; ++u)
+        v[u] = *reinterpret_cast<const Pack<int8_t, V>*>(ptr + u * stride);
+      ptr += (int64_t)kStatsUnroll * stride;
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) add(v[u]);
+    }
+    for (; i < n; ++i, ptr += stride)
+      add(*reinterpret_cast<const Pack<int8_t, V>*>(ptr));
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      shq[(ty * p.C + c0 + j) * 2] = s1[j];
+      shq[(ty * p.C + c0 + j) * 2 + 1] = s2[j];
     }
   }
   __syncthreads();
-  const int w = p.nvc * NS;
-  const int per = NS > 1 ? 1 : p.cg / V;
-  for (int g = threadIdx.x; g < p.G; g += blockDim.x) {
-    double a1 = 0.0, a2 = 0.0;
-    for (int y = 0; y < p.rows_per_iter; ++y)
-      for (int k = g * per; k < (g + 1) * per; ++k) {
-        a1 += sh[(y * w + k) * 2];
-        a2 += sh[(y * w + k) * 2 + 1];
-      }
-    double* out = part + (((int64_t)b * p.n_blocks + blk) * p.G + g) * 2;
+  for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
+    int a1 = 0, a2 = 0;
+    for (int y = 0; y < p.rows_per_iter; ++y) {
+      a1 += shq[(y * p.C + c) * 2];
+      a2 += shq[(y * p.C + c) * 2 + 1];
+    }
+    int* out = part + (((int64_t)b * p.n_blocks + blk) * p.C + c) * 2;
     out[0] = a1;
     out[1] = a2;
   }
 }
 
-// one warp per (batch row, group): JAX's one-pass moments and the folded
-// affine of the int8 mode
-__global__ void gnq_merge(const double* __restrict__ part, QScale qs,
-                          const float* __restrict__ weight,
-                          const float* __restrict__ bias,
-                          float* __restrict__ coef, int B, Plan p,
-                          float eps) {
-  const int lane = threadIdx.x & 31;
-  const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (wid >= B * p.G) return;
-  const int b = wid / p.G, g = wid % p.G;
-  double a1, a2;
-  block_moments(part, b, g, lane, p, &a1, &a2);
-  const double n = (double)p.S * p.cg;
-  const float mean = (float)(a1 / n), msq = (float)(a2 / n);
-  const float var = __fsub_rn(msq, __fmul_rn(mean, mean));
-  const float inv = __frsqrt_rn(__fadd_rn(var, eps));
-  const float mi = __fmul_rn(mean, inv);
-  for (int c = g * p.cg + lane; c < (g + 1) * p.cg; c += 32) {
-    const float s = qs.s[c * qs.per_channel];
-    coef[(int64_t)b * 2 * p.C + c] = __fmul_rn(__fmul_rn(inv, weight[c]), s);
-    coef[(int64_t)b * 2 * p.C + p.C + c] =
-        __fsub_rn(bias[c], __fmul_rn(mi, weight[c]));
+// SiLU(q * a + b) for code q, with the arithmetic (and roundings) of
+// cvvae_tpu/ops/qflow.py:166-172: h = fl(fl(q a) + b), then h * 1 / (1 +
+// exp(-h)), each operation rounded
+__device__ __forceinline__ float qsilu(int q, float a, float b) {
+  const float h = __fadd_rn(__fmul_rn((float)q, a), b);
+  return __fmul_rn(h, 1.f / (1.f + expf(-h)));
+}
+
+// a table entry: the int8 code at out_scale (quant8), or the bf16 or fp32
+// bits, in a 32-bit word
+template <typename O>
+__device__ __forceinline__ uint32_t entry(float t, float os, float ro) {
+  if constexpr (sizeof(O) == 1)
+    return (uint32_t)quant8(t, os, ro) & 0xffu;
+  else if constexpr (sizeof(O) == 2)
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(t));
+  else
+    return __float_as_uint(t);
+}
+
+// gnq_merge: one block per (group, batch row).  The moments: each thread
+// adds s[c] * sum q and s[c]^2 * sum q^2 (double) over a fixed stride of
+// the (block, channel) pairs, then a fixed tree over the threads; JAX's
+// one-pass fp32 moments from them and the folded affine a[c] = inv * w[c]
+// * s[c], b[c] = bias[c] - mean * inv * w[c] (each product rounded as JAX
+// writes it) into coef.  With a table, the group's entries for every code
+// u of every channel: table[b][c / cs][u][c % cs] = entry(SiLU(q a[c] +
+// b[c])), q the int8 value of the byte u.
+template <typename O>
+__global__ void __launch_bounds__(kMergeThreads)
+    gnq_merge(const int* __restrict__ part, QScale qs,
+              const float* __restrict__ weight,
+              const float* __restrict__ bias, float* __restrict__ coef,
+              const float* __restrict__ out_scale,
+              uint32_t* __restrict__ table, int cs, Plan p, float eps) {
+  __shared__ double red[2][kMergeThreads];
+  __shared__ float fold[2];
+  const int g = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  auto scale = [&](int c) { return qs.s[c * qs.per_channel]; };
+  double a1 = 0.0, a2 = 0.0;
+  for (int i = t; i < p.n_blocks * p.cg; i += kMergeThreads) {
+    const int k = i / p.cg, c = g * p.cg + i % p.cg;
+    const int* q = part + (((int64_t)b * p.n_blocks + k) * p.C + c) * 2;
+    const double s = scale(c);
+    a1 += s * (double)q[0];
+    a2 += s * s * (double)q[1];
+  }
+  red[0][t] = a1;
+  red[1][t] = a2;
+  __syncthreads();
+  for (int o = kMergeThreads / 2; o > 0; o >>= 1) {
+    if (t < o) {
+      red[0][t] += red[0][t + o];
+      red[1][t] += red[1][t + o];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    const double n = (double)p.S * p.cg;
+    const float mean = (float)(red[0][0] / n), msq = (float)(red[1][0] / n);
+    const float var = __fsub_rn(msq, __fmul_rn(mean, mean));
+    const float inv = __frsqrt_rn(__fadd_rn(var, eps));
+    fold[0] = inv;
+    fold[1] = __fmul_rn(mean, inv);
+  }
+  __syncthreads();
+  const float inv = fold[0], mi = fold[1];
+  auto coef_a = [&](int c) {
+    return __fmul_rn(__fmul_rn(inv, weight[c]), scale(c));
+  };
+  auto coef_b = [&](int c) {
+    return __fsub_rn(bias[c], __fmul_rn(mi, weight[c]));
+  };
+  for (int c = g * p.cg + t; c < (g + 1) * p.cg; c += kMergeThreads) {
+    coef[(int64_t)b * 2 * p.C + c] = coef_a(c);
+    coef[(int64_t)b * 2 * p.C + p.C + c] = coef_b(c);
+  }
+  if (table == nullptr) return;
+  const float os = sizeof(O) == 1 ? *out_scale : 1.f, ro = __frcp_rn(os);
+  for (int e = t; e < p.cg * 256; e += kMergeThreads) {
+    const int c = g * p.cg + (e >> 8), u = e & 255;
+    const float y = qsilu((int)(int8_t)u, coef_a(c), coef_b(c));
+    table[(((int64_t)b * (p.C / cs) + c / cs) * 256 + u) * cs + c % cs] =
+        entry<O>(y, os, ro);
   }
 }
 
-// int8 x -> SiLU(q * a + b) as O: int8 requantized at *out_scale, or bf16
-// or fp32
-template <typename O, int V>
-__global__ void __launch_bounds__(max_threads<V>())
+// the table apply's plan (ops/kernels/groupnorm.py::int8_plan): channel
+// slices of cs (128, 64 or 32), n_blocks blocks a (batch row, slice), each
+// a run of rows_per_block rows
+struct ApplyPlan {
+  int64_t S;
+  int C, cs, n_slices;
+  int64_t rows_per_block;
+  int n_blocks;
+};
+
+// gnq_apply: y = table[code] for every int8 x.  One block of kApplyThreads
+// an SM takes one (batch row, channel slice) and a run of rows: it copies
+// the slice's table (256 codes x cs channels, 32-bit entries) into shared
+// memory, channel c of a code u at byte (c / 64) * 64 KB + u * 256 + (c %
+// 64) * 4, so an entry's bank is c mod 32 whatever the code.  A thread
+// owns 4 channels (one 32-bit word of x) of every rows_per_iter-th row, a
+// warp one 128-byte row at 128 channels (whole lines): it loads the word,
+// and for each of the 4 codes makes the entry's byte address in one byte
+// permute (the code into byte 1 of the channel's own offset, whose bytes
+// 0 and 2 hold (c % 64) * 4 and c / 64), reads the entry, and packs the 4
+// entries into one 4-byte (int8), 8-byte (bf16) or 16-byte (fp32) store.
+// Lanes l and l + 8k sit on the same 4 channels mod 32 (4 (l mod 8) + k):
+// each lane starts its 4 channels at (l / 8) mod 4, so the 32 lanes of a
+// warp read 32 distinct banks at every step, conflict-free whatever the
+// codes, and the stores put the entries back in channel order.
+template <typename O>
+__global__ void __launch_bounds__(kApplyThreads, 1)
     gnq_apply(const int8_t* __restrict__ x, O* __restrict__ y,
-              const float* __restrict__ coef,
-              const float* __restrict__ out_scale, Plan p) {
+              const uint32_t* __restrict__ table, ApplyPlan p) {
+  extern __shared__ uint32_t tab[];  // [cs / 64 halves][256][64]
+  const int slice = blockIdx.y % p.n_slices, b = blockIdx.y / p.n_slices;
+  const int lanes = p.cs / 4;  // threads across a row's slice
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        table + ((int64_t)b * p.n_slices + slice) * 256 * p.cs);
+    for (int i = threadIdx.x; i < 64 * p.cs; i += kApplyThreads) {
+      const int u = i / lanes, c = (i - u * lanes) * 4;
+      reinterpret_cast<uint4*>(tab + (c / kHalfChannels) * (kHalfBytes / 4) +
+                               u * kHalfChannels + c % kHalfChannels)[0] =
+          __ldg(src + i);
+    }
+  }
+  __syncthreads();
+  const int sx = threadIdx.x % lanes, ry = threadIdx.x / lanes;
+  const int rows_per_iter = kApplyThreads / lanes;
+  const int rot = (threadIdx.x >> 3) & 3;
+  // step j: channel 4 sx + k, k = (j + rot) mod 4: its byte's selector
+  // and its offset (bytes 0 and 2); back in channel order, channel k's
+  // entry is step (k - rot) mod 4's
+  uint32_t sel[4], col[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = (j + rot) & 3, c = 4 * sx + k;
+    sel[j] = 0x7604u | (uint32_t)(k << 4);
+    col[j] = (uint32_t)(c % kHalfChannels) * 4 |
+             (uint32_t)(c / kHalfChannels) << 16;
+  }
+  uint32_t back = 0, back_hi = 0;  // int8: one selector; bf16: two
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = (k - rot) & 3;
+    if constexpr (sizeof(O) == 1) {
+      back |= (uint32_t)(j < 2 ? j : j + 2) << (4 * k);
+    } else if constexpr (sizeof(O) == 2) {
+      const uint32_t pair = (uint32_t)(2 * j) | (uint32_t)(2 * j + 1) << 4;
+      if (k < 2)
+        back |= pair << (8 * k);
+      else
+        back_hi |= pair << (8 * (k - 2));
+    }
+  }
+  const char* tb = reinterpret_cast<const char*>(tab);
+  const int64_t off = (int64_t)b * p.S * p.C + slice * p.cs + 4 * sx;
+  const int64_t r0 = (int64_t)blockIdx.x * p.rows_per_block;
+  const int64_t r1 = min_i64(p.S, r0 + p.rows_per_block);
+  const int64_t step = (int64_t)rows_per_iter * kApplyUnroll;
+  for (int64_t r = r0 + ry; r < r1; r += step) {
+    uint32_t w[kApplyUnroll];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const int64_t row = r + (int64_t)u * rows_per_iter;
+      if (row < r1)
+        w[u] = __ldg(reinterpret_cast<const uint32_t*>(x + off + row * p.C));
+    }
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const int64_t row = r + (int64_t)u * rows_per_iter;
+      if (row >= r1) continue;
+      uint32_t e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = *reinterpret_cast<const uint32_t*>(
+            tb + __byte_perm(w[u], col[j], sel[j]));
+      O* dst = y + off + row * p.C;
+      if constexpr (sizeof(O) == 1) {
+        *reinterpret_cast<uint32_t*>(dst) =
+            __byte_perm(__byte_perm(e[0], e[1], 0x0040),
+                        __byte_perm(e[2], e[3], 0x0040), back);
+      } else if constexpr (sizeof(O) == 2) {
+        const uint32_t lo = __byte_perm(e[0], e[1], 0x5410);
+        const uint32_t hi = __byte_perm(e[2], e[3], 0x5410);
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(__byte_perm(lo, hi, back), __byte_perm(lo, hi, back_hi));
+      } else {
+        // channel k's entry is e[(k - rot) mod 4]: rotate by rot's bits
+        const bool r1b = rot & 1, r2b = rot & 2;
+        const uint32_t g0 = r1b ? e[3] : e[0], g1 = r1b ? e[0] : e[1];
+        const uint32_t g2 = r1b ? e[1] : e[2], g3 = r1b ? e[2] : e[3];
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(r2b ? g2 : g0, r2b ? g3 : g1, r2b ? g0 : g2,
+                       r2b ? g1 : g3);
+      }
+    }
+  }
+}
+
+// gnq_apply_arith: the apply computed per element (qsilu, then quant8 or
+// the cast) from coef, on the stats pass's plan: the apply where C is no
+// multiple of 32 (no table slice fits it), and the variant that measures
+// what the table gains (kTableApply false)
+template <typename O, int V>
+__global__ void __launch_bounds__(kStatsThreads)
+    gnq_apply_arith(const int8_t* __restrict__ x, O* __restrict__ y,
+                    const float* __restrict__ coef,
+                    const float* __restrict__ out_scale, Plan p) {
   const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
   if (ty >= p.rows_per_iter) return;
   const int b = blockIdx.y, blk = blockIdx.x;
@@ -466,8 +667,7 @@ __global__ void __launch_bounds__(max_threads<V>())
         Pack<O, V> o;
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          const float h = __fadd_rn(__fmul_rn((float)v[u].v[j], a[j]), bb[j]);
-          const float t = __fmul_rn(h, 1.f / (1.f + expf(-h)));
+          const float t = qsilu(v[u].v[j], a[j], bb[j]);
           if constexpr (sizeof(O) == 1)
             o.v[j] = (int8_t)quant8(t, os, ro);
           else
@@ -479,27 +679,52 @@ __global__ void __launch_bounds__(max_threads<V>())
   }
 }
 
-template <int V, int NS>
-int launch_int8(const int8_t* x, QScale qs, void* y, const float* weight,
-                const float* bias, double* part, float* coef,
-                const float* out_scale, int out_dtype, int B, int threads,
-                float eps, const Plan& p, cudaStream_t stream) {
-  const dim3 grid(p.n_blocks, B);
-  const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
-  gnq_stats<V, NS><<<grid, threads, smem, stream>>>(x, qs, part, p);
-  const int warps = B * p.G;
-  gnq_merge<<<(warps + 7) / 8, 256, 0, stream>>>(part, qs, weight, bias,
-                                                  coef, B, p, eps);
-  if (out_dtype == CVVAE_I8)
-    gnq_apply<int8_t, V><<<grid, threads, 0, stream>>>(x, (int8_t*)y, coef,
-                                                        out_scale, p);
-  else if (out_dtype == CVVAE_BF16)
-    gnq_apply<__nv_bfloat16, V><<<grid, threads, 0, stream>>>(
-        x, (__nv_bfloat16*)y, coef, out_scale, p);
-  else
-    gnq_apply<float, V><<<grid, threads, 0, stream>>>(x, (float*)y, coef,
-                                                       out_scale, p);
+struct Int8Args {
+  const int8_t* x;
+  QScale qs;
+  void* y;
+  const float* weight;
+  const float* bias;
+  int* part;
+  float* coef;
+  uint32_t* table;
+  const float* out_scale;
+  int B;
+  int threads;
+  float eps;
+};
+
+template <typename O, int V>
+int launch_int8(const Int8Args& a, const Plan& p, const ApplyPlan& ap,
+                cudaStream_t stream) {
+  const dim3 grid(p.n_blocks, a.B);
+  const size_t smem = sizeof(int) * 2 * p.rows_per_iter * p.C;
+  gnq_stats<V><<<grid, a.threads, smem, stream>>>(a.x, a.part, p);
+  const bool table = kTableApply && ap.cs > 0;
+  gnq_merge<O><<<dim3(p.G, a.B), kMergeThreads, 0, stream>>>(
+      a.part, a.qs, a.weight, a.bias, a.coef, a.out_scale,
+      table ? a.table : nullptr, ap.cs, p, a.eps);
+  if (table) {
+    const int bytes = kHalfBytes * (ap.cs > kHalfChannels ? 2 : 1);
+    const cudaError_t e = cudaFuncSetAttribute(
+        gnq_apply<O>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    gnq_apply<O><<<dim3(ap.n_blocks, a.B * ap.n_slices), kApplyThreads,
+                   bytes, stream>>>(a.x, (O*)a.y, a.table, ap);
+  } else {
+    gnq_apply_arith<O, V><<<grid, a.threads, 0, stream>>>(
+        a.x, (O*)a.y, a.coef, a.out_scale, p);
+  }
   return (int)cudaGetLastError();
+}
+
+template <int V>
+int dispatch_int8(int out_dtype, const Int8Args& a, const Plan& p,
+                  const ApplyPlan& ap, cudaStream_t s) {
+  if (out_dtype == CVVAE_I8) return launch_int8<int8_t, V>(a, p, ap, s);
+  if (out_dtype == CVVAE_BF16)
+    return launch_int8<__nv_bfloat16, V>(a, p, ap, s);
+  return launch_int8<float, V>(a, p, ap, s);
 }
 
 // what one entry launches: the whole norm (gn_stats, gn_merge, gn_apply),
@@ -667,46 +892,47 @@ CVVAE_EXPORT int cvvae_group_norm_combine(const void* x, void* y,
 // The int8 mode: x (B, S, C) int8 contiguous, 16-byte aligned; scale: a
 // device fp32 scalar (per_channel 0) or (C,) (per_channel 1); y (B, S, C)
 // in out_dtype (CVVAE_I8, requantized at the device fp32 scalar
-// out_scale, or CVVAE_BF16 / CVVAE_F32); weight, bias (C,) fp32; part and
-// coef scratch as cvvae_group_norm's.  SiLU always (qgroup_norm_silu).  The
-// plan comes from ops/kernels/groupnorm.py::launch_plan with 1-byte
-// elements.
-CVVAE_EXPORT int cvvae_group_norm_int8(const void* x, const void* scale,
-                                       int per_channel, void* y,
-                                       const void* weight, const void* bias,
-                                       void* part, void* coef,
-                                       const void* out_scale, int B,
-                                       int64_t S, int C, int G, float eps,
-                                       int out_dtype, int V, int NS,
-                                       int threads, int64_t rows_per_block,
-                                       int n_blocks, int device,
-                                       void* stream) {
-  Plan p;
-  const int rc = make_plan(B, S, C, G, V, NS, threads, rows_per_block,
-                           n_blocks, &p);
-  if (rc != 0) return rc;
-  if ((out_dtype == CVVAE_I8) != (out_scale != nullptr) ||
+// out_scale, or CVVAE_BF16 / CVVAE_F32); weight, bias (C,) fp32.  Scratch:
+// part (B, n_blocks, C, 2) int32, coef (B, 2, C) fp32, table (B, C / cs,
+// 256, cs) 32-bit words (unused where cs is 0).  SiLU always
+// (qgroup_norm_silu).  The plan comes from
+// ops/kernels/groupnorm.py::int8_plan: the stats pass's V, threads and
+// rows (also the arithmetic apply's), the apply's channel slice cs (128,
+// 64, 32, or 0 for the arithmetic apply) and its blocks a (batch row,
+// slice).
+CVVAE_EXPORT int cvvae_group_norm_int8(
+    const void* x, const void* scale, int per_channel, void* y,
+    const void* weight, const void* bias, void* part, void* coef,
+    void* table, const void* out_scale, int B, int64_t S, int C, int G,
+    float eps, int out_dtype, int V, int threads, int64_t rows_per_block,
+    int n_blocks, int cs, int64_t apply_rows_per_block, int apply_blocks,
+    int device, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || G <= 0 || C % G != 0 || C > 1024 ||
+      (V != 4 && V != 2 && V != 1) || C % V != 0 || threads % 32 != 0 ||
+      threads > kStatsThreads || C / V > threads ||
+      rows_per_block <= 0 || rows_per_block > kMaxBlockRows ||
+      n_blocks <= 0 || (int64_t)n_blocks * rows_per_block < S ||
+      (cs != 0 && cs != 32 && cs != 64 && cs != 128) ||
+      (cs != 0 && C % cs != 0) ||
+      (cs != 0 && (table == nullptr || apply_rows_per_block <= 0 ||
+                   apply_blocks <= 0 || (int64_t)B * (C / cs) > 65535 ||
+                   (int64_t)apply_blocks * apply_rows_per_block < S)) ||
+      (out_dtype == CVVAE_I8) != (out_scale != nullptr) ||
       (out_dtype != CVVAE_I8 && out_dtype != CVVAE_BF16 &&
        out_dtype != CVVAE_F32) ||
       (per_channel != 0 && per_channel != 1))
     return (int)cudaErrorInvalidValue;
+  const Plan p{S,       C,       G, C / G, C / V, threads / (C / V),
+               rows_per_block, n_blocks};
+  const ApplyPlan ap{S, C, cs, cs ? C / cs : 0, apply_rows_per_block,
+                     apply_blocks};
   cudaSetDevice(device);
   cudaStream_t s = (cudaStream_t)stream;
-  const QScale qs{(const float*)scale, per_channel};
-  const auto* xi = (const int8_t*)x;
-#define CVVAE_GNQ(v, ns)                                                   \
-  if (V == v && NS == ns)                                                  \
-    return launch_int8<v, ns>(xi, qs, y, (const float*)weight,             \
-                              (const float*)bias, (double*)part,           \
-                              (float*)coef, (const float*)out_scale,       \
-                              out_dtype, B, threads, eps, p, s);
-  CVVAE_GNQ(16, 1)
-  CVVAE_GNQ(16, 2)
-  CVVAE_GNQ(16, 4)
-  CVVAE_GNQ(16, 8)
-  CVVAE_GNQ(2, 1)
-  CVVAE_GNQ(2, 2)
-  CVVAE_GNQ(1, 1)
-#undef CVVAE_GNQ
-  return (int)cudaErrorInvalidValue;
+  const Int8Args a{(const int8_t*)x, QScale{(const float*)scale, per_channel},
+                   y, (const float*)weight, (const float*)bias, (int*)part,
+                   (float*)coef, (uint32_t*)table, (const float*)out_scale,
+                   B, threads, eps};
+  if (V == 4) return dispatch_int8<4>(out_dtype, a, p, ap, s);
+  if (V == 2) return dispatch_int8<2>(out_dtype, a, p, ap, s);
+  return dispatch_int8<1>(out_dtype, a, p, ap, s);
 }

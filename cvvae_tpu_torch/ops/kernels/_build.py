@@ -59,9 +59,9 @@ _SIGNATURES = {
     "cvvae_group_norm_combine": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _I,
                                  _I, _F, _I, _I, _I, _I, _I, _L, _I, _I, _P],
     "cvvae_group_norm_bwd": [_P] * 9 + [GroupNormBwdPlan, _P],
-    "cvvae_group_norm_int8": [_P, _P, _I] + [_P] * 6 + [_I, _L, _I, _I, _F,
-                                                        _I, _I, _I, _I, _L,
-                                                        _I, _I, _P],
+    "cvvae_group_norm_int8": [_P, _P, _I] + [_P] * 7 + [_I, _L, _I, _I, _F,
+                                                        _I, _I, _I, _L, _I,
+                                                        _I, _L, _I, _I, _P],
     "cvvae_subpixel_interleave_bwd": [_P] * 7 + [_L] + [_I] * 12 + [_P],
     "cvvae_subpixel_interleave": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -301,16 +301,13 @@ TARGET_BLOCKS = 132 * 8
 def launch_plan(b: int, s: int, c: int, g: int, elem_size: int) -> dict:
     """The kernel's plan for (b, s, c) with g groups: the vector width v
     (elements a load: 16 bytes, else 2 or 1, the widest that divides C and
-    divides or is a multiple of C/G, spanning at most 8 groups: the stats
-    pass keeps 16 bytes of shared memory a thread a group it spans, within
-    the 48 KB a launch has), the groups a vector spans (ns), the
+    divides or is a multiple of C/G), the groups a vector spans (ns), the
     threads a block, and the blocks a batch row with their rows.  Block k
     of a batch row reads rows [k * rows_per_block, min(s, (k + 1) *
     rows_per_block))."""
     cg = c // g
     v = next(v for v in (16 // elem_size, 2, 1)
-             if c % v == 0 and (cg % v == 0 or (v % cg == 0
-                                                and v // cg <= 8)))
+             if c % v == 0 and (cg % v == 0 or v % cg == 0))
     nvc = c // v
     threads = 256 if nvc <= 256 else -(-nvc // 32) * 32
     rows_per_iter = threads // nvc
@@ -590,18 +587,12 @@ def _fp32_means(xf: torch.Tensor, axes) -> tuple:
     return (s1 / n).reshape(shape), (s2 / n).reshape(shape)
 
 
-def group_norm_silu_int8_plain(q: torch.Tensor, scale: torch.Tensor,
-                               weight: torch.Tensor, bias: torch.Tensor, *,
-                               num_groups: int, eps: float,
-                               out_scale=None,
-                               out_dtype=torch.bfloat16) -> torch.Tensor:
-    """K1's int8 mode in plain PyTorch, the JAX package's arithmetic
-    (``cvvae_tpu/ops/qflow.py:138-172``): ``q`` (B, ..., C) int8 with
-    ``scale`` an fp32 scalar or (C,); fp32 moments over every axis but B
-    and C/G's groups (``_fp32_means``), var = E[x²] − mean², a = inv·γ·s,
-    b = β − mean·inv·γ,
-    h = q·a + b, SiLU; int8 requantized at the scalar ``out_scale``, or
-    ``out_dtype``."""
+def _int8_coef(q: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor, num_groups: int, eps: float):
+    """The folded affine (a, b), each (B, C) fp32, of K1's int8 mode on
+    ``q`` (B, ..., C): JAX's fp32 moments of q·s over every axis but B and
+    the groups (``_fp32_means``), var = E[x²] − mean², a = inv·γ·s, b = β
+    − mean·inv·γ."""
     c = q.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups "
@@ -611,37 +602,145 @@ def group_norm_silu_int8_plain(q: torch.Tensor, scale: torch.Tensor,
     s = scale.to(device=q.device, dtype=torch.float32)
     s_g = s.expand(c).reshape(num_groups, cg) if s.ndim else s
     axes = tuple(range(1, grouped.ndim - 2)) + (grouped.ndim - 1,)
-    xf = grouped.float() * s_g
-    mean, msq = _fp32_means(xf, axes)
+    mean, msq = _fp32_means(grouped.float() * s_g, axes)
     inv = torch.rsqrt(msq - mean.square() + eps)
     w = weight.to(device=q.device, dtype=torch.float32).reshape(num_groups,
                                                                  cg)
     b = bias.to(device=q.device, dtype=torch.float32).reshape(num_groups, cg)
-    a = inv * w * s_g
-    shift = b - mean * inv * w
-    h = grouped.float() * a + shift
-    h = (h * torch.sigmoid(h)).reshape(q.shape)
+    a = (inv * w * s_g).reshape(q.shape[0], c)
+    shift = (b - mean * inv * w).reshape(q.shape[0], c)
+    return a, shift
+
+
+def _int8_apply_plain(qf: torch.Tensor, a: torch.Tensor, shift: torch.Tensor,
+                      out_scale, out_dtype) -> torch.Tensor:
+    """SiLU(qf·a + shift) (the product and the sum each rounded to fp32),
+    as int8 at the scalar ``out_scale`` or as ``out_dtype``: K1's int8
+    mode's arithmetic on codes ``qf`` (fp32, broadcast against ``a`` and
+    ``shift``)."""
+    h = qf * a + shift
+    h = h * torch.sigmoid(h)
     if out_scale is None:
         return h.to(out_dtype)
     return _int8_requant(h, out_scale)
 
 
-def group_norm_silu_int8(q: torch.Tensor, scale: torch.Tensor,
-                         weight: torch.Tensor, bias: torch.Tensor, *,
-                         num_groups: int, eps: float, out_scale=None,
-                         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """GroupNorm + SiLU of a contiguous int8 (B, ..., C) tensor ``q`` with
-    dequantizing ``scale`` (an fp32 scalar or (C,)): int8 at the scalar
-    ``out_scale``, or ``out_dtype`` (bf16 or fp32) without one; statistics
-    per (batch, group) over every other axis.  Inference only.
+#: every int8 code, in the order of its byte (0..127, then -128..-1): the
+#: table's last axis
+INT8_CODES = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+    torch.int8)
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K1's int8
-    mode or raises."""
+
+def int8_table_plain(a: torch.Tensor, shift: torch.Tensor, out_scale=None,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K1's int8 mode's table: for (B, C) coefficients, the (B, C, 256)
+    outputs of every code, entry u that of the code whose byte is u
+    (``INT8_CODES``), by ``_int8_apply_plain``: the oracle that the
+    kernel's table is held to (``chip_smoke.k1_int8_table_check``)."""
+    codes = INT8_CODES.to(a.device).float()
+    return _int8_apply_plain(codes, a[..., None], shift[..., None], out_scale,
+                             out_dtype)
+
+
+def int8_lookup(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """y[b, ..., c] = table[b, c, byte of q[b, ..., c]] for a (B, C, 256)
+    table and int8 ``q`` (B, ..., C)."""
+    b, c = q.shape[0], q.shape[-1]
+    u = q.reshape(b, -1, c).view(torch.uint8).long()
+    idx = (torch.arange(c, device=q.device) * 256 + u).reshape(b, -1)
+    return torch.gather(table.reshape(b, c * 256), 1, idx).reshape(q.shape)
+
+
+def group_norm_silu_int8_plain(q: torch.Tensor, scale: torch.Tensor,
+                               weight: torch.Tensor, bias: torch.Tensor, *,
+                               num_groups: int, eps: float,
+                               out_scale=None,
+                               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K1's int8 mode in plain PyTorch, the JAX package's arithmetic
+    (``cvvae_tpu/ops/qflow.py:138-172``): ``q`` (B, ..., C) int8 with
+    ``scale`` an fp32 scalar or (C,); the folded affine of its fp32
+    moments (``_int8_coef``), and h = q·a + b, SiLU, requantized at the
+    scalar ``out_scale`` or cast to ``out_dtype``, element by element
+    (``_int8_apply_plain``)."""
+    a, shift = _int8_coef(q, scale, weight, bias, num_groups, eps)
+    mid = (1,) * (q.ndim - 2)
+    b, c = a.shape
+    return _int8_apply_plain(q.float(), a.reshape((b,) + mid + (c,)),
+                             shift.reshape((b,) + mid + (c,)), out_scale,
+                             out_dtype)
+
+
+#: K1's int8 mode's schedule (``csrc/groupnorm.cu``): codes a stats load
+#: (where C allows) and threads a stats block at most, rows a stats block
+#: may take, threads of an apply block, and channels a 64 KB half of the
+#: apply's table
+(INT8_STATS_V, INT8_STATS_THREADS, INT8_MAX_BLOCK_ROWS, INT8_APPLY_THREADS,
+ INT8_HALF_CHANNELS) = _build.constants(
+    "groupnorm.cu", "kStatsV", "kStatsThreads", "kMaxBlockRows",
+    "kApplyThreads", "kHalfChannels")
+#: the stats pass's shared memory may not pass the 48 KB a launch has
+#: without asking
+INT8_STATS_SMEM = 48 * 1024
+#: the shared memory an H100 block may have; stats and apply blocks: one
+#: an SM
+BLOCK_SMEM = 232448
+INT8_BLOCKS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def int8_plan(b: int, s: int, c: int) -> dict:
+    """K1's int8 mode's plan for int8 x (b, s, c).  The stats pass (also
+    the arithmetic apply's plan): v codes a load (INT8_STATS_V, else 2 or
+    1, the widest dividing C), threads (the multiple of C / v up to
+    INT8_STATS_THREADS), rows_per_iter, and blocks a batch row with their
+    rows (one an SM over all, at most INT8_MAX_BLOCK_ROWS a block, where
+    the int32 sums of q² still fit), its shared memory (stats_smem: every
+    thread's per-channel sums).  The table apply: the channel slice cs a
+    block takes (128, 64, or 32, the widest dividing C; 0 where C is no
+    multiple of 32: the arithmetic apply), the slices, and apply blocks a
+    (batch row, slice) with their rows, one an SM over all; table_smem its
+    shared-memory table (a 64 KB half per 64 channels)."""
+    v = next(v for v in (INT8_STATS_V, 2, 1) if c % v == 0)
+    nvc = c // v
+    rows_per_iter = INT8_STATS_THREADS // nvc
+    threads = -(-rows_per_iter * nvc // 32) * 32
+    want = max(1, INT8_BLOCKS // b)
+    rows_per_block = min(INT8_MAX_BLOCK_ROWS,
+                         max(rows_per_iter, -(-s // want)))
+    cs = next((cs for cs in (128, 64, 32) if c % cs == 0), 0)
+    n_slices = c // cs if cs else 0
+    per_slice = max(1, INT8_BLOCKS // (b * n_slices)) if cs else 0
+    apply_rows = -(-s // per_slice) if cs else 0
+    halves = -(-cs // INT8_HALF_CHANNELS)
+    return dict(v=v, threads=threads, rows_per_iter=rows_per_iter,
+                rows_per_block=rows_per_block,
+                n_blocks=-(-s // rows_per_block),
+                stats_smem=4 * 2 * rows_per_iter * c, cs=cs,
+                n_slices=n_slices, apply_rows_per_block=apply_rows,
+                apply_blocks=-(-s // apply_rows) if cs else 0,
+                table_smem=halves * 256 * INT8_HALF_CHANNELS * 4)
+
+
+def int8_table_entries(words: torch.Tensor, c: int, cs: int,
+                       dtype) -> torch.Tensor:
+    """The kernel's table scratch, (B, C / cs, 256, cs) 32-bit words, as
+    (B, C, 256) values of ``dtype`` (int8 codes, bf16 or fp32)."""
+    b = words.shape[0]
+    w = words.reshape(b, c // cs, 256, cs).permute(0, 1, 3, 2).reshape(
+        b, c, 256).contiguous()
+    if dtype == torch.float32:
+        return w.view(torch.float32)
+    if dtype == torch.int8:
+        return (w & 0xff).to(torch.uint8).view(torch.int8)
+    return (((w & 0xffff) ^ 0x8000) - 0x8000).to(torch.int16).view(
+        torch.bfloat16)
+
+
+def _int8_launch(q, scale, weight, bias, num_groups, eps, out_scale,
+                 out_dtype):
+    """K1's int8 mode on a CUDA tensor: (y, coef (B, 2, C) fp32, the
+    table's words or None, the plan)."""
     global int8_launches
-    if q.device.type == "cpu":
-        return group_norm_silu_int8_plain(
-            q, scale, weight, bias, num_groups=num_groups, eps=eps,
-            out_scale=out_scale, out_dtype=out_dtype)
     name = "group_norm_silu_int8"
     _build.refuse_gradient(f"{name} (K1 int8)", "none: int8 is "
                            "inference-only", weight, bias)
@@ -656,16 +755,21 @@ def group_norm_silu_int8(q: torch.Tensor, scale: torch.Tensor,
     if out_scale is None and out_dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: out_dtype {out_dtype}: bfloat16 or "
                          f"float32, or give out_scale for int8")
-    plan = launch_plan(b, s, c, num_groups, 1)
-    if q.data_ptr() % plan["v"]:
-        raise ValueError(f"{name}: input is not aligned to its "
-                         f"{plan['v']}-byte loads")
+    plan = int8_plan(b, s, c)
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: input is not aligned to 16 bytes")
     dev = q.device
     dtype = torch.int8 if out_scale is not None else out_dtype
     y = torch.empty(q.shape, device=dev, dtype=dtype)
-    part = torch.empty((b, plan["n_blocks"], num_groups, 2), device=dev,
-                       dtype=torch.float64)
-    coef = torch.empty((b, 2, c), device=dev, dtype=torch.float32)
+    # the scratch in one allocation: the table's words, the stats' sums,
+    # the affine
+    n_part = b * plan["n_blocks"] * c * 2
+    n_table = b * c * 256 if plan["cs"] else 0
+    scratch = torch.empty(n_table + n_part + b * 2 * c, device=dev,
+                          dtype=torch.int32)
+    table = scratch[:n_table].view(b, c * 256) if n_table else None
+    part = scratch[n_table:n_table + n_part]
+    coef = scratch[n_table + n_part:].view(torch.float32).view(b, 2, c)
     s32 = scale.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     o32 = (None if out_scale is None else
            out_scale.to(device=dev, dtype=torch.float32).reshape(1))
@@ -674,10 +778,31 @@ def group_norm_silu_int8(q: torch.Tensor, scale: torch.Tensor,
     rc = _build.library().cvvae_group_norm_int8(
         q.data_ptr(), s32.data_ptr(), int(s32.numel() > 1), y.data_ptr(),
         w32.data_ptr(), b32.data_ptr(), part.data_ptr(), coef.data_ptr(),
+        None if table is None else table.data_ptr(),
         None if o32 is None else o32.data_ptr(), b, s, c, num_groups, eps,
         _build.INT8_CODE if o32 is not None else _build.DTYPE_CODES[dtype],
-        plan["v"], plan["ns"], plan["threads"], plan["rows_per_block"],
-        plan["n_blocks"], dev.index or 0, _build.stream_of(q))
+        plan["v"], plan["threads"], plan["rows_per_block"],
+        plan["n_blocks"], plan["cs"], plan["apply_rows_per_block"],
+        plan["apply_blocks"], dev.index or 0, _build.stream_of(q))
     _build.check(rc, name)
     int8_launches += 1
-    return y
+    return y, coef, table, plan
+
+
+def group_norm_silu_int8(q: torch.Tensor, scale: torch.Tensor,
+                         weight: torch.Tensor, bias: torch.Tensor, *,
+                         num_groups: int, eps: float, out_scale=None,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """GroupNorm + SiLU of a contiguous int8 (B, ..., C) tensor ``q`` with
+    dequantizing ``scale`` (an fp32 scalar or (C,)): int8 at the scalar
+    ``out_scale``, or ``out_dtype`` (bf16 or fp32) without one; statistics
+    per (batch, group) over every other axis.  Inference only.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K1's int8
+    mode or raises."""
+    if q.device.type == "cpu":
+        return group_norm_silu_int8_plain(
+            q, scale, weight, bias, num_groups=num_groups, eps=eps,
+            out_scale=out_scale, out_dtype=out_dtype)
+    return _int8_launch(q, scale, weight, bias, num_groups, eps, out_scale,
+                        out_dtype)[0]

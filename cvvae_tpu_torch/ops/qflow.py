@@ -59,8 +59,11 @@ class QTensor(NamedTuple):
 
 
 def dequant(x: QTensor, dtype=torch.float32) -> torch.Tensor:
-    return (x.q.float() * x.scale.to(device=x.q.device,
-                                     dtype=torch.float32)).to(dtype)
+    """fl(q * scale) in fp32, cast to ``dtype``: one pass (the product is
+    taken in fp32 and rounded to ``dtype`` as it is stored)."""
+    out = torch.empty(x.q.shape, dtype=dtype, device=x.q.device)
+    return torch.mul(x.q, x.scale.to(device=x.q.device, dtype=torch.float32),
+                     out=out)
 
 
 def requant(xf: torch.Tensor, scale: torch.Tensor) -> QTensor:

@@ -1,7 +1,8 @@
 """Time variants of a hand-written kernel's source on the card.
 
     python -m cvvae_tpu_torch.utils.kernel_variants \
-        [--kernel K5|K1.bwd|K2.bwd|K3.bwd|K4.bwd]
+        [--kernel K5|K5.int8|K1.int8|quant8|K1.bwd|K2.bwd|K3.bwd|K4.bwd] \
+        [--turns N] [--sass]
 
 Each variant is ``csrc/`` copied into a temporary directory with some
 text of one source replaced, built (all side by side) and made the
@@ -12,6 +13,24 @@ library the wrappers launch (``_build.library(path)``).
   K5.gemm, the packed weight made beforehand) at each of
   ``chip_smoke.K5_PATH_SHAPES`` in bf16, in turns, twice.  Prints the
   registers and spills ptxas reports for K5's bf16 GEMM.
+- K5.int8 (K5.gemm's int8-output epilogue): every variant is first held
+  bit-exact, int8 out, on ``chip_smoke.K5_CHECK_CASES`` and
+  ``K5_INT8_CASES``, then timed at the residency chain's two convs
+  (``chip_smoke.QFLOW_SHAPES``, 3x3x3 and 1x3x3; int8 out, bf16 out
+  beside it), in turns, twice.  Prints the registers and spills of the
+  int8-output GEMMs.
+- K1.int8 (K1's int8 mode): every variant is first held by
+  ``chip_smoke.k1_int8_check`` on ``chip_smoke.QFLOW_K1_CASES``, then
+  timed at ``chip_smoke.QFLOW_SHAPES`` (int8 and bf16 out), in turns,
+  twice.
+- quant8 (``csrc/common.cuh``, in every kernel that rounds to int8):
+  every variant is first held bit-equal to the plain versions of
+  K5.stage (``chip_smoke.K5_CHECK_CASES``' inputs, bf16) and K6
+  (``chip_smoke.k6_checks`` on ``QFLOW_K6_CASES``), then times the
+  callers that were not redesigned around it: K5.stage (bf16) at the v1
+  level-0 and upsample shapes of ``chip_smoke.K5_PATH_SHAPES``, K6
+  (``qadd``, per-channel scales) and K6.requant (bf16, a scalar scale)
+  at ``QFLOW_SHAPES``, in turns, twice.
 - K1.bwd: every variant is first held to ``chip_smoke.K1_BWD_RMS`` of
   the plain version on ``chip_smoke.K1_CHECK_SHAPES`` (fp32 and bf16),
   then timed at each of ``chip_smoke.K1_BWD_SHAPES`` in fp32 and bf16, in
@@ -34,20 +53,35 @@ library the wrappers launch (``_build.library(path)``).
   so three walk tiles are in use at once; none of them is a variant).
 
 Needs a CUDA card and nvcc; imports nothing of JAX.  ``VARIANTS`` (K5,
-``csrc/conv_int8.cu``), ``K1_BWD_VARIANTS`` (``csrc/groupnorm_bwd.cu``),
+``csrc/conv_int8.cu``), ``K5_INT8_VARIANTS`` (its int8-output epilogue),
+``K1_INT8_VARIANTS`` (``csrc/groupnorm.cu``), ``K1_BWD_VARIANTS``
+(``csrc/groupnorm_bwd.cu``),
 ``K2_BWD_VARIANTS`` (``csrc/shuffle_bwd.cu``), ``K3_BWD_VARIANTS``
 (``csrc/stem_bwd.cu``) and ``K4_BWD_VARIANTS`` (``csrc/attention_bwd.cu``)
 hold each kernel's
 design choices undone one at a time, so that each choice's effect is
-measured in one call.
+measured in one call; ``QUANT8_VARIANTS`` (``csrc/common.cuh``) puts
+back the ``quant8`` of the tree before its redesign.
+
+``--turns N`` takes every reading N times forward and back (2N readings a
+variant; each line prints them, their median and their spread, max − min).
+``--sass`` prints, for the int8 kernels of K5.int8, K1.int8 and quant8,
+the counts of a few instruction classes in each variant's SASS
+(``cuobjdump -sass`` of its library): the instructions, the convergence
+regions (BSSY), conditional branches, votes, calls, the conversions
+(I2F, F2I, FRND), the multi-function unit's reciprocals (MUFU.RCP) and
+the IEEE division's range checks (FCHK).
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import os
+import re
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -151,8 +185,74 @@ K3_BWD_VARIANTS = {
          "constexpr int kFmaBlocksPerSm = 1;")],
 }
 
+#: the quant8 before the fma residual (common.cuh): the correctly rounded
+#: quotient by an IEEE division where t lies within 2^-13 of a
+#: half-integer, on a branch
+OLD_QUANT8 = """
+__device__ __forceinline__ int quant8_div(float v, float s, float r) {
+  const float t = __fmul_rn(v, r);
+  if (fabsf(t) >= 128.f) return t > 0.f ? 127 : -127;
+  const float n = rintf(t);
+  if (0.5f - fabsf(t - n) > 0x1p-13f) return max(-127, min(127, (int)n));
+  return max(-127, min(127, __float2int_rn(__fdiv_rn(v, s))));
+}
+"""
+
+#: name -> [(text of csrc/conv_int8.cu, its replacement), ...]: the
+#: int8-output epilogue's design choices
+K5_INT8_VARIANTS = {
+    "as committed": [],
+    "direct stores in place of the staged TMA store": [
+        ("  a.staged = dtype == CVVAE_I8 && O % 16 == 0 &&",
+         "  a.staged = false && dtype == CVVAE_I8 && O % 16 == 0 &&")],
+    "the old quant8 (a division on a branch) in the staged epilogue": [
+        ("// ------------------------------------------------------------- "
+         "K5.gemm --\n",
+         OLD_QUANT8 + "// -----------------------------------------------"
+         "-------------- K5.gemm --\n"),
+        ("                         quant8_fast(value(acc[4 * j + k], k >> 1),\n"
+         "                                     rq[k >> 1], rare[k]));",
+         "                         (uint32_t)quant8_div(value(acc[4 * j + k], "
+         "k >> 1),\n"
+         "                                              out_scale_of(k >> 1), "
+         "__frcp_rn(out_scale_of(k >> 1))));")],
+}
+
+#: name -> [(text of csrc/groupnorm.cu, its replacement), ...]: K1's int8
+#: mode's design choices (its statistics are the committed integer sums in
+#: every variant)
+K1_INT8_VARIANTS = {
+    "as committed": [],
+    "the arithmetic apply": [
+        ("constexpr bool kTableApply = true;",
+         "constexpr bool kTableApply = false;")],
+    "the arithmetic apply with the old quant8 (the apply before the table)": [
+        ("constexpr bool kTableApply = true;",
+         "constexpr bool kTableApply = false;" + OLD_QUANT8),
+        ("            o.v[j] = (int8_t)quant8(t, os, ro);",
+         "            o.v[j] = (int8_t)quant8_div(t, os, ro);")],
+}
+
+#: the committed quant8 (common.cuh), as its text reads
+QUANT8 = ("__device__ __forceinline__ int quant8(float v, float s, float r) "
+          "{\n  bool rare = false;\n"
+          "  uint32_t c = quant8_fast(v, quant8_rq(r), rare);\n"
+          "  if (rare) c = quant8_tie_call(v, s, r);\n"
+          "  return (int)(int8_t)(c & 0xffu);\n}\n")
+
+#: name -> [(text of csrc/common.cuh, its replacement), ...]
+QUANT8_VARIANTS = {
+    "as committed": [],
+    "the old quant8 (a division on a branch) everywhere": [
+        (QUANT8, OLD_QUANT8 + "__device__ __forceinline__ int quant8(float v, "
+         "float s, float r) {\n  return quant8_div(v, s, r);\n}\n")],
+}
+
 #: each kernel's variants: (source, variants)
 KERNEL_VARIANTS = {"K5": ("conv_int8.cu", VARIANTS),
+                   "K5.int8": ("conv_int8.cu", K5_INT8_VARIANTS),
+                   "K1.int8": ("groupnorm.cu", K1_INT8_VARIANTS),
+                   "quant8": ("common.cuh", QUANT8_VARIANTS),
                    "K1.bwd": ("groupnorm_bwd.cu", K1_BWD_VARIANTS),
                    "K2.bwd": ("shuffle_bwd.cu", K2_BWD_VARIANTS),
                    "K3.bwd": ("stem_bwd.cu", K3_BWD_VARIANTS),
@@ -389,14 +489,226 @@ def _k4_bwd(libs, dev) -> int:
     return 0
 
 
+def _ptxas(libs, marks):
+    """Print the registers and spills ptxas reports for the kernels whose
+    mangled names hold one of ``marks``, for each variant."""
+    for name, lib in libs.items():
+        log = (lib.parent / "build.log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling" in line and any(m in line for m in marks):
+                info = [s for s in log[i:i + 6]
+                        if "spill" in s or "Used" in s][:2]
+                kernel = line.split("entry function '")[1].split("'")[0]
+                print(f"[{name}] {kernel[-40:]}: " + " | ".join(
+                    s.split(":", 1)[-1].strip() for s in info), flush=True)
+
+
+#: rounds of A B ... B A that ``_timed`` takes (``--turns``)
+TURNS = 1
+
+#: the kernels whose SASS ``--sass`` counts: a mark of their mangled names
+SASS_MARKS = {"K5.int8": ("int8_gemmIa",),
+              "K1.int8": ("gnq_stats", "gnq_merge", "gnq_apply"),
+              "quant8": ("int8_stageI", "qflow_requant", "qflow_add")}
+#: instruction classes --sass counts: name -> a pattern of the opcode
+SASS_CLASSES = {"BSSY": r"BSSY", "@P BRA": r"@!?P\w+ +BRA",
+                "VOTE": r"VOTE", "CALL": r"CALL", "I2F": r"I2F\b",
+                "F2I": r"F2I\b", "FRND": r"FRND", "MUFU.RCP": r"MUFU\.RCP",
+                "FCHK": r"FCHK"}
+
+
+def sass_counts(text: str, marks) -> dict:
+    """{kernel: {"instructions": n, class: count, ...}} of the functions of
+    a ``cuobjdump -sass`` listing whose mangled names hold one of
+    ``marks`` (NOPs left out)."""
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", "\n" + text)[1:]:
+        kernel, _, body = fn.partition("\n")
+        if not any(m in kernel for m in marks):
+            continue
+        insns = [i for i in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);",
+                                       body) if not i.startswith("NOP")]
+        out[kernel.strip()] = dict(
+            instructions=len(insns),
+            **{k: sum(1 for i in insns if re.match(p, i))
+               for k, p in SASS_CLASSES.items()})
+    return out
+
+
+def _sass(libs, marks):
+    """Print ``sass_counts`` of each variant's library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name, lib in libs.items():
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        for kernel, counts in sass_counts(text, marks).items():
+            print(f"[{name}] {kernel[-48:]} SASS: {counts}", flush=True)
+
+
+def _timed(libs, cases):
+    """Each (label, call) of ``cases`` timed with every library, in turns
+    (A B ... B A, TURNS times), 10 calls a reading."""
+    from cvvae_tpu_torch.ops.kernels import _build
+    import chip_smoke
+
+    order = (list(libs) + list(libs)[::-1]) * TURNS
+    for label, fn in cases:
+        times = {n: [] for n in libs}
+        for n in order:
+            _build.library(libs[n])
+            times[n].append(chip_smoke.time_ms(fn, 10))
+        for n, t in times.items():
+            print(f"[{n}] {label}: median ms {statistics.median(t)!r}, "
+                  f"spread {max(t) - min(t)!r} (in turns: {t})", flush=True)
+
+
+def _k5_int8(libs, dev) -> int:
+    """K5's int8-output variants: held bit-exact to the plain version on
+    K5_CHECK_CASES (direct stores) and K5_INT8_CASES (staged), int8 out,
+    then timed at the residency chain's two convs (QFLOW_SHAPES, 3x3x3 and
+    1x3x3, int8 out at per-channel scales, bf16 out beside them) in
+    turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, conv_int8
+
+    _ptxas(libs, ("int8_gemmIaLi",))
+    for name, lib in libs.items():
+        _build.library(lib)
+        bad = []
+        for i, (shape, cout, kernel, stride, pads, modes, bias) in enumerate(
+                chip_smoke.K5_CHECK_CASES + chip_smoke.K5_INT8_CASES):
+            xq, wq, sw, sx, b, so = chip_smoke.k5_int8_inputs(
+                shape, cout, kernel, dev, bias)
+            exact, _ = chip_smoke.k5_int8_check(xq, wq, sw, sx, b, kernel,
+                                                stride, pads, modes, so,
+                                                torch.int8)
+            if not exact:
+                bad.append(i)
+        print(f"[{name}] check cases not bit-exact: {bad}", flush=True)
+        if bad:
+            return 1
+    for where, shape in chip_smoke.QFLOW_SHAPES:
+        for kernel, pads in (((3, 3, 3), ((1, 1), (1, 1), (1, 1))),
+                             ((1, 3, 3), ((0, 0), (1, 1), (1, 1)))):
+            xq, wq, sw, sx, b, so = chip_smoke.k5_int8_inputs(
+                shape, shape[-1], kernel, dev)
+            wpk = conv_int8.pack_weight(wq)
+            modes = ("zero",) * 3
+            _timed(libs, [(f"{where} {shape} k={kernel} out {dt}",
+                           lambda kw=kw: conv_int8.conv3d_int8_resident(
+                               xq, wq, sw, sx, b, (1, 1, 1), pads, modes, wpk,
+                               **kw))
+                          for dt, kw in (("int8", dict(out_scale=so)),
+                                         ("bf16", dict(
+                                             out_dtype=torch.bfloat16)))])
+            del xq, wq, wpk
+            torch.cuda.empty_cache()
+    return 0
+
+
+def _k1_int8(libs, dev) -> int:
+    """K1's int8-mode variants: held by chip_smoke.k1_int8_check on
+    QFLOW_K1_CASES (int8, bf16 and fp32 out), then timed at QFLOW_SHAPES
+    (int8 out at a per-channel input scale, bf16 out at a scalar one) in
+    turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, groupnorm
+
+    _ptxas(libs, ("gnq_apply", "gnq_stats"))
+    outs = ((torch.tensor(0.03, device=dev), torch.int8),
+            (None, torch.bfloat16), (None, torch.float32))
+    for name, lib in libs.items():
+        _build.library(lib)
+        bad = []
+        for shape, groups in chip_smoke.QFLOW_K1_CASES:
+            q, s, w, b = chip_smoke.k1_int8_inputs(shape, dev, True)
+            for out_scale, out_dtype in outs:
+                got = groupnorm.group_norm_silu_int8(
+                    q, s, w, b, num_groups=groups, eps=chip_smoke.QFLOW_EPS,
+                    out_scale=out_scale, out_dtype=out_dtype)
+                if chip_smoke.k1_int8_check(got, q, s, w, b, groups,
+                                            out_scale, out_dtype)[1] > 0.0:
+                    bad.append((shape, str(out_dtype)))
+        print(f"[{name}] check cases failed: {bad}", flush=True)
+        if bad:
+            return 1
+    for where, shape in chip_smoke.QFLOW_SHAPES:
+        cases = []
+        for per_channel, (out_scale, out_dtype) in zip((True, False),
+                                                        outs[:2]):
+            q, s, w, b = chip_smoke.k1_int8_inputs(shape, dev, per_channel)
+            kw = dict(num_groups=chip_smoke.QFLOW_GROUPS,
+                      eps=chip_smoke.QFLOW_EPS, out_scale=out_scale,
+                      out_dtype=out_dtype)
+            cases.append((f"{where} {shape} out {out_dtype}",
+                          lambda a=(q, s, w, b), kw=kw:
+                          groupnorm.group_norm_silu_int8(*a, **kw)))
+        _timed(libs, cases)
+        del cases
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _quant8(libs, dev) -> int:
+    """quant8's variants: held bit-equal by K5.stage's and K6's plain
+    versions, then K5.stage, K6 and K6.requant timed in turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build, conv_int8
+    from cvvae_tpu_torch.ops.kernels import qflow as k6
+
+    for name, lib in libs.items():
+        _build.library(lib)
+        bad = [label for shape in chip_smoke.QFLOW_K6_CASES
+               for label, same in chip_smoke.k6_checks(shape, dev)
+               if not same]
+        for i, (shape, cout, kernel, stride, pads, modes,
+                bias) in enumerate(chip_smoke.K5_CHECK_CASES):
+            x, _, _, sx, _ = chip_smoke.k5_inputs(shape, cout, kernel, dev,
+                                                  torch.bfloat16)
+            if not torch.equal(
+                    conv_int8.stage(x, sx, pads, modes, stride[2]).xq,
+                    conv_int8.stage_plain(x, sx, pads, modes, stride[2])):
+                bad.append(f"K5.stage case {i}")
+        print(f"[{name}] checks not bit-equal: {bad}", flush=True)
+        if bad:
+            return 1
+    for where, shape, _, kernel, stride, pads, modes in (
+            chip_smoke.K5_PATH_SHAPES[0], chip_smoke.K5_PATH_SHAPES[3]):
+        x, _, _, sx, _ = chip_smoke.k5_inputs(shape, 128, kernel, dev,
+                                              torch.bfloat16)
+        _timed(libs, [(f"K5.stage {where} {shape} bf16",
+                       lambda: conv_int8.stage(x, sx, pads, modes,
+                                               stride[2]))])
+        del x
+        torch.cuda.empty_cache()
+    for where, shape in chip_smoke.QFLOW_SHAPES:
+        xq = chip_smoke.qflow_codes(shape, dev, 21)
+        hq = chip_smoke.qflow_codes(shape, dev, 22)
+        sx = chip_smoke.qflow_scale(shape[-1], dev, True)
+        x = chip_smoke.randn(shape, 3, dev, torch.bfloat16)
+        s1 = torch.tensor(0.03, device=dev)
+        _timed(libs, [(f"K6 qadd {where} {shape}",
+                       lambda: k6.qadd(xq, sx, hq, sx, sx * 1.7)),
+                      (f"K6.requant {where} {shape} bf16",
+                       lambda: k6.requant(x, s1))])
+        del xq, hq, x
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
+    global TURNS
     import chip_smoke
     from cvvae_tpu_torch.ops.kernels import _build, conv_int8
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(KERNEL_VARIANTS),
                     default="K5")
+    ap.add_argument("--turns", type=int, default=1)
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
+    TURNS = args.turns
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device")
         return 1
@@ -410,8 +722,11 @@ def main(argv=None) -> int:
                                        source)
                         for i, (n, r) in enumerate(variants.items())}
                 libs = {n: j.result() for n, j in jobs.items()}
+            if args.sass and args.kernel in SASS_MARKS:
+                _sass(libs, SASS_MARKS[args.kernel])
             run = {"K1.bwd": _k1_bwd, "K2.bwd": _k2_bwd, "K3.bwd": _k3_bwd,
-                   "K4.bwd": _k4_bwd}[args.kernel]
+                   "K4.bwd": _k4_bwd, "K5.int8": _k5_int8,
+                   "K1.int8": _k1_int8, "quant8": _quant8}[args.kernel]
             return run(libs, dev)
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:

@@ -77,7 +77,8 @@ GROUPS = [
     ("K1.combine split GroupNorm combination", r"\bgn_combine\b"),
     ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
     # K1's int8 mode (the int8-resident activations, ops/qflow.py)
-    ("K1.int8 GroupNorm+SiLU on int8", r"\bgnq_(stats|merge|apply)\b"),
+    ("K1.int8 GroupNorm+SiLU on int8",
+     r"\bgnq_(stats|merge|apply|apply_arith)\b"),
     ("K2.bwd subpixel interleave backward",
      r"subpixel_unshuffle|\bbias_grad\b"),
     ("K2 subpixel interleave", r"subpixel|interleave"),
@@ -159,6 +160,7 @@ SOURCE_KEYS = {"groupnorm.cu": "K1", "groupnorm_bwd.cu": "K1.bwd",
 KERNEL_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
                "gn_combine": "K1.combine", "gnq_stats": "K1.int8",
                "gnq_merge": "K1.int8", "gnq_apply": "K1.int8",
+               "gnq_apply_arith": "K1.int8",
                "qflow_requant": "K6.requant"}
 
 

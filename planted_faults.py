@@ -40,7 +40,11 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   bit-exact (``chip_smoke.k5_int8_check``); K1's int8 mode at
   ``chip_smoke.QFLOW_K1_CASES``, held by ``chip_smoke.k1_int8_check``; K6
   at ``chip_smoke.QFLOW_K6_CASES``, held bit-exact
-  (``chip_smoke.k6_checks``, whose inputs hold ties of the quotient).
+  (``chip_smoke.k6_checks``, whose inputs hold ties of the quotient), and
+  quant8 through K6.requant on every fp32 value of |v / s| <= 128 at
+  ``chip_smoke.QUANT8_SCALES[0]`` (``chip_smoke.quant8_exhaustive``); K5's
+  staged int8 epilogue at ``chip_smoke.K5_INT8_CASES``; K1's int8 mode
+  also against the plain table (``chip_smoke.k1_int8_table_check``).
 
 A fault is one replacement of text in a source, or several (tuples of
 texts and their replacements).
@@ -246,16 +250,28 @@ FAULTS = {
         "  return (uint32_t)(max(-127, min(127, (int)roundf(v / s))) & 0xff);"),
     "K1's int8 mode reading the scalar scale where it is per channel": (
         "K1.int8", "groupnorm.cu",
-        ("  for (int j = 0; j < V; ++j) sc[j] = qs.s[(c0 + j) * qs.per_channel];",
-         "    const float s = qs.s[c * qs.per_channel];"),
-        ("  for (int j = 0; j < V; ++j) sc[j] = qs.s[0];",
-         "    const float s = qs.s[0];")),
+        "  auto scale = [&](int c) { return qs.s[c * qs.per_channel]; };",
+        "  auto scale = [&](int c) { return qs.s[0]; };"),
     "K5's int8 epilogue skipping the bias": (
         "K5.int8", "conv_int8.cu",
-        "      const float bc = bias != nullptr && c < a.O ? __ldg(bias + c) "
-        ": 0.f;",
-        "      const float bc = bias != nullptr && c < a.O && sizeof(T) > 1\n"
-        "                           ? __ldg(bias + c) : 0.f;"),
+        ("      const float bc = bias != nullptr && c < a.O ? __ldg(bias + c) "
+         ": 0.f;",
+         "          bq[h] = bias != nullptr && c < a.O ? __ldg(bias + c) : "
+         "0.f;"),
+        ("      const float bc = bias != nullptr && c < a.O && sizeof(T) > 1\n"
+         "                           ? __ldg(bias + c) : 0.f;",
+         "          bq[h] = 0.f;")),
+    "K1.int8's table built one code off": (
+        "K1.int8", "groupnorm.cu",
+        "    const float y = qsilu((int)(int8_t)u, coef_a(c), coef_b(c));",
+        "    const float y = qsilu((int)(int8_t)(u + 1), coef_a(c), "
+        "coef_b(c));"),
+    "quant8's rare case rounding a tie away from zero, not to even": (
+        "K6", "common.cuh",
+        "  const float code = fminf(d > hi ? a + 0.5f : d < -lo ? a - 0.5f : "
+        "rintf(a),",
+        "  const float code = fminf(d > hi ? a + 0.5f : d < -lo ? a - 0.5f : "
+        "a + 0.5f,"),
 }
 
 
@@ -454,16 +470,21 @@ def _k5_cases():
 def _k5_int8_cases():
     """(label, fails) of every case of K5 from an int8 input on the library
     now loaded: ``chip_smoke.K5_CHECK_CASES``, int8 out at per-channel
-    scales and bf16 and fp32 out, bit-exact."""
+    scales (direct stores) and bf16 and fp32 out, and
+    ``chip_smoke.K5_INT8_CASES`` (int8 out, staged), bit-exact."""
     dev = torch.device("cuda", 0)
-    for i, (shape, cout, kernel, stride, pads, modes, with_bias) in \
-            enumerate(chip_smoke.K5_CHECK_CASES):
+    cases = [(f"case {i}", c, (torch.int8, torch.bfloat16, torch.float32))
+             for i, c in enumerate(chip_smoke.K5_CHECK_CASES)]
+    cases += [(f"staged case {i}", c, (torch.int8,))
+              for i, c in enumerate(chip_smoke.K5_INT8_CASES)]
+    for label, (shape, cout, kernel, stride, pads, modes, with_bias), \
+            dtypes in cases:
         xq, wq, sw, sx, b, so = chip_smoke.k5_int8_inputs(
             shape, cout, kernel, dev, with_bias)
-        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+        for out_dtype in dtypes:
             exact, err = chip_smoke.k5_int8_check(
                 xq, wq, sw, sx, b, kernel, stride, pads, modes, so, out_dtype)
-            yield (f"K5.int8 case {i} {shape}->{cout} bias={with_bias} out "
+            yield (f"K5.int8 {label} {shape}->{cout} bias={with_bias} out "
                    f"{out_dtype}: bit-exact={exact} max|d|={err!r}",
                    not exact)
 
@@ -486,6 +507,11 @@ def _k1_int8_cases():
                     got, q, s, w, b, groups, out_scale, out_dtype)
                 yield (f"K1.int8 {shape} G={groups} per_channel="
                        f"{per_channel} out {out_dtype}: {text}", excess > 0.0)
+                same, text = chip_smoke.k1_int8_table_check(
+                    q, s, w, b, groups, out_scale, out_dtype)
+                yield (f"K1.int8 {shape} G={groups} per_channel="
+                       f"{per_channel} out {out_dtype} against the plain "
+                       f"table: {text}", not same)
 
 
 def _k6_cases():
@@ -497,6 +523,10 @@ def _k6_cases():
         for shape in chip_smoke.QFLOW_K6_CASES:
             for label, same in chip_smoke.k6_checks(shape, dev):
                 yield f"{label}: bit-exact={same}", not same
+        held, _ = chip_smoke.quant8_exhaustive(dev, chip_smoke.QUANT8_SCALES[:1])
+        for sv, n, off in held:
+            yield (f"quant8 through K6.requant on every fp32 value of |v / s| "
+                   f"<= 128 at s = {sv!r}: {off} of {n} off", off > 0)
 
 
 def edge_cases(module=None, dev=None, cases=None,

@@ -56,16 +56,16 @@ GLOBALS = csrc_globals()
 
 
 #: kernels whose key is not their source's: K5's staging pass, K1's two
-#: kernels of its split across ranks and the three of its int8 mode, K6's
+#: kernels of its split across ranks and the four of its int8 mode, K6's
 #: requantization
 OWN_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
             "gn_combine": "K1.combine", "gnq_stats": "K1.int8",
             "gnq_merge": "K1.int8", "gnq_apply": "K1.int8",
-            "qflow_requant": "K6.requant"}
+            "gnq_apply_arith": "K1.int8", "qflow_requant": "K6.requant"}
 
 
 def test_csrc_holds_the_known_kernels():
-    assert len(GLOBALS) == 25
+    assert len(GLOBALS) == 26
     assert {f for f, _ in GLOBALS} == set(EXPECTED)
     assert profiling.csrc_kernels() == {
         n: OWN_KEYS.get(n, EXPECTED[f]) for f, n in GLOBALS}

@@ -1,8 +1,12 @@
 """The int8-resident modes on the card against their plain versions, at
 small shapes: K5 from an int8 input (int8 out at per-channel scales, bf16
-and fp32 out; bit-equal), K1's int8 mode (``chip_smoke.k1_int8_check``:
+and fp32 out, and int8 out through the staged epilogue on
+``K5_INT8_CASES``; bit-equal), K1's int8 mode (``chip_smoke.k1_int8_check``:
 codes within 1 and at most ``QFLOW_K1_FLIPS`` of them off, float outputs
-by ``QFLOW_K1_TOL``), K6 (bit-equal), the residency chain against the
+by ``QFLOW_K1_TOL``; its table and every output bit-equal to the plain
+table built from its own affine), K6 (bit-equal), quant8 through K6.requant
+on every fp32 value of |v / s| <= 128 at ``QUANT8_SCALES`` (bit-equal to
+``torch.round(v / s).clamp(-127, 127)``), the residency chain against the
 same chain run on the CPU, and ``qconv3d``'s refusal of a per-channel
 input scale.
 
@@ -109,3 +113,33 @@ def test_residency_chain_card_against_cpu(dev):
         ref = chip_smoke.qflow_residency(cpu, x.to(torch.bfloat16).cpu())
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert chip_smoke.agreement_db(got.cpu().float(), ref.float()) >= 40.0
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.K5_INT8_CASES)))
+def test_k5_int8_staged_epilogue(dev, case):
+    shape, cout, kernel, stride, pads, modes, with_bias = \
+        chip_smoke.K5_INT8_CASES[case]
+    xq, wq, sw, sx, b, so = chip_smoke.k5_int8_inputs(shape, cout, kernel,
+                                                      dev, with_bias)
+    before = conv_int8.int8_out_launches
+    exact, err = chip_smoke.k5_int8_check(xq, wq, sw, sx, b, kernel, stride,
+                                          pads, modes, so, torch.int8)
+    assert exact, err
+    assert conv_int8.int8_out_launches == before + 1
+
+
+@pytest.mark.parametrize("out", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("shape,groups", chip_smoke.QFLOW_K1_CASES)
+def test_k1_int8_table_is_the_plain_table(dev, shape, groups, out):
+    q, s, w, b = chip_smoke.k1_int8_inputs(shape, dev, True)
+    out_scale = torch.tensor(0.03, device=dev) if out == "int8" else None
+    same, text = chip_smoke.k1_int8_table_check(q, s, w, b, groups,
+                                                out_scale, getattr(torch, out))
+    assert same, text
+
+
+def test_quant8_is_exact_on_every_value(dev):
+    held, seconds = chip_smoke.quant8_exhaustive(dev)
+    assert [off for _, _, off in held] == [0] * len(held), held
+    assert all(n > 2 ** 30 for _, n, _ in held)
+    assert seconds < 30.0
