@@ -148,18 +148,25 @@ Phases (each prints its findings; any failure exits non-zero):
    int8 input (int8 out at per-channel scales, bf16 and fp32 out) on
    ``K5_CHECK_CASES`` and through its staged int8 epilogue on
    ``K5_INT8_CASES``, K1's int8 mode on ``QFLOW_K1_CASES`` and K6 on
-   ``QFLOW_K6_CASES`` against their plain versions (K5 and K6 bit-equal,
-   K1's int8 mode by ``k1_int8_check``, and its table and every output
-   bit-equal to the plain table of its own affine, ``k1_int8_table_check``);
-   quant8 through K6.requant on every fp32 value of |v / s| <= 128 at
-   ``QUANT8_SCALES`` (``quant8_exhaustive``); each mode's agreement (dB) with
+   ``QFLOW_K6_CASES`` (its add on both paths) against their plain
+   versions (K5 and K6 bit-equal, K1's int8 mode by ``k1_int8_check``, its
+   table and every output bit-equal to the plain table of its own affine,
+   ``k1_int8_table_check``, and its affine bit-equal to the plain one in
+   the kernel's order of moments, ``k1_int8_coef_check``); quant8 through
+   K6.requant on every fp32 value of |v / s| <= 128 at ``QUANT8_SCALES``
+   (``quant8_exhaustive``); the int8-res chain on a ``QFLOW_CHAIN_CLIP``
+   clip against the CPU's in K1.int8's order of moments, >=
+   ``QFLOW_CHAIN_DB`` (and, a reading, against XLA's order:
+   ``qflow_chain_card_vs_cpu``); each mode's agreement (dB) with
    the fp32 chain on a ``QFLOW_NUMERICS`` clip at each width; at each of
    ``QFLOW_SHAPES`` (the v1 decoder's two largest resblock stages, as
    ``tools/probe_residency.py`` times them): K5 from int8 at the chain's
    two convs (int8 and bf16 out, on the first and last output frames,
    both timed), K1's int8 mode (a per-channel scale to int8, a scalar to
    bf16; its table against the plain table), K6's
-   add and requantization, each timed beside its plain version and its
+   add (the sliced path there, the general one at ``QFLOW_K6_GENERAL``)
+   and requantization (with ``torch.quantize_per_tensor`` beside it, a
+   yardstick), each timed beside its plain version and its
    bound; the 3-resblock chain's launches (counts set to 0 just before;
    K5, K5.stage, K5.int8, K1.int8, K6, K6.requant, and no K1-K4); the
    three chains (bf16, int8-conv: ``ops/quant.py``'s conv-only int8,
@@ -3907,7 +3914,9 @@ def _mesh_serve(dev, smi, mesh):
         f"{_comm_text(counts)}")
     say(f"[mesh] serve {tag} launches by rank in the served requests: "
         f"{[{k: c[k] for k in COUNTERS} for c in counts]}; in the "
-        f"/reconstruct alone: {[{k: c[k] for k in COUNTERS} for c in per_rec]}")
+        f"/reconstruct alone: {[{k: c[k] for k in COUNTERS} for c in per_rec]}"
+        f"; K1's split entries by shape in the /reconstruct alone: "
+        f"{[c['K1 split by shape'] for c in per_rec]}")
     if json.loads(health) != {"ok": True} or rec_b != dec_b \
             or db < MESH_BF16_PSNR or rec.shape != (t, h, w, 3):
         raise SystemExit(f"mesh serve: health {health!r}, /reconstruct == "
@@ -4400,6 +4409,12 @@ QFLOW_BLOCKS, QFLOW_GROUPS, QFLOW_EPS = 3, 32, 1e-5
 QFLOW_NUMERICS = (1, 5, 96, 96)
 #: the calibration slice (T, H, W) of a timed chain's input
 QFLOW_CALIB = (3, 256, 256)
+#: the card-vs-CPU chain's clip (B, T, H, W, C) and its bound: the card's
+#: int8-res chain against the CPU's in K1.int8's order of moments, in dB
+#: (against XLA's order the chain reads ~34 dB on the CPU alone: a last
+#: bit of one moment flips codes that the next convs spread)
+QFLOW_CHAIN_CLIP = (1, 3, 32, 32, 128)
+QFLOW_CHAIN_DB = 40.0
 #: K1's int8 mode against its plain version.  int8 output: codes within 1,
 #: and at most QFLOW_K1_FLIPS of them off by one (the kernel's moments are
 #: summed in another order than PyTorch's, and its SiLU's exp is not
@@ -4417,9 +4432,18 @@ QFLOW_K1_CASES = [((2, 3, 5, 7, 64), 8), ((1, 4, 9, 11, 128), 32),
                   ((1, 2, 6, 6, 96), 32), ((1, 3, 5, 5, 256), 32),
                   ((1, 2, 4, 4, 512), 32), ((1, 2, 4, 6, 64), 32),
                   ((1, 2, 4, 6, 32), 32), ((1, 3, 4, 6, 48), 16)]
-#: K6's small cases (N, ..., C): a tail past the last 16 values, channels
-#: off 16 (24, 7), one of 128
-QFLOW_K6_CASES = [(2, 3, 5, 7, 24), (1, 3, 9, 11, 128), (1, 1, 3, 5, 7)]
+#: K6's cases (N, ..., C): on the general add, channels off 16 (24, 7)
+#: and a tail past the last 16 values; on the sliced add, C 128, 256 and
+#: 512 on a grid of one partial block, and on the full grid (264 blocks)
+#: with a ragged last pass (some threads take two groups, some one)
+QFLOW_K6_CASES = [(2, 3, 5, 7, 24), (1, 3, 9, 11, 128), (1, 1, 3, 5, 7),
+                  (1, 2, 3, 5, 256), (1, 1, 3, 7, 512),
+                  (1, 5, 60, 61, 128), (2, 5, 30, 31, 256),
+                  (1, 5, 30, 31, 512)]
+#: the general add timed beside the sliced one: C 24 at the chain shapes'
+#: value counts (QFLOW_SHAPES' W * C / 24)
+QFLOW_K6_GENERAL = [("blocks0", (1, 17, 720, 3584, 24)),
+                    ("blocks1", (1, 17, 360, 3584, 24))]
 #: K5 from int8 to int8 through its staged epilogue (O a multiple of 16),
 #: as K5_CHECK_CASES lists them: 256-pixel tiles ragged (W 130, 200) and
 #: 128-pixel ones, O below one channel tile (48, 64), one and a part (144),
@@ -4538,6 +4562,24 @@ def k1_int8_table_check(q, scale, w, b, groups, out_scale, out_dtype,
     return same, text
 
 
+def k1_int8_coef_check(q, scale, w, b, groups):
+    """K1.int8's folded affine (the kernel's coef) against the plain one
+    in the kernel's order of moments (``groupnorm._int8_coef`` within
+    ``int8_moment_order("kernel")``, on the CPU): (bit-equal, text)."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
+
+    _, coef, _, _ = groupnorm._int8_launch(q, scale, w, b, groups, QFLOW_EPS,
+                                           torch.tensor(0.03, device=q.device),
+                                           torch.int8)
+    with groupnorm.int8_moment_order("kernel"):
+        a, shift = groupnorm._int8_coef(q.cpu(), scale.cpu(), w.cpu(),
+                                        b.cpu(), groups, QFLOW_EPS)
+    got = coef.cpu()
+    off = [int((got[:, i].view(torch.int32) != r.view(torch.int32)).sum())
+           for i, r in ((0, a), (1, shift))]
+    return off == [0, 0], f"coefficients off (a, b) {off} of {a.numel()} each"
+
+
 def quant8_exhaustive(dev, scales=None):
     """quant8 through K6.requant on every fp32 v with |v / s| <= 128, for
     each of QUANT8_SCALES (a scalar scale), in chunks of QUANT8_CHUNK,
@@ -4633,9 +4675,9 @@ def k6_cases(shape, dev, seed=90):
 
 def k6_checks(shape, dev):
     """K6 bit-equal to its plain versions at ``shape``: requant of bf16
-    and fp32 at a scalar and a per-channel scale; qadd with scalar and
-    per-channel input scales and per-channel and scalar out scales.
-    Returns [(label, bit-equal)]."""
+    and fp32 at a scalar and a per-channel scale; qadd (on the path
+    ``qflow.add_plan`` takes) with a scalar or per-channel scale on each
+    input and on the output.  Returns [(label, bit-equal)]."""
     from cvvae_tpu_torch.ops.kernels import qflow as k6
 
     x, s, xq, hq = k6_cases(shape, dev)
@@ -4650,14 +4692,19 @@ def k6_checks(shape, dev):
                         f"{tuple(scale.shape)}", same))
     # the last: (qx + qh) / 64 at 1/32, a tie wherever qx + qh is odd
     pow2 = [torch.tensor(v, device=dev) for v in (1 / 64, 1 / 64, 1 / 32)]
+    path = k6.add_plan(xq.numel(), c)["path"]
     for sx, sh, so in ((qflow_scale(c, dev, False), qflow_scale(c, dev, True),
                         qflow_scale(c, dev, True) * 1.7),
                        (qflow_scale(c, dev, True), qflow_scale(c, dev, False),
-                        torch.tensor(0.02, device=dev)), pow2):
+                        torch.tensor(0.02, device=dev)),
+                       (qflow_scale(c, dev, True) * 1.3,
+                        qflow_scale(c, dev, True).flip(0),
+                        qflow_scale(c, dev, True) * 2.1), pow2):
         same = torch.equal(k6.qadd(xq, sx, hq, sh, so),
                            k6.qadd_plain(xq, sx, hq, sh, so))
-        out.append((f"K6 qadd {tuple(shape)} scales {tuple(sx.shape)} "
-                    f"{tuple(sh.shape)} -> {tuple(so.shape)}", same))
+        out.append((f"K6 qadd {tuple(shape)} ({path} path) scales "
+                    f"{tuple(sx.shape)} {tuple(sh.shape)} -> "
+                    f"{tuple(so.shape)}", same))
     torch.cuda.synchronize()
     return out
 
@@ -4707,6 +4754,11 @@ def _qflow_small(record, dev):
                        f"output against the plain table", 0.0 if same else
                        1.0, 0.0 if same else 1.0,
                        f"tol=bit-exact {text}")
+            same, text = k1_int8_coef_check(q, s, w, b, groups)
+            record("K1.int8", f"{shape} G={groups} per_channel="
+                   f"{per_channel}: the affine against the plain one in the "
+                   f"kernel's order of moments", 0.0 if same else 1.0,
+                   0.0 if same else 1.0, f"tol=bit-exact {text}")
     for shape in QFLOW_K6_CASES:
         for label, same in k6_checks(shape, dev):
             key = "K6.requant" if label.startswith("K6.requant") else "K6"
@@ -4825,6 +4877,37 @@ def qflow_residency(blocks, x):
                               out_scale=conv["scale_y"])
         h = qflow.qadd(h, r, blk["scale_res"])
     return qflow.dequant(h, torch.bfloat16)
+
+
+def qflow_both_orders(blocks, x):
+    """``qflow_residency`` of ``blocks`` and ``x`` on the CPU (the plain
+    versions; a card's tensors are copied over, K5's packed weights left
+    behind), with the int8 GroupNorm's moments in XLA's order and in
+    K1.int8's (``groupnorm.int8_moment_order``): (xla, kernel)."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
+
+    cpu = [{k: ({n: v.cpu() if torch.is_tensor(v) else v
+                 for n, v in d.items() if n != "k5_wpk"}
+                if isinstance(d, dict) else d.cpu()) for k, d in b.items()}
+           for b in blocks]
+    x = x.cpu()
+    xla = qflow_residency(cpu, x)
+    with groupnorm.int8_moment_order("kernel"):
+        return xla, qflow_residency(cpu, x)
+
+
+def qflow_chain_card_vs_cpu(dev):
+    """The chain at width 128 on a QFLOW_CHAIN_CLIP clip, built and
+    calibrated on the card, run there (the kernels) and on the CPU in both
+    moment orders (``qflow_both_orders``): (dB against the kernel's order,
+    dB against XLA's, the card's output)."""
+    master = qflow_master(128, dev)
+    x = randn(QFLOW_CHAIN_CLIP, 4, dev, torch.float32)
+    _, _, res = qflow_modes(master, x)
+    got = qflow_residency(res, x.to(torch.bfloat16))
+    xla, ker = qflow_both_orders(res, x.to(torch.bfloat16))
+    g = got.cpu().float()
+    return agreement_db(g, ker.float()), agreement_db(g, xla.float()), got
 
 
 def agreement_db(a, b):
@@ -4958,19 +5041,47 @@ def _qflow_shape(dev, name, shape, record, smi, count):
         key = "K6.requant" if label.startswith("K6.requant") else "K6"
         record(key, f"{name} {label} bit-exact={same}", 0.0 if same else 1.0,
                0.0 if same else 1.0, "tol=bit-exact")
-    xq, hq = qflow_codes(shape, dev, 21), qflow_codes(shape, dev, 22)
-    sx, so = qflow_scale(c, dev, True), qflow_scale(c, dev, True) * 1.7
-    k_ms, p_ms, _ = in_turns(lambda: k6.qadd_plain(xq, sx, hq, sx, so),
-                             lambda: k6.qadd(xq, sx, hq, sx, so))
-    record("K6", f"{name} qadd {shape} timed", 0.0, 0.0, "tol=bit-exact",
-           (shape, torch.int8, k_ms, p_ms, None, {}), dict(name=name))
-    del xq, hq
+    # K6's add at the chain's shape (the sliced path) and the general path
+    # at as many values (C 24), per-channel scales
+    general = dict(QFLOW_K6_GENERAL)[name]
+    for where in (shape, general):
+        cw = where[-1]
+        xq, hq = qflow_codes(where, dev, 21), qflow_codes(where, dev, 22)
+        sx, so = qflow_scale(cw, dev, True), qflow_scale(cw, dev, True) * 1.7
+        path = k6.add_plan(xq.numel(), cw)["path"]
+        k_ms, p_ms, _ = in_turns(lambda: k6.qadd_plain(xq, sx, hq, sx, so),
+                                 lambda: k6.qadd(xq, sx, hq, sx, so))
+        same = torch.equal(k6.qadd(xq, sx, hq, sx, so),
+                           k6.qadd_plain(xq, sx, hq, sx, so))
+        record("K6", f"{name} qadd {where} ({path} path) timed, bit-exact="
+               f"{same}", 0.0 if same else 1.0, 0.0 if same else 1.0,
+               "tol=bit-exact", (where, torch.int8, k_ms, p_ms, None, {}),
+               dict(name=name, path=path))
+        del xq, hq
+        torch.cuda.empty_cache()
+    # K6.requant, and a yardstick beside it: torch.quantize_per_tensor of
+    # the same values (qint8, zero point 0; in fp32 where it refuses bf16),
+    # which clips at -128 and multiplies by a reciprocal: not the same
+    # function, so no library_ms
     entry = res[0]["scale_entry"]
     k_ms, p_ms, _ = in_turns(lambda: k6.requant_plain(x, entry),
                              lambda: k6.requant(x, entry))
-    record("K6.requant", f"{name} requant {shape} bf16 timed", 0.0, 0.0,
-           "tol=bit-exact", (shape, torch.bfloat16, k_ms, p_ms, None, {}),
-           dict(name=name))
+    yard_in = x
+    try:
+        torch.quantize_per_tensor(x[:, :1], float(entry), 0, torch.qint8)
+    except RuntimeError:
+        yard_in = x.float()
+    yard_ms = time_ms(lambda: torch.quantize_per_tensor(
+        yard_in, float(entry), 0, torch.qint8))
+    yard_dtype = str(yard_in.dtype).replace("torch.", "")
+    del yard_in
+    record("K6.requant", f"{name} requant {shape} bf16 timed (yardstick "
+           f"torch.quantize_per_tensor in {yard_dtype}: {yard_ms!r} ms)", 0.0,
+           0.0, "tol=bit-exact", (shape, torch.bfloat16, k_ms, p_ms, None,
+                                  {}),
+           dict(name=name, yardstick_ms=yard_ms,
+                yardstick="torch.quantize_per_tensor, qint8, in "
+                          + yard_dtype))
     torch.cuda.empty_cache()
     # the three chains
     counts = None
@@ -5046,6 +5157,17 @@ def _qflow(dev, smi, summary):
                    float(off), "tol=bit-exact")
         say(f"[qflow] quant8 exhaustive: {sum(n for _, n, _ in held)} "
             f"values at {len(held)} scales in {secs:.2f}s")
+        db, db_xla, got = qflow_chain_card_vs_cpu(dev)
+        ok = (db >= QFLOW_CHAIN_DB and got.shape == QFLOW_CHAIN_CLIP
+              and bool(torch.isfinite(got).all()))
+        say(f"[qflow] the int8-res chain {QFLOW_CHAIN_CLIP}, card against "
+            f"the CPU in K1.int8's order of moments: {db!r} dB (>= "
+            f"{QFLOW_CHAIN_DB}); against the CPU in XLA's order (a reading): "
+            f"{db_xla!r} dB {'ok' if ok else 'FAIL'}; card {smi}")
+        if not ok:
+            raise SystemExit(f"qflow: the int8-res chain on the card is "
+                             f"{db} dB from the CPU's in the kernel's order")
+        del got
         dbs = {c: _qflow_numerics(dev, c, smi)
                for c in sorted({s[-1] for _, s in QFLOW_SHAPES})}
         chains, launches = {}, None

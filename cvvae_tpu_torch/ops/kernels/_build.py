@@ -73,7 +73,8 @@ _SIGNATURES = {
     "cvvae_int8_stage": [_P] * 3 + [_I] * 19 + [_P],
     "cvvae_int8_gemm": [_P] * 7 + [_I] * 21 + [_P],
     "cvvae_qflow_requant": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _P],
-    "cvvae_qflow_add": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _L, _I, _I, _P],
+    "cvvae_qflow_add": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _L, _I, _I, _I,
+                        _P],
 }
 
 

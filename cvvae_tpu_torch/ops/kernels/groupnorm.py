@@ -52,15 +52,22 @@ squares of the dequantized values, var = E[x²] − mean² (not clamped), the
 dequant folded into the affine, SiLU in fp32, and an int8 output at the
 consumer's scalar scale (or bf16 / fp32).  Its plan is ``launch_plan``
 with 1-byte elements (16 a load).  Bound: device memory, 2 bytes an
-element with an int8 output.
+element with an int8 output.  Its plain version sums the moments in
+XLA's CPU order (the JAX package's bits); within
+``int8_moment_order("kernel")`` it takes the kernel's own order
+(``_kernel_moments``), which an int8 chain, chaotic in the last bit of
+a moment, needs for a card-vs-CPU comparison.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import math
+from fractions import Fraction
 
+import numpy as np
 import torch
 
 from cvvae_tpu_torch.ops.activations import silu as _silu
@@ -80,6 +87,9 @@ combine_launches = 0
 int8_launches = 0
 #: K1.bwd's launches by (B', S, C, SiLU, dtype name)
 bwd_launches_by_shape: collections.Counter = collections.Counter()
+#: the split entries' launches by "<partial|combine> <x's shape>
+#: per_frame=<bool>"
+split_launches_by_shape: collections.Counter = collections.Counter()
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -222,6 +232,8 @@ def partial_moments(x: torch.Tensor, num_groups: int,
         num_groups, _build.DTYPE_CODES[x.dtype], *args)
     _build.check(rc, "group_norm_partial")
     partial_launches += 1
+    split_launches_by_shape[f"partial {tuple(x.shape)} per_frame="
+                            f"{per_frame}"] += 1
     return moments
 
 
@@ -256,6 +268,8 @@ def combine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         num_groups, eps, int(silu), _build.DTYPE_CODES[x.dtype], *args)
     _build.check(rc, "group_norm_combine")
     combine_launches += 1
+    split_launches_by_shape[f"combine {tuple(x.shape)} per_frame="
+                            f"{per_frame}"] += 1
     return y
 
 
@@ -587,12 +601,109 @@ def _fp32_means(xf: torch.Tensor, axes) -> tuple:
     return (s1 / n).reshape(shape), (s2 / n).reshape(shape)
 
 
+def _fma(x: float, n: int, y: float) -> float:
+    """x·n + y with one rounding to float64, as the card's double fused
+    multiply-add rounds it (Python's int true division rounds
+    correctly)."""
+    xn, xd = x.as_integer_ratio()
+    yn, yd = y.as_integer_ratio()
+    d = max(xd, yd)  # both powers of two
+    return (xn * n * (d // xd) + yn * (d // yd)) / d
+
+
+def _rsqrt_rn(x: np.ndarray) -> np.ndarray:
+    """1/sqrt(x) of float32 ``x`` correctly rounded to float32 (the card's
+    ``__frsqrt_rn``): float64's, moved to the neighbour where an exact
+    test against the midpoints says so."""
+    r = (1.0 / np.sqrt(x.astype(np.float64))).astype(np.float32)
+    for i in zip(*np.nonzero(np.isfinite(r) & (x > 0))):
+        xv, c = Fraction(float(x[i])), r[i]
+        up = np.nextafter(c, np.float32(np.inf))
+        down = np.nextafter(c, np.float32(0))
+        if ((Fraction(float(c)) + Fraction(float(up))) / 2) ** 2 * xv < 1:
+            r[i] = up
+        elif ((Fraction(float(c)) + Fraction(float(down))) / 2) ** 2 * xv > 1:
+            r[i] = down
+    return r
+
+
+def _kernel_moments(q: torch.Tensor, s: torch.Tensor, num_groups: int,
+                    eps: float):
+    """(mean, 1/std), each (B, G) fp32, of q·s in K1.int8's own order
+    (``csrc/groupnorm.cu``): gnq_stats' exact per-channel sums of q and q²
+    over each block of ``int8_plan``'s rows; gnq_merge's (group, row)
+    block, whose thread t adds s[c]·Σq and s[c]²·Σq² (a fused
+    multiply-add, in double) over the (block, channel) pairs t, t + 256,
+    ..., then a tree over the 256 threads; mean and mean of squares
+    rounded once to fp32, var = fl(msq − fl(mean²)), 1/std correctly
+    rounded.  Computed on the CPU, for any device's q; the oracle of the
+    kernel's moments, which no path runs."""
+    b, c = q.shape[0], q.shape[-1]
+    rows = q.reshape(b, -1, c).cpu().to(torch.int64)
+    n_rows = rows.shape[1]
+    plan = int8_plan(b, n_rows, c)
+    nb, rpb = plan["n_blocks"], plan["rows_per_block"]
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, nb * rpb - n_rows))
+    part = rows.reshape(b, nb, rpb, c)
+    s1 = part.sum(2).numpy()
+    s2 = part.square().sum(2).numpy()
+    sc = s.cpu().float().expand(c).numpy().astype(np.float64)
+    cg = c // num_groups
+    threads = MERGE_THREADS
+    red = np.zeros((2, b, num_groups, threads))
+    for bi in range(b):
+        for g in range(num_groups):
+            for i in range(nb * cg):
+                k, ch = divmod(i, cg)
+                ch += g * cg
+                t = i % threads
+                # s·Σq is exact in double (|Σq| < 2^25), so its fma is
+                # an add of the product
+                red[0, bi, g, t] += sc[ch] * s1[bi, k, ch]
+                red[1, bi, g, t] = _fma(sc[ch] * sc[ch], int(s2[bi, k, ch]),
+                                        red[1, bi, g, t])
+    o = threads // 2
+    while o:
+        red[..., :o] = red[..., :o] + red[..., o:2 * o]
+        o //= 2
+    n = float(n_rows) * cg
+    mean = (red[0, ..., 0] / n).astype(np.float32)
+    msq = (red[1, ..., 0] / n).astype(np.float32)
+    var = msq - mean * mean
+    inv = _rsqrt_rn(var + np.float32(eps))
+    return (torch.from_numpy(mean).to(q.device),
+            torch.from_numpy(inv).to(q.device))
+
+
+#: the order the CPU's plain int8 GroupNorm sums its moments in
+#: (``int8_moment_order``)
+_plain_int8_order = "xla"
+
+
+@contextlib.contextmanager
+def int8_moment_order(order: str):
+    """Within the block, the plain int8 GroupNorm takes its moments in
+    ``order``: "xla" (the default: XLA's CPU order on the CPU, the JAX
+    package's bits; PyTorch's sum on the card) or "kernel" (K1.int8's own,
+    ``_kernel_moments``).  For the tests and ``chip_smoke.py``, which hold
+    the card's chain against a CPU chain in the kernel's order."""
+    global _plain_int8_order
+    if order not in ("xla", "kernel"):
+        raise ValueError(f"int8 moment order {order!r}: 'xla' or 'kernel'")
+    before, _plain_int8_order = _plain_int8_order, order
+    try:
+        yield
+    finally:
+        _plain_int8_order = before
+
+
 def _int8_coef(q: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor, num_groups: int, eps: float):
     """The folded affine (a, b), each (B, C) fp32, of K1's int8 mode on
-    ``q`` (B, ..., C): JAX's fp32 moments of q·s over every axis but B and
-    the groups (``_fp32_means``), var = E[x²] − mean², a = inv·γ·s, b = β
-    − mean·inv·γ."""
+    ``q`` (B, ..., C): the fp32 moments of q·s over every axis but B and
+    the groups (JAX's, ``_fp32_means``; K1.int8's within
+    ``int8_moment_order("kernel")``, ``_kernel_moments``), var = E[x²] −
+    mean², a = inv·γ·s, b = β − mean·inv·γ."""
     c = q.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups "
@@ -601,9 +712,14 @@ def _int8_coef(q: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
     grouped = q.reshape(q.shape[:-1] + (num_groups, cg))
     s = scale.to(device=q.device, dtype=torch.float32)
     s_g = s.expand(c).reshape(num_groups, cg) if s.ndim else s
-    axes = tuple(range(1, grouped.ndim - 2)) + (grouped.ndim - 1,)
-    mean, msq = _fp32_means(grouped.float() * s_g, axes)
-    inv = torch.rsqrt(msq - mean.square() + eps)
+    if _plain_int8_order == "kernel":
+        mean, inv = (m.reshape(q.shape[:1] + (1,) * (grouped.ndim - 3)
+                               + (num_groups, 1))
+                     for m in _kernel_moments(q, s, num_groups, eps))
+    else:
+        axes = tuple(range(1, grouped.ndim - 2)) + (grouped.ndim - 1,)
+        mean, msq = _fp32_means(grouped.float() * s_g, axes)
+        inv = torch.rsqrt(msq - mean.square() + eps)
     w = weight.to(device=q.device, dtype=torch.float32).reshape(num_groups,
                                                                  cg)
     b = bias.to(device=q.device, dtype=torch.float32).reshape(num_groups, cg)
@@ -672,12 +788,12 @@ def group_norm_silu_int8_plain(q: torch.Tensor, scale: torch.Tensor,
 
 #: K1's int8 mode's schedule (``csrc/groupnorm.cu``): codes a stats load
 #: (where C allows) and threads a stats block at most, rows a stats block
-#: may take, threads of an apply block, and channels a 64 KB half of the
-#: apply's table
-(INT8_STATS_V, INT8_STATS_THREADS, INT8_MAX_BLOCK_ROWS, INT8_APPLY_THREADS,
- INT8_HALF_CHANNELS) = _build.constants(
+#: may take, threads of a merge block and of an apply block, and channels
+#: a 64 KB half of the apply's table
+(INT8_STATS_V, INT8_STATS_THREADS, INT8_MAX_BLOCK_ROWS, MERGE_THREADS,
+ INT8_APPLY_THREADS, INT8_HALF_CHANNELS) = _build.constants(
     "groupnorm.cu", "kStatsV", "kStatsThreads", "kMaxBlockRows",
-    "kApplyThreads", "kHalfChannels")
+    "kMergeThreads", "kApplyThreads", "kHalfChannels")
 #: the stats pass's shared memory may not pass the 48 KB a launch has
 #: without asking
 INT8_STATS_SMEM = 48 * 1024

@@ -13,18 +13,52 @@ is bit-equal to its plain version.
 What bounds it on an H100: device memory.  ``qadd`` moves 3 bytes an
 element (0.943 ms at the v1 decoder's (1,17,720,672,128) at 3.35 TB/s);
 ``requant`` of bf16 3 bytes, of fp32 5.
+
+The add has two paths, chosen here by ``add_plan``: where C is a multiple
+of 16, the sliced kernel, on a grid whose stride (16 values a thread) is a
+multiple of C, so that each thread's 16 channels, and their scales held in
+registers, stay the same on every iteration; else the general kernel,
+which finds each value's channel and loads its scales.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from cvvae_tpu_torch.ops.kernels import _build
 
-#: launches of the requantization entry and of the residual add (the CPU
-#: path does not count)
+#: launches of the requantization entry and of the residual add, either
+#: path (the CPU path does not count)
 requant_launches = 0
 qadd_launches = 0
+
+#: the sliced add's threads a block and blocks an SM (``csrc/qflow.cu``)
+ADD_THREADS, ADD_BLOCKS = _build.constants("qflow.cu", "kThreads",
+                                           "kAddBlocks")
+#: an H100's SMs
+SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def add_plan(n: int, c: int) -> dict:
+    """K6's add on n values of C channels.  Where C is a multiple of 16,
+    path "sliced" on ``blocks`` blocks: about ADD_BLOCKS an SM (no more
+    than the 16-value groups fill), rounded up to a multiple of C /
+    gcd(C, 16 * ADD_THREADS), so that the grid's stride of 16 *
+    ADD_THREADS * blocks values is a multiple of C.  Else path "general",
+    blocks 0 (the kernel sizes its own grid)."""
+    groups = n // 16
+    if c % 16 or n % c:
+        return dict(path="general", blocks=0)
+    step = c // math.gcd(c, 16 * ADD_THREADS)
+    want = max(1, min(SMS * ADD_BLOCKS, -(-groups // ADD_THREADS)))
+    blocks = -(-want // step) * step
+    if blocks * ADD_THREADS > 2 ** 31 - 1:
+        return dict(path="general", blocks=0)
+    return dict(path="sliced", blocks=blocks)
 
 
 def _scale(scale: torch.Tensor, device) -> torch.Tensor:
@@ -101,7 +135,8 @@ def qadd(xq: torch.Tensor, sx: torch.Tensor, hq: torch.Tensor,
     (s1, p1), (s2, p2), (s3, p3) = scales
     rc = _build.library().cvvae_qflow_add(
         xq.data_ptr(), s1.data_ptr(), p1, hq.data_ptr(), s2.data_ptr(), p2,
-        s3.data_ptr(), p3, y.data_ptr(), xq.numel(), c, dev.index or 0,
+        s3.data_ptr(), p3, y.data_ptr(), xq.numel(), c,
+        add_plan(xq.numel(), c)["blocks"], dev.index or 0,
         _build.stream_of(xq))
     _build.check(rc, "qflow_add")
     qadd_launches += 1

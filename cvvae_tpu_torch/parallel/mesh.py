@@ -116,10 +116,13 @@ def rank_model(model_id: int):
 
 
 def rank_counts() -> Dict[str, Any]:
-    """This rank's kernel launch counters (``utils/profiling.COUNTERS``)
-    and its transport's counts (``shard.Comm.reset``), by name."""
+    """This rank's kernel launch counters (``utils/profiling.COUNTERS``),
+    K1's split entries' launches by shape ("K1 split by shape") and its
+    transport's counts (``shard.Comm.reset``), by name."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
     from cvvae_tpu_torch.utils import profiling
     out = dict(profiling.launch_counts())
+    out["K1 split by shape"] = dict(groupnorm.split_launches_by_shape)
     for comm in _rank_comm[-1:]:
         out.update(comm.counts)
     return out
@@ -127,10 +130,12 @@ def rank_counts() -> Dict[str, Any]:
 
 def reset_rank_counts() -> None:
     """Zero this rank's kernel launch counters and transport counts."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm
     from cvvae_tpu_torch.utils import profiling
     for key, (mod, attr) in profiling.COUNTERS.items():
         setattr(importlib.import_module(f"cvvae_tpu_torch.ops.kernels.{mod}"),
                 attr, 0)
+    groupnorm.split_launches_by_shape.clear()
     for comm in _rank_comm[-1:]:
         comm.reset()
 

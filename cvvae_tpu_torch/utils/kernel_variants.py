@@ -1,7 +1,7 @@
 """Time variants of a hand-written kernel's source on the card.
 
     python -m cvvae_tpu_torch.utils.kernel_variants \
-        [--kernel K5|K5.int8|K1.int8|quant8|K1.bwd|K2.bwd|K3.bwd|K4.bwd] \
+        [--kernel K5|K5.int8|K1.int8|K6|quant8|K1.bwd|K2.bwd|K3.bwd|K4.bwd] \
         [--turns N] [--sass]
 
 Each variant is ``csrc/`` copied into a temporary directory with some
@@ -23,6 +23,11 @@ library the wrappers launch (``_build.library(path)``).
   ``chip_smoke.k1_int8_check`` on ``chip_smoke.QFLOW_K1_CASES``, then
   timed at ``chip_smoke.QFLOW_SHAPES`` (int8 and bf16 out), in turns,
   twice.
+- K6 (``csrc/qflow.cu``, its residual add): every variant is first held
+  bit-equal by ``chip_smoke.k6_checks`` on ``QFLOW_K6_CASES`` (both
+  paths), then K6's add (per-channel scales) and K6.requant (bf16, a
+  scalar scale) are timed at ``QFLOW_SHAPES``, in turns, twice.  Prints
+  the registers and spills of the add's kernels.
 - quant8 (``csrc/common.cuh``, in every kernel that rounds to int8):
   every variant is first held bit-equal to the plain versions of
   K5.stage (``chip_smoke.K5_CHECK_CASES``' inputs, bf16) and K6
@@ -56,6 +61,7 @@ Needs a CUDA card and nvcc; imports nothing of JAX.  ``VARIANTS`` (K5,
 ``csrc/conv_int8.cu``), ``K5_INT8_VARIANTS`` (its int8-output epilogue),
 ``K1_INT8_VARIANTS`` (``csrc/groupnorm.cu``), ``K1_BWD_VARIANTS``
 (``csrc/groupnorm_bwd.cu``),
+``K6_VARIANTS`` (``csrc/qflow.cu``),
 ``K2_BWD_VARIANTS`` (``csrc/shuffle_bwd.cu``), ``K3_BWD_VARIANTS``
 (``csrc/stem_bwd.cu``) and ``K4_BWD_VARIANTS`` (``csrc/attention_bwd.cu``)
 hold each kernel's
@@ -65,7 +71,7 @@ back the ``quant8`` of the tree before its redesign.
 
 ``--turns N`` takes every reading N times forward and back (2N readings a
 variant; each line prints them, their median and their spread, max − min).
-``--sass`` prints, for the int8 kernels of K5.int8, K1.int8 and quant8,
+``--sass`` prints, for the int8 kernels of K5.int8, K1.int8, K6 and quant8,
 the counts of a few instruction classes in each variant's SASS
 (``cuobjdump -sass`` of its library): the instructions, the convergence
 regions (BSSY), conditional branches, votes, calls, the conversions
@@ -248,8 +254,29 @@ QUANT8_VARIANTS = {
          "float s, float r) {\n  return quant8_div(v, s, r);\n}\n")],
 }
 
+#: name -> [(text of csrc/qflow.cu, its replacement), ...]: K6's sliced
+#: add with each design choice undone, and the general add (the tree's
+#: before the sliced one) launched everywhere
+K6_VARIANTS = {
+    "as committed": [],
+    "per-value scale loads": [("constexpr bool kHoldScales = true;",
+                               "constexpr bool kHoldScales = false;")],
+    "per-value __frcp_rn": [("constexpr bool kHoldFactors = true;",
+                             "constexpr bool kHoldFactors = false;")],
+    "I2F conversion": [("constexpr bool kPermConvert = true;",
+                        "constexpr bool kPermConvert = false;")],
+    "one group in flight": [("constexpr int kAddGroups = 2;",
+                             "constexpr int kAddGroups = 1;")],
+    "3 blocks an SM (80 registers a thread)": [
+        ("constexpr int kAddBlocks = 2;", "constexpr int kAddBlocks = 3;")],
+    "the general add whole (the kernel before the sliced one)": [
+        ("constexpr bool kSlicedAdd = true;",
+         "constexpr bool kSlicedAdd = false;")],
+}
+
 #: each kernel's variants: (source, variants)
 KERNEL_VARIANTS = {"K5": ("conv_int8.cu", VARIANTS),
+                   "K6": ("qflow.cu", K6_VARIANTS),
                    "K5.int8": ("conv_int8.cu", K5_INT8_VARIANTS),
                    "K1.int8": ("groupnorm.cu", K1_INT8_VARIANTS),
                    "quant8": ("common.cuh", QUANT8_VARIANTS),
@@ -509,7 +536,8 @@ TURNS = 1
 #: the kernels whose SASS ``--sass`` counts: a mark of their mangled names
 SASS_MARKS = {"K5.int8": ("int8_gemmIa",),
               "K1.int8": ("gnq_stats", "gnq_merge", "gnq_apply"),
-              "quant8": ("int8_stageI", "qflow_requant", "qflow_add")}
+              "quant8": ("int8_stageI", "qflow_requant", "qflow_add"),
+              "K6": ("qflow_add",)}
 #: instruction classes --sass counts: name -> a pattern of the opcode
 SASS_CLASSES = {"BSSY": r"BSSY", "@P BRA": r"@!?P\w+ +BRA",
                 "VOTE": r"VOTE", "CALL": r"CALL", "I2F": r"I2F\b",
@@ -697,6 +725,39 @@ def _quant8(libs, dev) -> int:
     return 0
 
 
+def _k6(libs, dev) -> int:
+    """K6's variants: held bit-equal by ``chip_smoke.k6_checks`` on
+    QFLOW_K6_CASES, then K6's add (per-channel scales) and K6.requant
+    (bf16, a scalar scale) timed at QFLOW_SHAPES, in turns."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build
+    from cvvae_tpu_torch.ops.kernels import qflow as k6
+
+    _ptxas(libs, ("qflow_add",))
+    for name, lib in libs.items():
+        _build.library(lib)
+        bad = [label for shape in chip_smoke.QFLOW_K6_CASES
+               for label, same in chip_smoke.k6_checks(shape, dev)
+               if not same]
+        print(f"[{name}] checks not bit-equal: {bad}", flush=True)
+        if bad:
+            return 1
+    for where, shape in chip_smoke.QFLOW_SHAPES:
+        xq = chip_smoke.qflow_codes(shape, dev, 21)
+        hq = chip_smoke.qflow_codes(shape, dev, 22)
+        sx = chip_smoke.qflow_scale(shape[-1], dev, True)
+        so = sx * 1.7
+        x = chip_smoke.randn(shape, 3, dev, torch.bfloat16)
+        s1 = torch.tensor(0.03, device=dev)
+        _timed(libs, [(f"K6 qadd {where} {shape}",
+                       lambda: k6.qadd(xq, sx, hq, sx, so)),
+                      (f"K6.requant {where} {shape} bf16",
+                       lambda: k6.requant(x, s1))])
+        del xq, hq, x
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
     global TURNS
     import chip_smoke
@@ -726,7 +787,8 @@ def main(argv=None) -> int:
                 _sass(libs, SASS_MARKS[args.kernel])
             run = {"K1.bwd": _k1_bwd, "K2.bwd": _k2_bwd, "K3.bwd": _k3_bwd,
                    "K4.bwd": _k4_bwd, "K5.int8": _k5_int8,
-                   "K1.int8": _k1_int8, "quant8": _quant8}[args.kernel]
+                   "K1.int8": _k1_int8, "quant8": _quant8,
+                   "K6": _k6}[args.kernel]
             return run(libs, dev)
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:

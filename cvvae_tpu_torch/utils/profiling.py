@@ -86,7 +86,7 @@ GROUPS = [
     ("K3 stem conv", r"stem"),
     ("K5.gemm int8 GEMM", r"int8_gemm"),
     ("K5.stage int8 staging", r"int8_stage"),
-    ("K6 int8 residual add", r"\bqflow_add\b"),
+    ("K6 int8 residual add", r"\bqflow_add(_sliced)?\b"),
     ("K6.requant int8 requantization", r"\bqflow_requant\b"),
     # cuBLAS's products before cuDNN's: both name kernels sm90_xmma_*
     ("GEMMs (dense, attention)", r"xmma_gemm|nvjet|cublas|gemv"),
@@ -124,7 +124,7 @@ KERNEL_GROUPS = {
     "K5.gemm int8 GEMM": ("K5", r"int8_gemm"),
     "K5.stage int8 staging": ("K5.stage", r"int8_stage"),
     "K1.int8 GroupNorm+SiLU on int8": ("K1.int8", r"\bgnq_merge\b"),
-    "K6 int8 residual add": ("K6", r"\bqflow_add\b"),
+    "K6 int8 residual add": ("K6", r"\bqflow_add(_sliced)?\b"),
     "K6.requant int8 requantization": ("K6.requant", r"\bqflow_requant\b"),
 }
 

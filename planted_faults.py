@@ -39,7 +39,7 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
   input (int8, bf16 and fp32 out) at ``chip_smoke.K5_CHECK_CASES``, held
   bit-exact (``chip_smoke.k5_int8_check``); K1's int8 mode at
   ``chip_smoke.QFLOW_K1_CASES``, held by ``chip_smoke.k1_int8_check``; K6
-  at ``chip_smoke.QFLOW_K6_CASES``, held bit-exact
+  at ``chip_smoke.QFLOW_K6_CASES`` (its add on both paths), held bit-exact
   (``chip_smoke.k6_checks``, whose inputs hold ties of the quotient), and
   quant8 through K6.requant on every fp32 value of |v / s| <= 128 at
   ``chip_smoke.QUANT8_SCALES[0]`` (``chip_smoke.quant8_exhaustive``); K5's
@@ -248,6 +248,14 @@ FAULTS = {
         "K6", "qflow.cu",
         "  return (uint32_t)(quant8(v, s, __frcp_rn(s)) & 0xff);",
         "  return (uint32_t)(max(-127, min(127, (int)roundf(v / s))) & 0xff);"),
+    "K6's sliced add holding sh where sx belongs": (
+        "K6", "qflow.cu",
+        "      fx[i] = sx.at(cb + i);",
+        "      fx[i] = sh.at(cb + i);"),
+    "K6's sliced add's channel base one slice off": (
+        "K6", "qflow.cu",
+        "  const int cb = (int)(((int64_t)t * 16) % C);",
+        "  const int cb = (int)(((int64_t)t * 16 + 16) % C);"),
     "K1's int8 mode reading the scalar scale where it is per channel": (
         "K1.int8", "groupnorm.cu",
         "  auto scale = [&](int c) { return qs.s[c * qs.per_channel]; };",

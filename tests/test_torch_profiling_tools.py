@@ -65,7 +65,7 @@ OWN_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
 
 
 def test_csrc_holds_the_known_kernels():
-    assert len(GLOBALS) == 26
+    assert len(GLOBALS) == 27
     assert {f for f, _ in GLOBALS} == set(EXPECTED)
     assert profiling.csrc_kernels() == {
         n: OWN_KEYS.get(n, EXPECTED[f]) for f, n in GLOBALS}
@@ -117,11 +117,12 @@ def test_cudnn_fp32_engines_are_convs(kernel):
 
 def test_each_launch_marker_names_its_groups_kernel():
     """A marker names one kernel of its group (K3's, the bf16 or the fp32
-    one: a launch runs one of the two)."""
+    one; K6's, the sliced or the general add: a launch runs one of the
+    two)."""
     names = [n for _, n in GLOBALS]
     for group, (key, marker) in profiling.KERNEL_GROUPS.items():
         hits = [n for n in names if re.search(marker, n)]
-        assert len(hits) == (2 if key == "K3" else 1), (group, hits)
+        assert len(hits) == (2 if key in ("K3", "K6") else 1), (group, hits)
         assert {profiling.group_of(n) for n in hits} == {group}
         assert key in profiling.COUNTERS
 

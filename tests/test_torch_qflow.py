@@ -327,6 +327,83 @@ def test_residency_chain_matches_jax():
     assert agreement_db(out, ref) > 28.0
 
 
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["scalar_scale", "per_channel_scale"])
+def test_qgroup_norm_silu_in_the_kernels_order_matches_jax(per_channel):
+    """The plain int8 GroupNorm with K1.int8's own moments
+    (``groupnorm.int8_moment_order("kernel")``) against JAX's function:
+    int8 codes within one, and at most ``chip_smoke.QFLOW_K1_FLIPS`` of
+    them off, the card check's bound on the kernel."""
+    import chip_smoke
+    x = normal((1, 3, 16, 16, 64), 6, 2.0)
+    if per_channel:
+        x = x * (0.25 + np.arange(64, dtype=np.float32) / 32.0)
+    p = norm_init(64, jnp.float32)
+    p = {"scale": p["scale"] + 0.3, "bias": p["bias"] - 0.1}
+    pp = port_params(p)
+    jx, px = both_qtensors(x, channel_scales(x) if per_channel
+                           else scale_of(x))
+    out_scale = np.float32(0.02)
+    kw = dict(num_groups=GROUPS, eps=EPS)
+    jy = jq.qgroup_norm_silu(jx, p, out_scale=jnp.asarray(out_scale), **kw)
+    with groupnorm.int8_moment_order("kernel"):
+        y = qflow.qgroup_norm_silu(px, pp, out_scale=t(out_scale), **kw)
+    worst, excess, text = chip_smoke.codes_check(
+        y.q, torch.from_numpy(np.array(jy.q)), chip_smoke.QFLOW_K1_FLIPS)
+    assert excess <= 0.0, text
+
+
+def test_residency_chain_in_both_moment_orders():
+    """The 2-resblock chain of ``test_residency_chain_matches_jax`` run
+    twice on the CPU: with XLA's order of the int8 GroupNorm's moments
+    (JAX's bits) and with K1.int8's.  The order alone changes the chain's
+    codes; its agreement in dB is printed (a reading, not a bound), and
+    each chain keeps JAX's own bound against the fp32 chain."""
+    key = jax.random.PRNGKey(9)
+    c = 64
+    x = normal((1, 3, 24, 24, c), 10)
+    blocks = _chain_blocks(c, key)
+    ref = np.asarray(_run_fp(blocks, jnp.asarray(x)))
+    qb = quantize_conv_params(blocks, min_cin=64)
+    with calibration_scope() as rec:
+        _run_fp(qb, jnp.asarray(x).astype(jnp.bfloat16))
+    rb = _calibrate(attach_activation_scales(qb, rec), jnp.asarray(x))
+    pblocks = [port_params(b) for b in rb]
+    xla = run_residency(qflow, pblocks, t(x), SPEC, SPEC2)
+    with groupnorm.int8_moment_order("kernel"):
+        ker = run_residency(qflow, pblocks, t(x), SPEC, SPEC2)
+    a, b = qflow.dequant(ker).numpy(), qflow.dequant(xla).numpy()
+    print(f"chain (1, 3, 24, 24, 64), 2 blocks: kernel order against XLA "
+          f"order {agreement_db(a, b)!r} dB; against fp32 "
+          f"{agreement_db(a, ref)!r} / {agreement_db(b, ref)!r} dB")
+    assert not torch.equal(ker.q, xla.q)
+    assert agreement_db(a, ref) > 28.0 and agreement_db(b, ref) > 28.0
+
+
+def test_chip_smoke_chain_in_both_moment_orders():
+    """``chip_smoke.qflow_residency``'s 3-resblock chain at width 128 on
+    its (1, 3, 32, 32) clip, built and calibrated on the CPU, run in both
+    moment orders: the kernel's order against XLA's in dB is printed (a
+    reading), and each keeps chip_smoke's own bound (> 20 dB) against the
+    fp32 chain."""
+    import chip_smoke
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        master = chip_smoke.qflow_master(128, cpu)
+        x = chip_smoke.randn(chip_smoke.QFLOW_CHAIN_CLIP, 4, cpu,
+                             torch.float32)
+        _, _, res = chip_smoke.qflow_modes(master, x)
+        xla, ker = chip_smoke.qflow_both_orders(res, x.to(torch.bfloat16))
+        ref = chip_smoke.qflow_run(master, x)
+    print(f"chip_smoke's chain {chip_smoke.QFLOW_CHAIN_CLIP}: kernel order "
+          f"against XLA order "
+          f"{chip_smoke.agreement_db(ker.float(), xla.float())!r} dB")
+    assert not torch.equal(ker, xla)
+    for out in (xla, ker):
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert chip_smoke.agreement_db(out.float(), ref) > 20.0
+
+
 def test_residency_scales_convert():
     """``from_jax_params`` carries qflow's leaves across as they are."""
     tree = {"conv1": {"kernel_q": np.zeros((1, 3, 3, 4, 2), np.int8),
