@@ -932,6 +932,40 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """The device ms of one call of ``fn``: ``torch.profiler``'s device
+    records over 2 ``reps`` calls; for each kernel the median duration of
+    its later half (a trace can lose records near its start), times its
+    launches a call (at least one), summed."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 * reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(statistics.median(t[len(t) // 2:])
+               * max(1, round(len(t) / (2 * reps)))
+               for t in by_name.values()) / 1e3
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """The host's ms to issue one call of ``fn``: the wall time of ``reps``
+    calls without a synchronise, each call's kernels queued behind the
+    last's, over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def turns(fns):
     """{name: median ms} of ``fns`` timed in turns, forward then back
     (a, b, c, c, b, a)."""
@@ -952,7 +986,7 @@ def in_turns(plain, kernel, library=None):
 
 
 def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
-         stride=None, pads=None):
+         stride=None, pads=None, per_frame=False):
     """(bytes, FLOP) of one call of kernel ``key`` at ``shape``: each
     input read once and each output written once; FLOP as the function
     needs them.
@@ -960,8 +994,9 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     K1 shape (B, T, H, W, C): x in, y out, fp32 weight and bias; 3 FLOP an
     element for the moments, 2 for the affine, 4 more with SiLU.  K1 split
     across ranks, on one rank's rows: K1.partial reads x and writes its
-    (count, mean, M2) per (row, group), 3 FLOP an element; K1.combine
-    reads x and writes y, 2 FLOP an element and 4 more with SiLU.  K2
+    (count, mean, M2) per (row, group) in double, a row a frame where
+    ``per_frame``, 3 FLOP an element; K1.combine reads x and the ``n``
+    ranks' moments and writes y, 2 FLOP an element and 4 more with SiLU.  K2
     shape: one of the four phases (B, T, H, W, n*c); where n > 1 the
     output drops the first of its n*T frames; one add an output element.  K3 shape (B, T,
     H, W, Cin) -> ``cout`` channels at the same extent; 2*27*Cin FLOP an
@@ -986,10 +1021,12 @@ def work(key, shape, dtype, n=2, silu=True, cout=128, kernel=None,
     numel = math.prod(shape)
     if key == "K1":
         return 2 * numel * e + 2 * shape[-1] * 4, numel * (5 + 4 * silu)
+    rows = shape[0] * (shape[1] if per_frame else 1)  # K1's batch rows
     if key == "K1.partial":  # x in, (count, mean, M2) per (row, group) out
-        return numel * e + 3 * 8 * shape[0] * 32, 3 * numel
-    if key == "K1.combine":  # x in, y out, fp32 weight and bias
-        return 2 * numel * e + 2 * shape[-1] * 4, numel * (2 + 4 * silu)
+        return numel * e + 3 * 8 * rows * 32, 3 * numel
+    if key == "K1.combine":  # x, the moments, fp32 weight and bias in; y out
+        return (2 * numel * e + n * 3 * 8 * rows * 32 + 2 * shape[-1] * 4,
+                numel * (2 + 4 * silu))
     if key == "K2":  # the first frame is dropped where n > 1
         out = 4 * numel * (shape[1] * n - (n > 1)) // (shape[1] * n)
         return (4 * numel + out) * e + shape[-1] * e, out
@@ -3637,10 +3674,25 @@ def _tools(dev, smi):
 #: ranks on one card: ``utils/probe_collectives.py``)
 MESH_DEVICES = ["cuda:0", "cuda:0"]
 #: (a) K1 split over two H halves against one K1 on the whole: (shape,
-#: silu, per_frame) -- the v1 encoder's level-0 norm and the mid-block
-#: per-frame norm
+#: silu, per_frame) -- the v1 encoder's level-0 norm, the encoder's
+#: mid-block per-frame norm and the decoder tiles' (each timed on one half)
 K1_SPLIT_CASES = [((1, 17, 720, 1280, 128), True, False),
-                  ((1, 5, 90, 160, 512), False, True)]
+                  ((1, 5, 90, 160, 512), False, True),
+                  ((1, 5, 90, 84, 512), False, True)]
+#: K1 split's small checks (shape, groups, silu, per_frame, H runs, one a
+#: rank), held by the card tests and planted_faults.py: 2 and 3 ranks on
+#: unequal runs, per frame and not, a ragged last block, a run below one
+#: block's rows, narrow loads (C / G = 3), the decoder tiles' shape
+K1_SPLIT_CHECKS = [
+    ((1, 5, 9, 7, 128), 32, False, True, (4, 5)),
+    ((1, 5, 10, 14, 512), 32, False, True, (3, 3, 4)),
+    ((2, 3, 10, 14, 64), 32, True, False, (6, 4)),
+    ((1, 7, 11, 13, 512), 32, True, False, (2, 5, 4)),
+    ((1, 4, 30, 41, 128), 32, True, False, (17, 13)),
+    ((2, 3, 5, 7, 96), 32, True, False, (1, 4)),
+    ((1, 1, 3, 3, 128), 32, True, False, (1, 2)),
+    ((1, 5, 45, 84, 512), 32, False, True, (22, 23)),
+]
 #: (b) full-width bf16 encode and decode of the served 17x720x1280 clip,
 #: H-split over the mesh, against the port unsharded: PSNR in dB over 2
 #: max|ref| (PERF.md section 6 states the bound and its prediction)
@@ -3665,10 +3717,13 @@ def _k1_split(dev, smi, summary):
     """(a): K1 split over the two H halves of each K1_SPLIT_CASES shape,
     bf16 and fp32: every half's partial moments, their stack (as the
     all-gather gives it), each half's combination; joined, against one K1
-    on the whole (bit-identical expected: Chan's combination in double)
-    and held to K1's own bounds (``k1_check``); each entry timed on one
-    half beside its plain version and its bytes bound, and K1 on that
-    half timed beside."""
+    on the whole and held to K1's own bounds (``k1_check``); each entry
+    against its two-launch form on the same plan, bit-equal (the moments,
+    and each half's output and statistics on the same moments); each entry
+    timed on one half beside its plain version and its bytes bound: CUDA
+    events around the call (``time_ms``: the host's time before the launch
+    included), the device's time (``device_ms``) and the host's time to
+    issue it (``host_ms``); K1 on that half timed beside."""
     from cvvae_tpu_torch.ops.kernels import groupnorm as gn
 
     for key in ("K1.partial", "K1.combine"):
@@ -3696,12 +3751,30 @@ def _k1_split(dev, smi, summary):
                 raise SystemExit(f"K1 split {shape} {dtype}: fails K1's "
                                  f"bounds")
             del got, whole
+            same = {"moments": torch.equal(torch.stack(
+                [gn.partial_moments_pair(h, 32, per_frame) for h in halves]),
+                moments)}
+            for i, h in enumerate(halves):
+                y, stats = gn.combine_stats(h, w, b, moments, **kw)
+                y_ref, stats_ref = gn.combine_pair(h, w, b, moments, **kw)
+                same[f"half {i}"] = (torch.equal(y, y_ref)
+                                     and torch.equal(stats, stats_ref))
+                del y, y_ref
+            say(f"[mesh] K1 split {shape} {dtype}: the one-launch entries "
+                f"bit-equal to their two-launch forms on the same plan "
+                f"(gn_stats + gn_partial_fold; gn_combine_coef + gn_apply on "
+                f"the same moments): {same}")
+            if not all(same.values()):
+                raise SystemExit(f"K1 split {shape} {dtype}: not bit-equal "
+                                 f"to the two-launch forms: {same}")
             half = halves[0]
             hshape = tuple(half.shape)
             stack = moments
             plain_m = torch.stack([gn.partial_moments_plain(h, 32, per_frame)
                                    for h in halves])
             k1_half = time_ms(lambda: gn.group_norm_silu(half, w, b, **kw))
+            plan = gn.split_plan(*gn._dims("plan", hshape, 32, per_frame),
+                                 32, half.element_size())
             for key, kernel, plain in (
                     ("K1.partial",
                      lambda: gn.partial_moments(half, 32, per_frame),
@@ -3710,18 +3783,26 @@ def _k1_split(dev, smi, summary):
                      lambda: gn.combine(half, w, b, stack, **kw),
                      lambda: gn.combine_plain(half, w, b, plain_m, **kw))):
                 ms, plain_ms, _ = in_turns(plain, kernel)
-                b_ms, by = bound(key, hshape, dtype, silu=silu)
+                dev_ms, h_ms = device_ms(kernel), host_ms(kernel)
+                b_ms, by = bound(key, hshape, dtype, silu=silu,
+                                 per_frame=per_frame)
                 entry = dict(shape=list(hshape), dtype=str(dtype)[6:],
                              silu=silu, per_frame=per_frame, ms=ms,
+                             device_ms=dev_ms, host_ms=h_ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                             share=b_ms / ms, library_ms=None,
-                             k1_half_ms=k1_half, max_abs_diff_whole=d_whole)
+                             share=b_ms / ms, device_share=b_ms / dev_ms,
+                             library_ms=None, k1_half_ms=k1_half,
+                             max_abs_diff_whole=d_whole,
+                             plan=dict(n_blocks=plan["n_blocks"],
+                                       rows_per_block=plan["rows_per_block"]))
                 summary[key]["timed"].append(entry)
                 summary[key]["max_abs_err"] = max(
                     summary[key]["max_abs_err"], err)
                 say(f"[mesh] {key} on one half {hshape} {dtype}: ms={ms!r} "
+                    f"(CUDA events) device_ms={dev_ms!r} host_ms={h_ms!r} "
                     f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({by}) share="
-                    f"{b_ms / ms!r}; K1 unsplit on the same half "
+                    f"{b_ms / ms!r} (events) {b_ms / dev_ms!r} (device); "
+                    f"plan {entry['plan']}; K1 unsplit on the same half "
                     f"{k1_half!r} ms; card {smi}")
             del x, halves, half, moments, stack, plain_m
             torch.cuda.empty_cache()

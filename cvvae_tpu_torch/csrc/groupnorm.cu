@@ -24,17 +24,32 @@
 //      one rounding), then SiLU, in 16-byte stores.
 // Split across ranks (a tensor sharded along its rows over a mesh,
 // ops/kernels/groupnorm.py::group_norm_silu_sharded), the same three steps
-// become two entries around one collective:
-//   cvvae_group_norm_partial: gn_stats, then gn_partial, which sums the
-//      blocks as gn_merge does and writes each (batch row, group)'s count,
-//      mean and M2 (the sum of squared deviations from that mean) in
-//      double.  Every rank shifts by its own K, so the moments about K do
-//      not add across ranks; (count, mean, M2) do, by Chan's formula.
+// become two entries around one collective, one launch each:
+//   cvvae_group_norm_partial: gn_partial, on the split plan
+//      (ops/kernels/groupnorm.py::split_plan: K1's vector width and
+//      threads, about kSplitBlocksPerSm blocks an SM over all batch rows,
+//      at least kSplitMinRows rows a block).  Each block runs gn_stats'
+//      pass (block_stats) and writes its moments, fences them, and takes a
+//      ticket from its batch row's counter (in the wrapper's scratch, zero
+//      between launches).  The block that takes the row's last ticket folds
+//      the row's block moments in block-index order, whichever block
+//      finished last (fold_row: the order of gn_merge's block_moments,
+//      its loads batched), writes each (batch row, group)'s count, mean and
+//      M2 (the sum of squared deviations from that mean) in double, and
+//      sets the counter back to zero.  Every rank shifts by its own K, so
+//      the moments about K do not add across ranks; (count, mean, M2) do,
+//      by Chan's formula.
 //   (the wrapper all-gathers every rank's (B, G, 3) in rank order)
-//   cvvae_group_norm_combine: gn_combine, one warp per (batch row, group),
-//      folds the ranks' (count, mean, M2) in rank order by Chan's formula
-//      in double (deterministic, independent of timing) and the affine as
-//      gn_merge does; then gn_apply, unchanged.
+//   cvvae_group_norm_combine: gn_combine, on the split plan: each thread
+//      folds the ranks' (count, mean, M2) of its own channels' groups in
+//      rank order by Chan's formula in double (chan_moments:
+//      deterministic, independent of timing), makes its channels' affine
+//      (channel_affine) and applies it as gn_apply does (apply_rows).  No
+//      coefficient leaves the thread.
+// Their earlier two-launch forms stay as references for the card's checks
+// and for utils/kernel_variants.py, on no path: the pair entries
+// (gn_stats + gn_partial_fold; gn_combine_coef + gn_apply), the same
+// arithmetic in the same order.
 // The int8 mode (cvvae_group_norm_int8), for an int8-resident activation
 // (cvvae_tpu/ops/qflow.py:138-172, qgroup_norm_silu), computes the JAX
 // package's function, not K1's own statistics.  Its output is a function
@@ -97,13 +112,32 @@ constexpr int max_threads() {
   return V > 2 ? 256 : 1024;
 }
 
-// Moments: thread slot s holds channels whose group is the s-th of the
-// NS groups its vector touches (NS = V / cg when a vector spans several
-// groups, else 1).
+// the split entries' plan (ops/kernels/groupnorm.py::split_plan): blocks
+// an SM it aims at over all batch rows (K1's 256 threads a block where V >
+// 2, so at most 8 fit an SM), and rows a block at the least where S has
+// them: 128 rows keeps K1's partition wherever it gives a block as many
+// (the 720p level-0 half: 7,419 rows a block) and gives the per-frame
+// halves a few long blocks an SM (57 a frame at (5, 7200, 512), 30 at
+// (5, 3780, 512)), whose loads fill the card and whose block moments the
+// fold reads in 2 and 1 loads a lane
+constexpr int kSplitBlocksPerSm = 8;
+constexpr int kSplitMinRows = 128;
+static_assert(kSplitBlocksPerSm * 256 <= 2048 && kSplitMinRows >= 1,
+              "the plan's blocks fit an SM and have rows");
+// gn_partial's fold: groups a warp takes at once, block moments a lane
+// loads for each of them at once (few registers: the fold must not cost
+// the stats pass its loads in flight)
+constexpr int kFoldGroups = 4;
+constexpr int kFoldLoads = 1;
+
+// Moments of block (blockIdx.x, batch row blockIdx.y) into part, every
+// thread of the block taking part (gn_stats, gn_partial): thread slot s
+// holds channels whose group is the s-th of the NS groups its vector
+// touches (NS = V / cg when a vector spans several groups, else 1).
 template <typename T, int V, int NS>
-__global__ void __launch_bounds__(max_threads<V>())
-    gn_stats(const T* __restrict__ x, double* __restrict__ part, Plan p) {
-  extern __shared__ double sh[];  // [rows_per_iter][nvc * NS][2]
+__device__ __forceinline__ void block_stats(const T* __restrict__ x,
+                                            double* __restrict__ part,
+                                            const Plan& p, double* sh) {
   const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
   const int b = blockIdx.y, blk = blockIdx.x;
   const T* xb = x + (int64_t)b * p.S * p.C;
@@ -175,6 +209,13 @@ __global__ void __launch_bounds__(max_threads<V>())
   }
 }
 
+template <typename T, int V, int NS>
+__global__ void __launch_bounds__(max_threads<V>())
+    gn_stats(const T* __restrict__ x, double* __restrict__ part, Plan p) {
+  extern __shared__ double sh[];  // [rows_per_iter][nvc * NS][2]
+  block_stats<T, V, NS>(x, part, p, sh);
+}
+
 // the blocks' moments of (batch row b, group g), summed by one warp in a
 // fixed order (lane-strided, then a fixed shuffle tree): every lane ends
 // with the same sums
@@ -229,41 +270,136 @@ __global__ void gn_merge(const T* __restrict__ x,
   }
 }
 
+// (count, mean, M2) of (batch row b, group g) in double from the sums a1,
+// a2 of x - k over its rows, k the group's first element
+__device__ __forceinline__ void write_moments(double k, double a1, double a2,
+                                              int b, int g, const Plan& p,
+                                              double* __restrict__ moments) {
+  const double n = (double)p.S * p.cg;
+  const double m = a1 / n;  // mean of x - K
+  double* out = moments + ((int64_t)b * p.G + g) * 3;
+  out[0] = n;
+  out[1] = k + m;
+  out[2] = fmax(a2 - a1 * m, 0.0);  // sum of (x - mean)^2
+}
+
 // one warp per (batch row, group): the blocks' moments summed as gn_merge
 // sums them, written as (count, mean, M2) in double for the cross-rank
-// combination
+// combination (the fold's own launch: the pair entry's, on no path)
 template <typename T>
-__global__ void gn_partial(const T* __restrict__ x,
-                           const double* __restrict__ part,
-                           double* __restrict__ moments, int B, Plan p) {
+__global__ void gn_partial_fold(const T* __restrict__ x,
+                                const double* __restrict__ part,
+                                double* __restrict__ moments, int B, Plan p) {
   const int lane = threadIdx.x & 31;
   const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (wid >= B * p.G) return;
   const int b = wid / p.G, g = wid % p.G;
   double a1, a2;
   block_moments(part, b, g, lane, p, &a1, &a2);
-  if (lane == 0) {
-    const double n = (double)p.S * p.cg;
-    const double m = a1 / n;  // mean of x - K
-    double* out = moments + ((int64_t)b * p.G + g) * 3;
-    out[0] = n;
-    out[1] = (double)to_f32(x[(int64_t)b * p.S * p.C + g * p.cg]) + m;
-    out[2] = fmax(a2 - a1 * m, 0.0);  // sum of (x - mean)^2
+  if (lane == 0)
+    write_moments(to_f32(x[(int64_t)b * p.S * p.C + g * p.cg]), a1, a2, b, g,
+                  p, moments);
+}
+
+// The fold of batch row b by one block (gn_partial's last): warp w takes
+// groups w, w + warps, ..., kFoldGroups of them at once, each lane loading
+// its blocks' moments of all of them (kFoldLoads blocks a group at a time,
+// through L2: other blocks wrote them) before it adds any.  Each group's
+// sums in block_moments' order: lane l adds blocks l, l + 32, ... in turn,
+// then the same shuffle tree.
+template <typename T>
+__device__ __forceinline__ void fold_row(const T* __restrict__ x,
+                                         const double* __restrict__ part,
+                                         double* __restrict__ moments, int b,
+                                         const Plan& p) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const double2* q =
+      reinterpret_cast<const double2*>(part) + (int64_t)b * p.n_blocks * p.G;
+  const int n = p.n_blocks;
+  // not unrolled: an unrolled copy of either loop would hold more loads,
+  // and the kernel's registers are the stats pass's occupancy
+#pragma unroll 1
+  for (int g0 = threadIdx.x >> 5; g0 < p.G; g0 += warps * kFoldGroups) {
+    double a1[kFoldGroups], a2[kFoldGroups];
+    float k[kFoldGroups];
+#pragma unroll
+    for (int i = 0; i < kFoldGroups; ++i) {
+      const int g = g0 + i * warps;
+      a1[i] = a2[i] = 0.0;
+      k[i] = g < p.G ? to_f32(x[(int64_t)b * p.S * p.C + g * p.cg]) : 0.f;
+    }
+#pragma unroll 1
+    for (int k0 = lane; k0 < n; k0 += 32 * kFoldLoads) {
+      double2 v[kFoldGroups][kFoldLoads];
+#pragma unroll
+      for (int i = 0; i < kFoldGroups; ++i)
+#pragma unroll
+        for (int u = 0; u < kFoldLoads; ++u)
+          if (g0 + i * warps < p.G && k0 + 32 * u < n)
+            v[i][u] = __ldcg(q + (int64_t)(k0 + 32 * u) * p.G + g0 + i * warps);
+#pragma unroll
+      for (int i = 0; i < kFoldGroups; ++i)
+#pragma unroll
+        for (int u = 0; u < kFoldLoads; ++u)
+          if (g0 + i * warps < p.G && k0 + 32 * u < n) {
+            a1[i] += v[i][u].x;
+            a2[i] += v[i][u].y;
+          }
+    }
+#pragma unroll
+    for (int i = 0; i < kFoldGroups; ++i) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        a1[i] += __shfl_xor_sync(0xffffffffu, a1[i], o);
+        a2[i] += __shfl_xor_sync(0xffffffffu, a2[i], o);
+      }
+      if (lane == 0 && g0 + i * warps < p.G)
+        write_moments(k[i], a1[i], a2[i], b, g0 + i * warps, p, moments);
+    }
   }
 }
 
-// one warp per (batch row, group): the R ranks' (count, mean, M2), laid
-// out (R, B, G, 3), combined in rank order by Chan's formula in double
-// (every lane alike), then the affine folded as gn_merge folds it
-__global__ void gn_combine(const double* __restrict__ moments, int R,
-                           const float* __restrict__ weight,
-                           const float* __restrict__ bias,
-                           float* __restrict__ coef, float* __restrict__ stats,
-                           int B, Plan p, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (wid >= B * p.G) return;
-  const int b = wid / p.G, g = wid % p.G;
+// gn_partial's blocks an SM at the least: 4 of 256 threads (at most 64
+// registers a thread, what gn_stats' pass takes there) where a thread's
+// vector spans at most 2 groups, so the fold's registers cost the pass no
+// loads in flight; elsewhere as the pass needs
+template <int V, int NS>
+constexpr int partial_min_blocks() {
+  return V > 2 && NS <= 2 ? 4 : 1;
+}
+
+// K1.partial in one launch: block (blockIdx.x, batch row blockIdx.y) writes
+// its moments as gn_stats does; the block that takes its row's last ticket
+// folds the row's blocks in block-index order (fold_row) and writes
+// (count, mean, M2) for every group, then sets the row's counter back to
+// zero for the next launch on this stream
+template <typename T, int V, int NS>
+__global__ void __launch_bounds__(max_threads<V>(), partial_min_blocks<V, NS>())
+    gn_partial(const T* __restrict__ x, double* __restrict__ part,
+               unsigned* __restrict__ tickets, double* __restrict__ moments,
+               Plan p) {
+  extern __shared__ double sh[];  // [rows_per_iter][nvc * NS][2]
+  __shared__ bool last;
+  block_stats<T, V, NS>(x, part, p, sh);
+  if (threadIdx.x < p.G) __threadfence();  // its moments before the ticket
+  __syncthreads();
+  const int b = blockIdx.y;
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + b, 1u) == (unsigned)(p.n_blocks - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every block's moments are read after its ticket
+  fold_row(x, part, moments, b, p);
+  if (threadIdx.x == 0) tickets[b] = 0u;
+}
+
+// the R ranks' (count, mean, M2) of (batch row b, group g), laid out (R,
+// B, G, 3), combined in rank order by Chan's formula in double; its mean
+// and 1/std in fp32
+__device__ __forceinline__ void chan_moments(const double* __restrict__ moments,
+                                             int R, int B, int b, int g,
+                                             const Plan& p, float eps,
+                                             float* meanf, float* inv) {
   double n = 0.0, mean = 0.0, m2 = 0.0;
   for (int r = 0; r < R; ++r) {
     const double* q = moments + (((int64_t)r * B + b) * p.G + g) * 3;
@@ -275,34 +411,55 @@ __global__ void gn_combine(const double* __restrict__ moments, int R,
     n = nab;
   }
   const double var = fmax(m2 / n, 0.0);
-  const float meanf = (float)mean;
-  const float inv = rsqrtf((float)var + eps);
+  *meanf = (float)mean;
+  *inv = rsqrtf((float)var + eps);
+}
+
+// channel c's affine y = x * a + b from its group's mean and 1/std, folded
+// as gn_merge folds it
+__device__ __forceinline__ void channel_affine(float meanf, float inv,
+                                               float w, float bias, float* a,
+                                               float* b) {
+  *a = inv * w;
+  *b = bias - meanf * *a;
+}
+
+// one warp per (batch row, group): chan_moments, then the affine into coef
+// (the combination's own launch: the pair entry's, on no path)
+__global__ void gn_combine_coef(const double* __restrict__ moments, int R,
+                                const float* __restrict__ weight,
+                                const float* __restrict__ bias,
+                                float* __restrict__ coef,
+                                float* __restrict__ stats, int B, Plan p,
+                                float eps) {
+  const int lane = threadIdx.x & 31;
+  const int wid = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (wid >= B * p.G) return;
+  const int b = wid / p.G, g = wid % p.G;
+  float meanf, inv;
+  chan_moments(moments, R, B, b, g, p, eps, &meanf, &inv);
   if (stats != nullptr && lane == 0) {
     stats[((int64_t)b * p.G + g) * 2] = meanf;
     stats[((int64_t)b * p.G + g) * 2 + 1] = inv;
   }
-  for (int c = g * p.cg + lane; c < (g + 1) * p.cg; c += 32) {
-    const float a = inv * weight[c];
-    coef[(int64_t)b * 2 * p.C + c] = a;
-    coef[(int64_t)b * 2 * p.C + p.C + c] = bias[c] - meanf * a;
-  }
+  for (int c = g * p.cg + lane; c < (g + 1) * p.cg; c += 32)
+    channel_affine(meanf, inv, weight[c], bias[c],
+                   coef + (int64_t)b * 2 * p.C + c,
+                   coef + (int64_t)b * 2 * p.C + p.C + c);
 }
 
+// y = fma(x, a, b) in fp32, one rounding, then SiLU, over thread (tx, ty)'s
+// rows of block (blk, batch row b), 16-byte loads and stores (gn_apply,
+// gn_combine)
 template <typename T, int V, bool kSilu>
-__global__ void __launch_bounds__(max_threads<V>())
-    gn_apply(const T* __restrict__ x, T* __restrict__ y,
-             const float* __restrict__ coef, Plan p) {
-  const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
-  if (ty >= p.rows_per_iter) return;
-  const int b = blockIdx.y, blk = blockIdx.x;
+__device__ __forceinline__ void apply_rows(const T* __restrict__ x,
+                                           T* __restrict__ y,
+                                           const float (&a)[V],
+                                           const float (&bb)[V],
+                                           const Plan& p, int b, int blk,
+                                           int tx, int ty) {
   const int64_t off = (int64_t)b * p.S * p.C;
   const int c0 = tx * V;
-  float a[V], bb[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    a[j] = coef[(int64_t)b * 2 * p.C + c0 + j];
-    bb[j] = coef[(int64_t)b * 2 * p.C + p.C + c0 + j];
-  }
   const int64_t r0 = (int64_t)blk * p.rows_per_block;
   const int64_t r1 = min_i64(p.S, r0 + p.rows_per_block);
   const int64_t step = (int64_t)p.rows_per_iter * kUnroll;
@@ -329,6 +486,74 @@ __global__ void __launch_bounds__(max_threads<V>())
       }
     }
   }
+}
+
+template <typename T, int V, bool kSilu>
+__global__ void __launch_bounds__(max_threads<V>())
+    gn_apply(const T* __restrict__ x, T* __restrict__ y,
+             const float* __restrict__ coef, Plan p) {
+  const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
+  if (ty >= p.rows_per_iter) return;
+  const int b = blockIdx.y;
+  const int c0 = tx * V;
+  float a[V], bb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    a[j] = coef[(int64_t)b * 2 * p.C + c0 + j];
+    bb[j] = coef[(int64_t)b * 2 * p.C + p.C + c0 + j];
+  }
+  apply_rows<T, V, kSilu>(x, y, a, bb, p, b, blockIdx.x, tx, ty);
+}
+
+// K1.combine in one launch: every thread of block (blockIdx.x, batch row
+// blockIdx.y) folds the ranks' moments of its own channels' groups
+// (chan_moments: a few double operations a rank, so no barrier and no
+// shared memory), makes its channels' affine and applies it; its first
+// rows are requested into L2 before the fold, whose loads of the moments
+// would otherwise stand before the first of them.  The row's first block
+// also writes each group's mean and 1/std to stats, where asked.
+template <typename T, int V, bool kSilu>
+__global__ void __launch_bounds__(max_threads<V>())
+    gn_combine(const T* __restrict__ x, T* __restrict__ y,
+               const float* __restrict__ weight,
+               const float* __restrict__ bias,
+               const double* __restrict__ moments, int R, int B,
+               float* __restrict__ stats, Plan p, float eps) {
+  const int b = blockIdx.y;
+  const int tx = threadIdx.x % p.nvc, ty = threadIdx.x / p.nvc;
+  const int c0 = tx * V;
+  const int64_t r0 = (int64_t)blockIdx.x * p.rows_per_block;
+  const int64_t r1 = min_i64(p.S, r0 + p.rows_per_block);
+  if (ty < p.rows_per_iter) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t row = r0 + ty + (int64_t)u * p.rows_per_iter;
+      if (row < r1)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(
+            x + ((int64_t)b * p.S + row) * p.C + c0));
+    }
+  }
+  if (stats != nullptr && blockIdx.x == 0)
+    for (int g = threadIdx.x; g < p.G; g += blockDim.x) {
+      float meanf, inv;
+      chan_moments(moments, R, B, b, g, p, eps, &meanf, &inv);
+      stats[((int64_t)b * p.G + g) * 2] = meanf;
+      stats[((int64_t)b * p.G + g) * 2 + 1] = inv;
+    }
+  if (ty >= p.rows_per_iter) return;
+  float a[V], bb[V];
+  float meanf = 0.f, inv = 0.f;
+  int have = -1;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int g = (c0 + j) / p.cg;
+    if (g != have) {
+      chan_moments(moments, R, B, b, g, p, eps, &meanf, &inv);
+      have = g;
+    }
+    channel_affine(meanf, inv, weight[c0 + j], bias[c0 + j], &a[j], &bb[j]);
+  }
+  apply_rows<T, V, kSilu>(x, y, a, bb, p, b, blockIdx.x, tx, ty);
 }
 
 // ---------------------------------------------------------------- int8 --
@@ -727,10 +952,11 @@ int dispatch_int8(int out_dtype, const Int8Args& a, const Plan& p,
   return launch_int8<float, V>(a, p, ap, s);
 }
 
-// what one entry launches: the whole norm (gn_stats, gn_merge, gn_apply),
-// one rank's partial moments (gn_stats, gn_partial), or the cross-rank
-// combination and the apply (gn_combine, gn_apply)
-enum Mode { kWhole = 0, kPartial = 1, kCombine = 2 };
+// what one entry launches: the whole norm (gn_stats, gn_merge, gn_apply);
+// one rank's partial moments (gn_partial); the cross-rank combination and
+// the apply (gn_combine); or the last two in their two-launch forms
+// (gn_stats, gn_partial_fold; gn_combine_coef, gn_apply)
+enum Mode { kWhole, kPartial, kCombine, kPartialPair, kCombinePair };
 
 struct Args {
   const void* x;
@@ -738,9 +964,10 @@ struct Args {
   const float* weight;
   const float* bias;
   double* part;
+  unsigned* tickets;  // kPartial: a counter a batch row, zero between launches
   float* coef;
   float* stats;
-  double* moments;  // (B, G, 3) for kPartial, (R, B, G, 3) for kCombine
+  double* moments;  // (B, G, 3) for the partial, (R, B, G, 3) to combine
   int R;
   int B;
   int threads;
@@ -752,14 +979,29 @@ template <typename T, int V, int NS>
 int launch(Mode mode, const Args& a, const Plan& p, cudaStream_t stream) {
   const dim3 grid(p.n_blocks, a.B);
   const int warps = a.B * p.G;
-  if (mode != kCombine) {
-    const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
+  const size_t smem = sizeof(double) * 2 * p.rows_per_iter * p.nvc * NS;
+  if (mode == kPartial) {
+    gn_partial<T, V, NS><<<grid, a.threads, smem, stream>>>(
+        (const T*)a.x, a.part, a.tickets, a.moments, p);
+    return (int)cudaGetLastError();
+  }
+  if (mode == kCombine) {
+    if (a.silu)
+      gn_combine<T, V, true><<<grid, a.threads, 0, stream>>>(
+          (const T*)a.x, (T*)a.y, a.weight, a.bias, a.moments, a.R, a.B,
+          a.stats, p, a.eps);
+    else
+      gn_combine<T, V, false><<<grid, a.threads, 0, stream>>>(
+          (const T*)a.x, (T*)a.y, a.weight, a.bias, a.moments, a.R, a.B,
+          a.stats, p, a.eps);
+    return (int)cudaGetLastError();
+  }
+  if (mode != kCombinePair)
     gn_stats<T, V, NS><<<grid, a.threads, smem, stream>>>((const T*)a.x,
                                                            a.part, p);
-  }
-  if (mode == kPartial) {
-    gn_partial<T><<<(warps + 7) / 8, 256, 0, stream>>>((const T*)a.x, a.part,
-                                                        a.moments, a.B, p);
+  if (mode == kPartialPair) {
+    gn_partial_fold<T><<<(warps + 7) / 8, 256, 0, stream>>>(
+        (const T*)a.x, a.part, a.moments, a.B, p);
     return (int)cudaGetLastError();
   }
   if (mode == kWhole)
@@ -767,7 +1009,7 @@ int launch(Mode mode, const Args& a, const Plan& p, cudaStream_t stream) {
         (const T*)a.x, a.part, a.weight, a.bias, a.coef, a.stats, a.B, p,
         a.eps);
   else
-    gn_combine<<<(warps + 7) / 8, 256, 0, stream>>>(
+    gn_combine_coef<<<(warps + 7) / 8, 256, 0, stream>>>(
         a.moments, a.R, a.weight, a.bias, a.coef, a.stats, a.B, p, a.eps);
   if (a.silu)
     gn_apply<T, V, true><<<grid, a.threads, 0, stream>>>((const T*)a.x,
@@ -799,7 +1041,7 @@ int dispatch(int V, int NS, Mode mode, const Args& a, const Plan& p,
   return (int)cudaErrorInvalidValue;
 }
 
-// the plan's checks, shared by the three entries; 0 or an error code
+// the plan's checks, shared by the entries; 0 or an error code
 int make_plan(int B, int64_t S, int C, int G, int V, int NS, int threads,
               int64_t rows_per_block, int n_blocks, Plan* p) {
   if (B <= 0 || B > 65535 || S <= 0 || G <= 0 || C % G != 0 || C > 1024 ||
@@ -821,15 +1063,34 @@ int run(Mode mode, const Args& a, int64_t S, int C, int G, int dtype, int V,
   const int rc = make_plan(a.B, S, C, G, V, NS, a.threads, rows_per_block,
                            n_blocks, &p);
   if (rc != 0) return rc;
-  if (mode == kCombine && (a.R <= 0 || a.moments == nullptr))
+  const bool combine = mode == kCombine || mode == kCombinePair;
+  if ((combine && (a.R <= 0 || a.moments == nullptr)) ||
+      (mode == kPartial && a.tickets == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaSetDevice(device);
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess || current != device)
+    cudaSetDevice(device);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == CVVAE_BF16)
     return dispatch<__nv_bfloat16>(V, NS, mode, a, p, s);
   if (dtype == CVVAE_F32) return dispatch<float>(V, NS, mode, a, p, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// a split entry's plan and shapes (ops/kernels/groupnorm.py::split_plan),
+// passed by value; _build.GroupNormSplitPlan mirrors it
+struct SplitPlan {
+  int64_t S, rows_per_block;
+  int B, C, G, V, NS, threads, n_blocks, dtype, device;
+};
+
+int run_split(Mode mode, const Args& a, const SplitPlan& sp, void* stream) {
+  return run(mode, a, sp.S, sp.C, sp.G, sp.dtype, sp.V, sp.NS,
+             sp.rows_per_block, sp.n_blocks, sp.device, stream);
+}
+
+// ticket counters in a partial's scratch: one a batch row, B <= 65535
+constexpr int kTickets = 65536;
 
 }  // namespace
 
@@ -846,47 +1107,75 @@ CVVAE_EXPORT int cvvae_group_norm(const void* x, void* y, const void* weight,
                                   int silu, int dtype, int V, int NS,
                                   int threads, int64_t rows_per_block,
                                   int n_blocks, int device, void* stream) {
-  const Args a{x, y, (const float*)weight, (const float*)bias, (double*)part,
-               (float*)coef, (float*)stats, nullptr, 0, B, threads, eps,
-               silu};
+  const Args a{x,       y,       (const float*)weight, (const float*)bias,
+               (double*)part, nullptr, (float*)coef, (float*)stats, nullptr,
+               0,       B,       threads, eps,       silu};
   return run(kWhole, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
              device, stream);
 }
 
-// One rank's share of a norm split across ranks: x as above (this rank's
-// rows), part as above, moments: (B, G, 3) f64 that receives each (batch
-// row, group)'s count, mean and M2 over this rank's rows.
-CVVAE_EXPORT int cvvae_group_norm_partial(const void* x, void* part,
-                                          void* moments, int B, int64_t S,
-                                          int C, int G, int dtype, int V,
-                                          int NS, int threads,
-                                          int64_t rows_per_block,
-                                          int n_blocks, int device,
+// One rank's share of a norm split across ranks, one launch: x as above
+// (this rank's rows, the plan's B, S, C); scratch: kTickets uint32 ticket
+// counters, zero before the launch (it leaves them zero), then (B,
+// n_blocks, G, 2) f64 block moments; moments: (B, G, 3) f64 that receives
+// each (batch row, group)'s count, mean and M2 over this rank's rows.  The
+// plan (ops/kernels/groupnorm.py::split_plan) may leave no block empty.
+CVVAE_EXPORT int cvvae_group_norm_partial(const void* x, void* scratch,
+                                          void* moments, SplitPlan sp,
                                           void* stream) {
-  const Args a{x, nullptr, nullptr, nullptr, (double*)part, nullptr,
-               nullptr, (double*)moments, 0, B, threads, 0.f, 0};
-  return run(kPartial, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
-             device, stream);
+  unsigned* tickets = static_cast<unsigned*>(scratch);
+  Args a{};
+  a.x = x;
+  a.tickets = tickets;
+  a.part = scratch == nullptr ? nullptr
+                              : reinterpret_cast<double*>(tickets + kTickets);
+  a.moments = (double*)moments;
+  a.B = sp.B;
+  a.threads = sp.threads;
+  return run_split(kPartial, a, sp, stream);
 }
 
-// The rest of it: moments: (R, B, G, 3) f64, every rank's partial in rank
-// order; x, y, weight, bias, coef, stats and the plan as cvvae_group_norm's.
+// The rest of it, one launch: moments (R, B, G, 3) f64, every rank's
+// partial in rank order; x, y, weight, bias and stats as cvvae_group_norm's;
+// the plan as the partial's.
 CVVAE_EXPORT int cvvae_group_norm_combine(const void* x, void* y,
                                           const void* weight,
                                           const void* bias,
                                           const void* moments, int R,
-                                          void* coef, void* stats, int B,
-                                          int64_t S, int C, int G, float eps,
-                                          int silu, int dtype, int V, int NS,
-                                          int threads,
-                                          int64_t rows_per_block,
-                                          int n_blocks, int device,
+                                          void* stats, SplitPlan sp,
+                                          float eps, int silu,
                                           void* stream) {
   const Args a{x, y, (const float*)weight, (const float*)bias, nullptr,
-               (float*)coef, (float*)stats, (double*)moments, R, B, threads,
-               eps, silu};
-  return run(kCombine, a, S, C, G, dtype, V, NS, rows_per_block, n_blocks,
-             device, stream);
+               nullptr, nullptr, (float*)stats, (double*)moments, R, sp.B,
+               sp.threads, eps, silu};
+  return run_split(kCombine, a, sp, stream);
+}
+
+// The two entries in their two-launch forms, on no path (the card's checks
+// and utils/kernel_variants.py): the partial's stats pass and its fold each
+// a launch, part the (B, n_blocks, G, 2) f64 block moments; the
+// combination's affine written to coef (B, 2, C) f32 by one launch and
+// applied by another.  The same arithmetic in the same order.
+CVVAE_EXPORT int cvvae_group_norm_partial_pair(const void* x, void* part,
+                                               void* moments, SplitPlan sp,
+                                               void* stream) {
+  Args a{};
+  a.x = x;
+  a.part = (double*)part;
+  a.moments = (double*)moments;
+  a.B = sp.B;
+  a.threads = sp.threads;
+  return run_split(kPartialPair, a, sp, stream);
+}
+
+CVVAE_EXPORT int cvvae_group_norm_combine_pair(
+    const void* x, void* y, const void* weight, const void* bias,
+    const void* moments, int R, void* coef, void* stats, SplitPlan sp,
+    float eps, int silu, void* stream) {
+  const Args a{x, y, (const float*)weight, (const float*)bias, nullptr,
+               nullptr, (float*)coef, (float*)stats, (double*)moments, R,
+               sp.B, sp.threads, eps, silu};
+  return run_split(kCombinePair, a, sp, stream);
 }
 
 // The int8 mode: x (B, S, C) int8 contiguous, 16-byte aligned; scale: a

@@ -51,13 +51,24 @@ class GroupNormBwdPlan(ctypes.Structure):
                                 "stat_stride", "device")]
 
 
+class GroupNormSplitPlan(ctypes.Structure):
+    """The split K1 entries' plan as ``csrc/groupnorm.cu``'s ``SplitPlan``
+    lays it out, passed by value."""
+    _fields_ = [("S", _L), ("rows_per_block", _L)] + [
+        (name, _I) for name in ("B", "C", "G", "V", "NS", "threads",
+                                "n_blocks", "dtype", "device")]
+
+
 _SIGNATURES = {
     "cvvae_group_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I,
                          _I, _I, _I, _I, _L, _I, _I, _P],
-    "cvvae_group_norm_partial": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
-                                 _L, _I, _I, _P],
-    "cvvae_group_norm_combine": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _I,
-                                 _I, _F, _I, _I, _I, _I, _I, _L, _I, _I, _P],
+    "cvvae_group_norm_partial": [_P, _P, _P, GroupNormSplitPlan, _P],
+    "cvvae_group_norm_combine": [_P] * 5 + [_I, _P, GroupNormSplitPlan, _F,
+                                            _I, _P],
+    "cvvae_group_norm_partial_pair": [_P, _P, _P, GroupNormSplitPlan, _P],
+    "cvvae_group_norm_combine_pair": [_P] * 5 + [_I, _P, _P,
+                                                 GroupNormSplitPlan, _F, _I,
+                                                 _P],
     "cvvae_group_norm_bwd": [_P] * 9 + [GroupNormBwdPlan, _P],
     "cvvae_group_norm_int8": [_P, _P, _I] + [_P] * 7 + [_I, _L, _I, _I, _F,
                                                         _I, _I, _I, _L, _I,

@@ -22,11 +22,18 @@ plain version's several by a few bf16 ulps.
 
 Split across ranks (a tensor whose rows lie on the ranks of a mesh,
 ``parallel/shard.py``), ``group_norm_silu_sharded`` runs the same
-statistics in two entries around one all-gather: each rank's partial
-(count, mean, M2) per (row, group), in double on the card, then their
-combination in rank order by Chan's formula and the apply.  Each rank
-shifts by its own first row, so the moments about the shift do not add
-across ranks; (count, mean, M2) do, with no extra collective.  The plain
+statistics in two entries around one all-gather, one launch each: each
+rank's partial (count, mean, M2) per (row, group), in double on the card
+(K1.partial: the stats pass, then the block that finishes its batch row
+last, told by a ticket counter, folds the row's blocks in block order),
+then their combination in rank order by Chan's formula, the affine and
+the apply, each thread for its own channels (K1.combine).  Both run on
+``split_plan``; the plan and the launch's struct are made once a shape,
+and the partial's scratch (ticket counters and block moments) is one
+allocation a card and stream, so little host time goes before a launch.
+Each rank shifts by its own first row, so the moments about the shift do
+not add across ranks; (count, mean, M2) do, with no extra collective.
+The plain
 version splits the JAX package's arithmetic the same way: fp32 (count,
 Σx, Σx²) per rank, summed in rank order, var = E[x²]−mean².
 
@@ -79,8 +86,8 @@ from cvvae_tpu_torch.ops.kernels import _build
 launches = 0
 bwd_launches = 0
 #: launches of K1 split across ranks (``group_norm_silu_sharded``): its
-#: partial moments (gn_stats, gn_partial) and its combination with the
-#: apply (gn_combine, gn_apply), one of each a sharded norm
+#: partial moments (gn_partial) and its combination with the apply
+#: (gn_combine), one of each a sharded norm
 partial_launches = 0
 combine_launches = 0
 #: launches of K1's int8 mode (``group_norm_silu_int8``)
@@ -199,41 +206,24 @@ def group_norm_silu_sharded(x: torch.Tensor, weight: torch.Tensor,
                    silu=silu, per_frame=per_frame)
 
 
-def _split_plan(name, x, num_groups, per_frame):
-    """(B', S, C, the launch plan's arguments) of a split K1 launch."""
-    _build.refuse_gradient(f"{name} (K1 split)", "none: the mesh runs "
-                           "inference", x)
-    b, s, c = _check_shape(name, x, num_groups, per_frame)
-    plan = launch_plan(b, s, c, num_groups, x.element_size())
-    if x.data_ptr() % (plan["v"] * x.element_size()):
-        raise ValueError(f"{name}: input is not aligned to its "
-                         f"{plan['v']}-element loads")
-    return b, s, c, plan, (plan["v"], plan["ns"], plan["threads"],
-                           plan["rows_per_block"], plan["n_blocks"],
-                           x.device.index or 0, _build.stream_of(x))
-
-
 def partial_moments(x: torch.Tensor, num_groups: int,
                     per_frame: bool) -> torch.Tensor:
     """This rank's share of a split GroupNorm's statistics, (B', G, 3):
-    on the card K1's partial entry (gn_stats, gn_partial: count, mean and
-    M2 in double), on the CPU ``partial_moments_plain``."""
+    on the card K1's partial entry (``gn_partial``, one launch: count,
+    mean and M2 in double), on the CPU ``partial_moments_plain``."""
     global partial_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return partial_moments_plain(x, num_groups, per_frame)
-    b, s, c, plan, args = _split_plan("group_norm_partial", x, num_groups,
-                                      per_frame)
-    part = torch.empty((b, plan["n_blocks"], num_groups, 2), device=x.device,
-                       dtype=torch.float64)
-    moments = torch.empty((b, num_groups, 3), device=x.device,
-                          dtype=torch.float64)
+    dev, cplan, launch = _split_launch("group_norm_partial", x, num_groups,
+                                       per_frame)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    scratch = _partial_scratch(dev, stream, launch.part_bytes)
+    moments = x.new_empty(launch.moments_shape, dtype=torch.float64)
     rc = _build.library().cvvae_group_norm_partial(
-        x.data_ptr(), part.data_ptr(), moments.data_ptr(), b, s, c,
-        num_groups, _build.DTYPE_CODES[x.dtype], *args)
+        x.data_ptr(), scratch.data_ptr(), moments.data_ptr(), cplan, stream)
     _build.check(rc, "group_norm_partial")
     partial_launches += 1
-    split_launches_by_shape[f"partial {tuple(x.shape)} per_frame="
-                            f"{per_frame}"] += 1
+    split_launches_by_shape[launch.partial_key] += 1
     return moments
 
 
@@ -242,35 +232,228 @@ def combine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             silu: bool = False, per_frame: bool = False) -> torch.Tensor:
     """This rank's rows of a split GroupNorm(+SiLU) from every rank's
     :func:`partial_moments` stacked (R, B', G, 3) in rank order: on the
-    card K1's combine entry (gn_combine: Chan's formula over the ranks in
-    rank order, in double, and the affine; gn_apply), on the CPU
-    ``combine_plain``."""
-    global combine_launches
-    if x.device.type == "cpu":
+    card K1's combine entry (``gn_combine``, one launch: Chan's formula
+    over the ranks in rank order, in double, the affine and the apply), on
+    the CPU ``combine_plain``."""
+    if x.is_cpu:
         return combine_plain(x, weight, bias, moments, num_groups=num_groups,
                              eps=eps, silu=silu, per_frame=per_frame)
-    b, s, c, _, args = _split_plan("group_norm_combine", x, num_groups,
-                                   per_frame)
-    moments = moments.contiguous()
-    if tuple(moments.shape[1:]) != (b, num_groups, 3) or \
-            moments.dtype != torch.float64 or moments.device != x.device:
-        raise ValueError(f"group_norm_combine: moments "
-                         f"{tuple(moments.shape)} {moments.dtype} on "
-                         f"{moments.device}, expected (R, {b}, {num_groups}, "
-                         f"3) float64 on {x.device}")
+    return _combine(x, weight, bias, moments, num_groups, eps, silu,
+                    per_frame, False)[0]
+
+
+def combine_stats(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  moments: torch.Tensor, *, num_groups: int, eps: float,
+                  silu: bool = False, per_frame: bool = False):
+    """(y, stats) of K1's combine entry on a CUDA tensor: y as
+    :func:`combine`'s, stats (B', G, 2) fp32 each (row, group)'s mean and
+    1/std, which the entry writes for a caller that asks."""
+    return _combine(x, weight, bias, moments, num_groups, eps, silu,
+                    per_frame, True)
+
+
+def _combine(x, weight, bias, moments, num_groups, eps, silu, per_frame,
+             keep_stats):
+    """K1's combine entry on CUDA ``x``: (y, stats or None)."""
+    global combine_launches
+    dev, cplan, launch = _split_launch("group_norm_combine", x, num_groups,
+                                       per_frame)
+    moments, w32, b32 = _combine_operands(x, weight, bias, moments, dev,
+                                          launch)
     y = torch.empty_like(x)
-    coef = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
-    w32 = weight.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    b32 = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    stats = (torch.empty((launch.dims[0], num_groups, 2), device=x.device,
+                         dtype=torch.float32) if keep_stats else None)
     rc = _build.library().cvvae_group_norm_combine(
         x.data_ptr(), y.data_ptr(), w32.data_ptr(), b32.data_ptr(),
-        moments.data_ptr(), moments.shape[0], coef.data_ptr(), None, b, s, c,
-        num_groups, eps, int(silu), _build.DTYPE_CODES[x.dtype], *args)
+        moments.data_ptr(), moments.shape[0],
+        None if stats is None else stats.data_ptr(), cplan, eps, silu,
+        torch._C._cuda_getCurrentRawStream(dev))
     _build.check(rc, "group_norm_combine")
     combine_launches += 1
-    split_launches_by_shape[f"combine {tuple(x.shape)} per_frame="
-                            f"{per_frame}"] += 1
-    return y
+    split_launches_by_shape[launch.combine_key] += 1
+    return y, stats
+
+
+def partial_moments_pair(x: torch.Tensor, num_groups: int,
+                         per_frame: bool) -> torch.Tensor:
+    """K1.partial in its two-launch form on a CUDA tensor (``gn_stats``,
+    then ``gn_partial_fold``: the same sums in the same order), on no path
+    and not counted: the reference of the card's checks and of
+    ``utils/kernel_variants.py``."""
+    dev, cplan, launch = _split_launch("group_norm_partial_pair", x,
+                                       num_groups, per_frame)
+    part = torch.empty(launch.part_bytes // 8, device=x.device,
+                       dtype=torch.float64)
+    moments = torch.empty(launch.moments_shape, device=x.device,
+                          dtype=torch.float64)
+    rc = _build.library().cvvae_group_norm_partial_pair(
+        x.data_ptr(), part.data_ptr(), moments.data_ptr(), cplan,
+        torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(rc, "group_norm_partial_pair")
+    return moments
+
+
+def combine_pair(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 moments: torch.Tensor, *, num_groups: int, eps: float,
+                 silu: bool = False, per_frame: bool = False):
+    """K1.combine in its two-launch form on a CUDA tensor
+    (``gn_combine_coef`` writes the affine, ``gn_apply`` applies it), on
+    no path and not counted, as :func:`partial_moments_pair`: (y, stats)
+    as :func:`combine_stats` gives them."""
+    dev, cplan, launch = _split_launch("group_norm_combine_pair", x,
+                                       num_groups, per_frame)
+    moments, w32, b32 = _combine_operands(x, weight, bias, moments, dev,
+                                          launch)
+    b, _, c = launch.dims
+    y = torch.empty_like(x)
+    coef = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    stats = torch.empty((b, num_groups, 2), device=x.device,
+                        dtype=torch.float32)
+    rc = _build.library().cvvae_group_norm_combine_pair(
+        x.data_ptr(), y.data_ptr(), w32.data_ptr(), b32.data_ptr(),
+        moments.data_ptr(), moments.shape[0], coef.data_ptr(),
+        stats.data_ptr(), cplan, eps, silu,
+        torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(rc, "group_norm_combine_pair")
+    return y, stats
+
+
+#: the split entries' plan (``csrc/groupnorm.cu``): blocks an SM it aims
+#: at over all batch rows and rows a block at the least; the ticket
+#: counters at the head of a partial's scratch (uint32, one a batch row)
+SPLIT_BLOCKS_PER_SM, SPLIT_MIN_ROWS, SPLIT_TICKETS = _build.constants(
+    "groupnorm.cu", "kSplitBlocksPerSm", "kSplitMinRows", "kTickets")
+
+
+def split_plan(b: int, s: int, c: int, g: int, elem_size: int,
+               blocks_per_sm: int | None = None,
+               min_rows: int | None = None) -> dict:
+    """K1.partial's and K1.combine's plan for one rank's (b, s, c) with g
+    groups: ``launch_plan``'s vector width, groups a vector spans and
+    threads; about ``blocks_per_sm`` (SPLIT_BLOCKS_PER_SM) blocks an SM of
+    the H100's 132 over all batch rows, each a run of ``rows_per_block``
+    rows, at least ``min_rows`` (SPLIT_MIN_ROWS) where s has them.  Block k
+    of a batch row reads rows [k * rows_per_block, min(s, (k + 1) *
+    rows_per_block)), and the partial's fold adds the blocks' moments in
+    the order of k.  With 8 blocks an SM and 1 row it is ``launch_plan``."""
+    bps = SPLIT_BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
+    least = SPLIT_MIN_ROWS if min_rows is None else min_rows
+    plan = launch_plan(b, s, c, g, elem_size)
+    want = max(1, 132 * bps // b)
+    rows = max(plan["rows_per_iter"], min(s, least), -(-s // want))
+    plan.update(rows_per_block=rows, n_blocks=-(-s // rows))
+    return plan
+
+
+class _SplitLaunch(collections.namedtuple(
+        "_SplitLaunch", "dims align part_bytes moments_shape partial_key "
+        "combine_key")):
+    """What a split entry's launch on one shape needs besides its plan
+    struct: (B', S, C), the loads' alignment in bytes, the block moments'
+    bytes, the moments' shape and the keys of ``split_launches_by_shape``."""
+
+
+def _split_launch(name, x, num_groups, per_frame):
+    """(x's card, the kernel's plan struct, ``_SplitLaunch``) of a split
+    entry's launch on CUDA ``x``, or raise; the plan made once a shape."""
+    if x.requires_grad and torch.is_grad_enabled():
+        _build.refuse_gradient(f"{name} (K1 split)", "none: the mesh runs "
+                               "inference", x)
+    if not x.is_contiguous() or x.dtype not in _DTYPE_NAMES:
+        _build.require_cuda_layout(name, x, x.ndim)
+    dev = x.get_device()
+    key = (x.shape, x.dtype, num_groups, per_frame, dev)
+    found = _split_plans.get(key)
+    if found is None:
+        found = _split_plans[key] = _split_plan_of(name, *key)
+    if x.data_ptr() % found[1].align:
+        raise ValueError(f"{name}: input is not aligned to its "
+                         f"{found[1].align // x.element_size()}-element "
+                         f"loads")
+    return (dev,) + found
+
+
+#: each split launch's (plan struct, ``_SplitLaunch``) by (shape, dtype,
+#: groups, per_frame, card), made by ``_split_plan_of``
+_split_plans: dict = {}
+
+
+def _split_plan_of(name, shape, dtype, num_groups, per_frame, dev):
+    """(the plan struct, ``_SplitLaunch``) of a split launch on a tensor of
+    ``shape`` and ``dtype`` on card ``dev``; raises on a shape the kernels
+    do not take."""
+    if dev < 0:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    b, s, c = _dims(name, shape, num_groups, per_frame)
+    plan = split_plan(b, s, c, num_groups, dtype.itemsize)
+    cplan = _build.GroupNormSplitPlan(
+        s, plan["rows_per_block"], b, c, num_groups, plan["v"], plan["ns"],
+        plan["threads"], plan["n_blocks"], _build.DTYPE_CODES[dtype], dev)
+    tail = f" {tuple(shape)} per_frame={per_frame}"
+    return cplan, _SplitLaunch(
+        (b, s, c), plan["v"] * dtype.itemsize,
+        b * plan["n_blocks"] * num_groups * 2 * 8, (b, num_groups, 3),
+        "partial" + tail, "combine" + tail)
+
+
+def use_split_plan(blocks_per_sm: int | None = None,
+                   min_rows: int | None = None) -> None:
+    """Plan the split entries with ``blocks_per_sm`` and ``min_rows``
+    (``split_plan``'s; None: the source's constants) from here on: for
+    ``utils/kernel_variants.py``, which times the kernels on other plans."""
+    global SPLIT_BLOCKS_PER_SM, SPLIT_MIN_ROWS
+    source = _build.constants("groupnorm.cu", "kSplitBlocksPerSm",
+                              "kSplitMinRows")
+    SPLIT_BLOCKS_PER_SM = source[0] if blocks_per_sm is None \
+        else blocks_per_sm
+    SPLIT_MIN_ROWS = source[1] if min_rows is None else min_rows
+    _split_plans.clear()
+
+
+#: each (card, stream)'s partial scratch: SPLIT_TICKETS ticket counters,
+#: zero between launches (each launch leaves them zero), then the block
+#: moments; grown where a launch needs more, never shrunk
+_scratch: dict = {}
+
+
+def _partial_scratch(dev: int, stream: int, part_bytes: int) -> torch.Tensor:
+    need = SPLIT_TICKETS * 4 + part_bytes
+    buf = _scratch.get((dev, stream))
+    if buf is None or buf.numel() < need:
+        size = need if buf is None else max(need, 2 * buf.numel())
+        buf = torch.zeros(size, device=torch.device("cuda", dev),
+                          dtype=torch.uint8)
+        _scratch[(dev, stream)] = buf
+    return buf
+
+
+def _combine_operands(x, weight, bias, moments, dev, launch):
+    """(moments, weight, bias) as the combine entry reads them: moments
+    (R, B', G, 3) float64 contiguous on x's card (else raise), weight and
+    bias fp32 contiguous on it (copied only where they are not)."""
+    b, _, c = launch.dims
+    if (moments.dtype != torch.float64 or moments.get_device() != dev
+            or moments.shape[1:] != launch.moments_shape):
+        raise ValueError(f"group_norm_combine: moments "
+                         f"{tuple(moments.shape)} {moments.dtype} on "
+                         f"{moments.device}, expected (R, "
+                         f"{', '.join(map(str, launch.moments_shape))}) "
+                         f"float64 on {x.device}")
+    return (moments.contiguous(), _fp32_on(weight, dev, c),
+            _fp32_on(bias, dev, c))
+
+
+def _fp32_on(t: torch.Tensor, dev: int, c: int) -> torch.Tensor:
+    """``t`` as a contiguous fp32 (c,) tensor on card ``dev``: itself where
+    it is one."""
+    if not (t.dtype == torch.float32 and t.get_device() == dev
+            and t.is_contiguous()):
+        t = t.detach().to(device=torch.device("cuda", dev),
+                          dtype=torch.float32).contiguous()
+    if t.shape != (c,):
+        raise ValueError(f"group_norm_combine: a parameter of shape "
+                         f"{tuple(t.shape)}, expected ({c},)")
+    return t
 
 
 def group_norm_silu_backward_plain(dy: torch.Tensor, x: torch.Tensor,

@@ -1,8 +1,8 @@
 """Time variants of a hand-written kernel's source on the card.
 
     python -m cvvae_tpu_torch.utils.kernel_variants \
-        [--kernel K5|K5.int8|K1.int8|K6|quant8|K1.bwd|K2.bwd|K3.bwd|K4.bwd] \
-        [--turns N] [--sass]
+        [--kernel K5|K5.int8|K1.int8|K1.split|K6|quant8|K1.bwd|K2.bwd|
+                  K3.bwd|K4.bwd] [--turns N] [--sass]
 
 Each variant is ``csrc/`` copied into a temporary directory with some
 text of one source replaced, built (all side by side) and made the
@@ -23,6 +23,22 @@ library the wrappers launch (``_build.library(path)``).
   ``chip_smoke.k1_int8_check`` on ``chip_smoke.QFLOW_K1_CASES``, then
   timed at ``chip_smoke.QFLOW_SHAPES`` (int8 and bf16 out), in turns,
   twice.
+- K1.split (K1 split across ranks, ``csrc/groupnorm.cu``: K1.partial and
+  K1.combine): its variants need no build of their own, since the
+  two-launch forms of both entries are entries of the library and the
+  plan is the wrapper's (``groupnorm.use_split_plan``): the entries as
+  committed, the two-launch pair on K1's own plan (the entries before
+  their redesign), then each choice undone in turn (the combination as
+  its own launch, K1's plan, the fold as its own launch with no ticket).
+  Prints the registers and spills of the entries' kernels (and of the
+  two-launch forms' gn_stats and gn_apply) at the path's vector widths.
+  Every variant is first held by ``chip_smoke.k1_check`` on
+  ``chip_smoke.K1_SPLIT_CHECKS`` (bf16 and fp32), then each entry is timed
+  on one H half of each ``chip_smoke.K1_SPLIT_CASES`` shape, bf16 and
+  fp32, in turns: CUDA events (``chip_smoke.time_ms``, the host's time
+  before the launch included) and the device's time
+  (``chip_smoke.device_ms``), each with its median and spread, and the
+  host's time to issue a call (``chip_smoke.host_ms``).
 - K6 (``csrc/qflow.cu``, its residual add): every variant is first held
   bit-equal by ``chip_smoke.k6_checks`` on ``QFLOW_K6_CASES`` (both
   paths), then K6's add (per-channel scales) and K6.requant (bf16, a
@@ -273,6 +289,32 @@ K6_VARIANTS = {
         ("constexpr bool kSlicedAdd = true;",
          "constexpr bool kSlicedAdd = false;")],
 }
+
+#: K1 split's design choices, each undone in turn, all in the one library
+#: (the two-launch forms of both entries are entries of it): name -> (the
+#: partial's form, the combination's form, the plan: (blocks an SM, rows
+#: a block at the least), None for the source's)
+K1_SPLIT_VARIANTS = {
+    "as committed": ("one", "one", None),
+    "the two-launch pair on K1's plan (the entries before the redesign)": (
+        "pair", "pair", (8, 1)),
+    "the combination as its own launch (the affine through device "
+    "memory)": ("one", "pair", None),
+    "K1's plan (8 blocks an SM, 1 row a block at the least)": (
+        "one", "one", (8, 1)),
+    "the fold as its own launch (no ticket)": ("pair", "one", None),
+}
+
+#: the instantiations of the split entries' kernels (and of the two-launch
+#: forms' gn_stats and gn_apply) on the path's shapes whose registers and
+#: spills ``--kernel K1.split`` prints: bf16 8-channel vectors over 1 and
+#: 2 groups, fp32 4-channel vectors over 1
+K1_SPLIT_MARKS = tuple(
+    f"{k}I{t}" for k in ("gn_partial", "gn_stats")
+    for t in ("13__nv_bfloat16Li8ELi1E", "13__nv_bfloat16Li8ELi2E",
+              "fLi4ELi1E")) + tuple(
+    f"{k}I{t}" for k in ("gn_combine", "gn_apply")
+    for t in ("13__nv_bfloat16Li8E", "fLi4E"))
 
 #: each kernel's variants: (source, variants)
 KERNEL_VARIANTS = {"K5": ("conv_int8.cu", VARIANTS),
@@ -725,6 +767,87 @@ def _quant8(libs, dev) -> int:
     return 0
 
 
+def _k1_split_entries(name):
+    """(partial, combine) of K1 split's variant ``name``, its plan in use
+    from here on."""
+    from cvvae_tpu_torch.ops.kernels import groupnorm as gn
+
+    partial_form, combine_form, plan = K1_SPLIT_VARIANTS[name]
+    gn.use_split_plan(*(plan or (None, None)))
+    partial = (gn.partial_moments if partial_form == "one"
+               else gn.partial_moments_pair)
+    if combine_form == "one":
+        return partial, gn.combine
+    return partial, lambda *a, **kw: gn.combine_pair(*a, **kw)[0]
+
+
+def _k1_split(dev) -> int:
+    """K1 split's variants: held by ``chip_smoke.k1_check`` on
+    K1_SPLIT_CHECKS, then each entry timed on one H half of each
+    K1_SPLIT_CASES shape in turns, by CUDA events and by the device."""
+    import chip_smoke
+    from cvvae_tpu_torch.ops.kernels import _build
+    from cvvae_tpu_torch.ops.kernels import groupnorm as gn
+
+    _build.library()
+    _ptxas({"as committed": _build.build_dir() / _build.LIB_NAME},
+           K1_SPLIT_MARKS)
+    for name in K1_SPLIT_VARIANTS:
+        partial, combine = _k1_split_entries(name)
+        bad = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape, groups, silu, per_frame, runs in \
+                    chip_smoke.K1_SPLIT_CHECKS:
+                x, w, b = chip_smoke.k1_inputs(shape, dev, dtype)
+                kw = dict(num_groups=groups, eps=1e-6, silu=silu,
+                          per_frame=per_frame)
+                parts = [p.contiguous() for p in x.split(list(runs), dim=2)]
+                moments = torch.stack([partial(p, groups, per_frame)
+                                       for p in parts])
+                got = torch.cat([combine(p, w, b, moments, **kw)
+                                 for p in parts], dim=2)
+                if chip_smoke.k1_check(got, x, w, b, **kw)[1] > 0.0:
+                    bad.append((shape, runs, str(dtype)))
+        print(f"[{name}] check cases failed: {bad}", flush=True)
+        if bad:
+            gn.use_split_plan()
+            return 1
+    order = (list(K1_SPLIT_VARIANTS) + list(K1_SPLIT_VARIANTS)[::-1]) * TURNS
+    for shape, silu, per_frame in chip_smoke.K1_SPLIT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = chip_smoke.k1_inputs(shape, dev, dtype)
+            half = x.split(shape[2] // 2, dim=2)[0].contiguous()
+            del x
+            kw = dict(num_groups=32, eps=1e-6, silu=silu,
+                      per_frame=per_frame)
+            moments = torch.stack([gn.partial_moments(half, 32, per_frame)]
+                                  * 2)
+            readings = {n: {(e, m): [] for e in ("partial", "combine")
+                            for m in ("event", "device", "host")}
+                        for n in K1_SPLIT_VARIANTS}
+            for n in order:
+                partial, combine = _k1_split_entries(n)
+                for entry, fn in (
+                        ("partial", lambda p=partial: p(half, 32, per_frame)),
+                        ("combine", lambda c=combine: c(half, w, b, moments,
+                                                        **kw))):
+                    r = readings[n]
+                    r[entry, "event"].append(chip_smoke.time_ms(fn, 10))
+                    r[entry, "device"].append(chip_smoke.device_ms(fn))
+                    r[entry, "host"].append(chip_smoke.host_ms(fn))
+            label = f"{tuple(half.shape)} {str(dtype)[6:]}"
+            for n, r in readings.items():
+                for (entry, kind), t_ in r.items():
+                    print(f"[{n}] K1.{entry} {label} {kind} ms: median "
+                          f"{statistics.median(t_)!r}, spread "
+                          f"{max(t_) - min(t_)!r} (in turns: {t_})",
+                          flush=True)
+            del half, moments
+            torch.cuda.empty_cache()
+    gn.use_split_plan()
+    return 0
+
+
 def _k6(libs, dev) -> int:
     """K6's variants: held bit-equal by ``chip_smoke.k6_checks`` on
     QFLOW_K6_CASES, then K6's add (per-channel scales) and K6.requant
@@ -764,8 +887,8 @@ def main(argv=None) -> int:
     from cvvae_tpu_torch.ops.kernels import _build, conv_int8
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=sorted(KERNEL_VARIANTS),
-                    default="K5")
+    ap.add_argument("--kernel", choices=sorted(KERNEL_VARIANTS) +
+                    ["K1.split"], default="K5")
     ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
@@ -775,6 +898,8 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(f"[card] {chip_smoke.nvidia_smi_line()}")
+    if args.kernel == "K1.split":
+        return _k1_split(dev)
     source, variants = KERNEL_VARIANTS[args.kernel]
     if args.kernel != "K5":
         with tempfile.TemporaryDirectory() as tmp:

@@ -71,10 +71,11 @@ GROUPS = [
     ("K4.bwd flash attention backward", r"flash_bwd|\browdot\b"),
     ("K4 flash attention", r"flash_fwd"),
     ("K1.bwd GroupNorm+SiLU backward", r"\bgn_bwd\b"),
-    # K1 split across the ranks of a mesh: its own two kernels; its
-    # gn_stats and gn_apply are K1's and fall in K1's group
-    ("K1.partial split GroupNorm moments", r"\bgn_partial\b"),
-    ("K1.combine split GroupNorm combination", r"\bgn_combine\b"),
+    # K1 split across the ranks of a mesh: one kernel an entry (and the
+    # second launch of each entry's two-launch form, on no path, whose
+    # gn_stats and gn_apply are K1's and fall in K1's group)
+    ("K1.partial split GroupNorm moments", r"\bgn_partial(_fold)?\b"),
+    ("K1.combine split GroupNorm combination", r"\bgn_combine(_coef)?\b"),
     ("K1 GroupNorm+SiLU", r"gn_stats|gn_merge|gn_apply"),
     # K1's int8 mode (the int8-resident activations, ops/qflow.py)
     ("K1.int8 GroupNorm+SiLU on int8",
@@ -105,9 +106,8 @@ GROUPS = [
 
 #: each hand-written kernel's group -> (its launch counter's key, the one
 #: kernel its wrapper runs exactly once a counted launch): K1 runs
-#: gn_stats, gn_merge and gn_apply (its split entries gn_stats and
-#: gn_partial, then gn_combine and gn_apply, so gn_merge marks K1's own
-#: launches); K2.bwd adds bias_grad with a bias;
+#: gn_stats, gn_merge and gn_apply, its split entries gn_partial and
+#: gn_combine; K2.bwd adds bias_grad with a bias;
 #: K3.bwd is the partial sums and stem_bwd_merge; K4.bwd rowdot, dkv, dq
 KERNEL_GROUPS = {
     "K1 GroupNorm+SiLU": ("K1", r"\bgn_merge\b"),
@@ -158,7 +158,8 @@ SOURCE_KEYS = {"groupnorm.cu": "K1", "groupnorm_bwd.cu": "K1.bwd",
                "attention.cu": "K4", "attention_bwd.cu": "K4.bwd",
                "conv_int8.cu": "K5", "qflow.cu": "K6"}
 KERNEL_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
-               "gn_combine": "K1.combine", "gnq_stats": "K1.int8",
+               "gn_partial_fold": "K1.partial", "gn_combine": "K1.combine",
+               "gn_combine_coef": "K1.combine", "gnq_stats": "K1.int8",
                "gnq_merge": "K1.int8", "gnq_apply": "K1.int8",
                "gnq_apply_arith": "K1.int8",
                "qflow_requant": "K6.requant"}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults against the checks of K1-K6, K1.bwd, K2.bwd, K3.bwd,
-K4.bwd, K5 from int8, K1's int8 mode and of the edge-pad convs:
+"""Planted faults against the checks of K1-K6, K1 split, K1.bwd, K2.bwd,
+K3.bwd, K4.bwd, K5 from int8, K1's int8 mode and of the edge-pad convs:
 do the bounds that ``chip_smoke.py`` and the card tests hold them to
 catch a broken kernel or decomposition?
 
@@ -13,7 +13,9 @@ wrappers launch (``_build.library(path)``) and run where its fault lies:
 
 - K1, bf16 and fp32, at the shapes of ``chip_smoke.K1_CASES`` and
   ``chip_smoke.K1_CHECK_SHAPES`` on ``chip_smoke.k1_inputs``, held by
-  ``chip_smoke.k1_check``;
+  ``chip_smoke.k1_check``; K1 split across ranks (K1.partial, K1.combine)
+  at ``chip_smoke.K1_SPLIT_CHECKS`` and the per-frame shapes of
+  ``chip_smoke.K1_SPLIT_CASES``, its joined output held the same way;
 - K4 (bf16 only) at the shapes of ``chip_smoke.K4_CASES`` on
   ``chip_smoke.k4_inputs`` (N(0, 1) and rising logits), held by
   ``chip_smoke.k4_check``, and the logsumexp it writes for a gradient by
@@ -95,6 +97,16 @@ FAULTS = {
         "K1", "groupnorm.cu",
         "part + (((int64_t)b * p.n_blocks + k) * p.G + g) * 2;",
         "part + (((int64_t)b * p.n_blocks + k) * p.G + (g + 1) % p.G) * 2;"),
+    "a block left out of K1.partial's fold": (
+        "K1.split", "groupnorm.cu",
+        "  const int n = p.n_blocks;",
+        "  const int n = p.n_blocks - 1;"),
+    "K1.combine folding rank 0's moments in place of rank 1's": (
+        "K1.split", "groupnorm.cu",
+        "    const double* q = moments + (((int64_t)r * B + b) * p.G + g) * 3;",
+        "    const double* q =\n"
+        "        moments + (((int64_t)(r == 1 ? 0 : r) * B + b) * p.G + g) "
+        "* 3;"),
     "the output's rescale removed": (
         "K4", "attention.cu",
         "if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) "
@@ -325,6 +337,35 @@ def _k1_cases():
             torch.cuda.empty_cache()
             yield (f"K1 {shape} G={groups} {dtype}: max_abs_err={err!r} "
                    f"{text}", excess > 0.0)
+
+
+def _k1_split_cases():
+    """(label, fails) of every case of K1 split across ranks on the library
+    now loaded, bf16 and fp32: ``chip_smoke.K1_SPLIT_CHECKS`` (2 and 3
+    ranks on unequal runs of H rows) and the per-frame shapes of
+    ``chip_smoke.K1_SPLIT_CASES`` on two H halves; every run's partial
+    moments, then each run's combination, joined and held by
+    ``chip_smoke.k1_check``."""
+    dev = torch.device("cuda", 0)
+    cases = chip_smoke.K1_SPLIT_CHECKS + [
+        (s, 32, silu, pf, (s[2] // 2, s[2] - s[2] // 2))
+        for s, silu, pf in chip_smoke.K1_SPLIT_CASES if pf]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, groups, silu, per_frame, runs in cases:
+            x, w, b = chip_smoke.k1_inputs(shape, dev, dtype)
+            kw = dict(num_groups=groups, eps=1e-6, silu=silu,
+                      per_frame=per_frame)
+            parts = [p.contiguous() for p in x.split(list(runs), dim=2)]
+            moments = torch.stack([groupnorm.partial_moments(
+                p, groups, per_frame) for p in parts])
+            got = torch.cat([groupnorm.combine(p, w, b, moments, **kw)
+                             for p in parts], dim=2)
+            torch.cuda.synchronize()
+            err, excess, text = chip_smoke.k1_check(got, x, w, b, **kw)
+            del x, parts, got
+            torch.cuda.empty_cache()
+            yield (f"K1.split {shape} runs={runs} {dtype}: "
+                   f"max_abs_err={err!r} {text}", excess > 0.0)
 
 
 def _k4_cases():
@@ -583,7 +624,8 @@ def planted_conv(tmp: Path, i: int, replacements):
 
 
 #: each kernel's cases, and the edge convs'
-CASES = {"K1": _k1_cases, "K2": _k2_cases, "K3": _k3_cases, "K4": _k4_cases,
+CASES = {"K1": _k1_cases, "K1.split": _k1_split_cases, "K2": _k2_cases,
+         "K3": _k3_cases, "K4": _k4_cases,
          "K5": _k5_cases, "K1.bwd": _k1_bwd_cases, "K2.bwd": _k2_bwd_cases,
          "K3.bwd": _k3_bwd_cases, "K4.bwd": _k4_bwd_cases,
          "K5.int8": _k5_int8_cases, "K1.int8": _k1_int8_cases,

@@ -78,6 +78,104 @@ def test_group_norm_kernel_is_deterministic(dev, dtype):
     assert torch.equal(first, groupnorm.group_norm_silu(x, w, b, **kw))
 
 
+# K1 split across ranks (K1.partial, K1.combine): a tensor's H rows in
+# unequal runs, one a rank, on chip_smoke.K1_SPLIT_CHECKS
+def _split(x, runs, groups, per_frame, w, b, silu, pair=False):
+    """(the split output joined along H, the stacked moments) of x split
+    into H ``runs``: every run's partial moments, then each run's
+    combination; ``pair``: the two-launch forms."""
+    partial = (groupnorm.partial_moments_pair if pair
+               else groupnorm.partial_moments)
+    parts = [p.contiguous() for p in x.split(list(runs), dim=2)]
+    moments = torch.stack([partial(p, groups, per_frame) for p in parts])
+    kw = dict(num_groups=groups, eps=1e-6, silu=silu, per_frame=per_frame)
+    combine = groupnorm.combine_pair if pair else groupnorm.combine_stats
+    return torch.cat([combine(p, w, b, moments, **kw)[0] for p in parts],
+                     dim=2), moments
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,silu,per_frame,runs",
+                         chip_smoke.K1_SPLIT_CHECKS)
+def test_group_norm_split_kernels(dev, dtype, shape, groups, silu, per_frame,
+                                  runs):
+    """One launch of each entry a rank; the joined output within K1's
+    bounds of the plain version on the whole (``k1_check``), within TOL
+    of the plain split and of K1 on the whole."""
+    x, w, b = chip_smoke.k1_inputs(shape, dev, dtype)
+    kw = dict(num_groups=groups, eps=1e-6, silu=silu, per_frame=per_frame)
+    p0, c0 = groupnorm.partial_launches, groupnorm.combine_launches
+    got, _ = _split(x, runs, groups, per_frame, w, b, silu)
+    torch.cuda.synchronize()
+    assert groupnorm.partial_launches == p0 + len(runs)
+    assert groupnorm.combine_launches == c0 + len(runs)
+    assert got.dtype == dtype and got.shape == x.shape
+    _, excess, text = chip_smoke.k1_check(got, x, w, b, **kw)
+    assert excess <= 0.0, text
+    tol = chip_smoke.TOL[("K1", dtype)]
+    parts = [p.contiguous() for p in x.split(list(runs), dim=2)]
+    plain_m = torch.stack([groupnorm.partial_moments_plain(p, groups,
+                                                           per_frame)
+                           for p in parts])
+    plain = torch.cat([groupnorm.combine_plain(p, w, b, plain_m, **kw)
+                       for p in parts], dim=2)
+    whole = groupnorm.group_norm_silu(x, w, b, **kw)
+    for ref in (plain, whole):
+        assert chip_smoke.compare(got, ref, tol)[1] <= 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,silu,per_frame,runs",
+                         chip_smoke.K1_SPLIT_CHECKS)
+def test_group_norm_split_kernels_equal_their_two_launch_forms(
+        dev, dtype, shape, groups, silu, per_frame, runs):
+    """The one-launch entries against their two-launch forms on the same
+    plan: the moments bit-equal (the same fold in the same order), and the
+    combination bit-equal on the same moments, its statistics too."""
+    x, w, b = chip_smoke.k1_inputs(shape, dev, dtype)
+    kw = dict(num_groups=groups, eps=1e-6, silu=silu, per_frame=per_frame)
+    got, moments = _split(x, runs, groups, per_frame, w, b, silu)
+    ref, ref_m = _split(x, runs, groups, per_frame, w, b, silu, pair=True)
+    assert torch.equal(moments, ref_m)
+    assert torch.equal(got, ref)
+    half = x.split(list(runs), dim=2)[-1].contiguous()
+    y, stats = groupnorm.combine_stats(half, w, b, moments, **kw)
+    y_ref, stats_ref = groupnorm.combine_pair(half, w, b, moments, **kw)
+    assert torch.equal(y, y_ref) and torch.equal(stats, stats_ref)
+    assert torch.equal(y, groupnorm.combine(half, w, b, moments, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_split_kernels_repeat_bit_equal(dev, dtype):
+    """Two calls in a row give the same bits: the plan's fold order is
+    fixed, and each partial leaves its ticket counters at zero for the
+    next (a third call on another shape between them uses the same
+    scratch)."""
+    x, w, b = chip_smoke.k1_inputs((1, 5, 45, 84, 512), dev, dtype)
+    other = chip_smoke.k1_inputs((2, 3, 7, 9, 128), dev, dtype)[0]
+    kw = dict(num_groups=32, eps=1e-6, silu=False, per_frame=True)
+    first = groupnorm.partial_moments(x, 32, True)
+    groupnorm.partial_moments(other, 32, False)
+    again = groupnorm.partial_moments(x, 32, True)
+    assert torch.equal(first, again)
+    stack = torch.stack([first, first])
+    assert torch.equal(groupnorm.combine(x, w, b, stack, **kw),
+                       groupnorm.combine(x, w, b, stack, **kw))
+
+
+def test_group_norm_split_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((1, 2, 4, 4, 8), device=dev)
+    m = groupnorm.partial_moments(x, 4, False)
+    with pytest.raises(ValueError):
+        groupnorm.partial_moments(x.transpose(2, 3), 4, False)
+    with pytest.raises(ValueError):
+        groupnorm.combine(x, torch.ones(8), torch.zeros(8), m[None].float(),
+                          num_groups=4, eps=1e-5)
+    with pytest.raises(ValueError):
+        groupnorm.combine(x, torch.ones(8), torch.zeros(8), m[None, :, :2],
+                          num_groups=4, eps=1e-5)
+
+
 # K2 is bit-exact (chip_smoke.k2_exact) at chip_smoke.K2_CHECK_SHAPES: the
 # scalar path (c of 4 and 20 bf16) and the 16-byte vector path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -176,7 +176,8 @@ def test_nothing_is_built_at_import():
         "shuffle_bwd.cu", "stem.cu", "stem_bwd.cu"}
     assert set(_build._SIGNATURES) == {
         "cvvae_group_norm", "cvvae_group_norm_partial",
-        "cvvae_group_norm_combine", "cvvae_subpixel_interleave",
+        "cvvae_group_norm_combine", "cvvae_group_norm_partial_pair",
+        "cvvae_group_norm_combine_pair", "cvvae_subpixel_interleave",
         "cvvae_stem_conv3d",
         "cvvae_flash_attention", "cvvae_int8_stage", "cvvae_int8_gemm",
         "cvvae_group_norm_bwd", "cvvae_subpixel_interleave_bwd",

@@ -55,17 +55,19 @@ def csrc_globals():
 GLOBALS = csrc_globals()
 
 
-#: kernels whose key is not their source's: K5's staging pass, K1's two
-#: kernels of its split across ranks and the four of its int8 mode, K6's
+#: kernels whose key is not their source's: K5's staging pass, K1's
+#: kernels of its split across ranks (an entry's kernel and the second
+#: launch of its two-launch form) and the four of its int8 mode, K6's
 #: requantization
 OWN_KEYS = {"int8_stage": "K5.stage", "gn_partial": "K1.partial",
-            "gn_combine": "K1.combine", "gnq_stats": "K1.int8",
+            "gn_partial_fold": "K1.partial", "gn_combine": "K1.combine",
+            "gn_combine_coef": "K1.combine", "gnq_stats": "K1.int8",
             "gnq_merge": "K1.int8", "gnq_apply": "K1.int8",
             "gnq_apply_arith": "K1.int8", "qflow_requant": "K6.requant"}
 
 
 def test_csrc_holds_the_known_kernels():
-    assert len(GLOBALS) == 27
+    assert len(GLOBALS) == 29
     assert {f for f, _ in GLOBALS} == set(EXPECTED)
     assert profiling.csrc_kernels() == {
         n: OWN_KEYS.get(n, EXPECTED[f]) for f, n in GLOBALS}
