@@ -22,7 +22,10 @@ On a CUDA tensor the int8 conv is the hand-written kernel K5
 quantizes the activation and materialises its pads on the int8 tensor (as
 the default path of the reference's ``conv3d_int8`` does), then an s8
 GEMM reads a window of it.  The reference's other branch
-(``EDGE_FAST_SPACE``, off by default) is not ported.  K5's packed kernel
+(``EDGE_FAST_SPACE``, off by default) is not ported: K5.stage pads in the
+quantizing pass it runs anyway, and on an H100 the branch was slower at
+every conv and served path measured (``utils/int8_ab.py``, which holds
+it for that A/B; PERF.md §5).  K5's packed kernel
 is built once per module at first use (:func:`packed_weight`) and kept as
 a non-persistent buffer, never in the state dict, and built again when
 the int8 kernel it came from changes (:func:`derived`).
