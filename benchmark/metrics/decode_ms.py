@@ -1,0 +1,9 @@
+"""Model API and nets: device ms a request inside the benchmark's range
+around the worker's ``vae.decode``."""
+
+from benchmark.tracing import VAE_DECODE
+
+
+def read(tr):
+    s = tr.ranges.get(VAE_DECODE)
+    return None if not s else 1e3 * s / tr.requests
