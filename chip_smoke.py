@@ -944,6 +944,8 @@ def device_ms(fn, reps: int = 20) -> float:
     its later half (a trace can lose records near its start), times its
     launches a call (at least one), summed.  A trace with no device record
     is taken again, up to DEVICE_MS_TRACES traces."""
+    from cvvae_tpu_torch.utils import profiling
+
     for _ in range(DEVICE_MS_TRACES):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -951,8 +953,7 @@ def device_ms(fn, reps: int = 20) -> float:
                 fn()
             torch.cuda.synchronize()
         by_name = {}
-        for e in sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
+        for e in sorted(profiling.kernel_events(prof),
                         key=lambda e: e.time_range.start):
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if by_name:

@@ -34,6 +34,7 @@ from cvvae_tpu_torch.ops.attention import Dense, dense, spatial_self_attention
 from cvvae_tpu_torch.ops.conv import Conv, Conv3DSpec
 from cvvae_tpu_torch.ops.norm import group_norm, group_norm_per_frame, norm_init
 from cvvae_tpu_torch.ops.upsample_conv import upsample2x_conv3x3_interleave
+from cvvae_tpu_torch.utils import spans
 
 NORM_EPS = 1e-6
 
@@ -115,10 +116,11 @@ class Attention(nn.Module):
             Dense(channels, channels, g) for _ in range(4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = group_norm_per_frame(x, self.group_norm, num_groups=self.groups,
-                                 eps=NORM_EPS)
-        h = spatial_self_attention(h, self.to_q, self.to_k, self.to_v)
-        return x + dense(h, self.to_out)
+        with spans.span("cvvae.net.attn"):
+            h = group_norm_per_frame(x, self.group_norm,
+                                     num_groups=self.groups, eps=NORM_EPS)
+            h = spatial_self_attention(h, self.to_q, self.to_k, self.to_v)
+            return x + dense(h, self.to_out)
 
 
 class Upsample(nn.Module):
@@ -135,9 +137,10 @@ class Upsample(nn.Module):
         self.weight, self.bias = conv.weight, conv.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2x_conv3x3_interleave(
-            x, self, n=self.n, t_pad=(2, 0) if self.causal else (1, 1),
-            t_mode="edge", hw_mode="edge")
+        with spans.span("cvvae.net.up"):
+            return upsample2x_conv3x3_interleave(
+                x, self, n=self.n, t_pad=(2, 0) if self.causal else (1, 1),
+                t_mode="edge", hw_mode="edge")
 
 
 class Block(nn.Module):
@@ -156,7 +159,8 @@ class Block(nn.Module):
         for r in self.resnets:
             h = run_resblock(r, h, **run)
         if self.downsamplers is not None:
-            h = self.downsamplers[0](h)
+            with spans.span("cvvae.net.down"):
+                h = self.downsamplers[0](h)
         if self.upsamplers is not None:
             h = self.upsamplers[0](h)
         return h
@@ -212,13 +216,15 @@ class Encoder(nn.Module):
         """``remat``: each resblock under ``torch.utils.checkpoint``;
         ``generator``: dropout where the config has it (training)."""
         run = dict(remat=remat, generator=generator)
-        h = self.conv_in(x)
+        with spans.span("cvvae.net.conv_in"):
+            h = self.conv_in(x)
         for blk in self.down_blocks:
             h = blk(h, **run)
         h = self.mid_block(h, **run)
-        h = group_norm(h, self.conv_norm_out, num_groups=self.groups,
-                       eps=NORM_EPS, silu=True)
-        return self.conv_out(h)
+        with spans.span("cvvae.net.out"):
+            h = group_norm(h, self.conv_norm_out, num_groups=self.groups,
+                           eps=NORM_EPS, silu=True)
+            return self.conv_out(h)
 
 
 class Decoder(nn.Module):
@@ -253,11 +259,14 @@ class Decoder(nn.Module):
         """As the encoder's; ``features_only`` stops before ``conv_out``
         (``apply_decoder_head`` runs it)."""
         run = dict(remat=remat, generator=generator)
-        h = self.mid_block(self.conv_in(z), **run)
+        with spans.span("cvvae.net.conv_in"):
+            h = self.conv_in(z)
+        h = self.mid_block(h, **run)
         for blk in self.up_blocks:
             h = blk(h, **run)
-        h = group_norm(h, self.conv_norm_out, num_groups=self.groups,
-                       eps=NORM_EPS, silu=True)
-        if features_only:
-            return h
-        return self.conv_out(h)
+        with spans.span("cvvae.net.out"):
+            h = group_norm(h, self.conv_norm_out, num_groups=self.groups,
+                           eps=NORM_EPS, silu=True)
+            if features_only:
+                return h
+            return self.conv_out(h)

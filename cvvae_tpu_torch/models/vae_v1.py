@@ -36,6 +36,7 @@ from cvvae_tpu_torch.ops.conv import Conv, Conv3DSpec, conv3d
 from cvvae_tpu_torch.ops.norm import (
     group_norm, group_norm_per_frame, layer_norm, norm_init)
 from cvvae_tpu_torch.ops.upsample_conv import upsample2x_conv3x3_interleave
+from cvvae_tpu_torch.utils import spans
 
 NORM_EPS = 1e-5
 
@@ -90,10 +91,11 @@ def run_resblock(block: nn.Module, h: torch.Tensor, *, remat: bool = False,
         shape = tuple(h.shape[:-1]) + (block.c_out,)
         mask = torch.rand(shape, generator=generator, device=h.device) \
             < 1.0 - block.dropout
-    if remat:
-        return torch.utils.checkpoint.checkpoint(block, h, mask,
-                                                 use_reentrant=False)
-    return block(h, mask)
+    with spans.span("cvvae.net.res"):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(block, h, mask,
+                                                     use_reentrant=False)
+        return block(h, mask)
 
 
 def dropout_apply(h: torch.Tensor, mask: Optional[torch.Tensor],
@@ -153,15 +155,16 @@ class AttnBlock(nn.Module):
                 Dense(channels, channels, g) for _ in range(4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = group_norm_per_frame(x, self.norm, num_groups=self.groups,
-                                 eps=NORM_EPS)
-        h = spatial_self_attention(h, self.q, self.k, self.v)
-        h = dense(h, self.proj_out)
-        if self.kind == "spatial-temporal":
-            h = layer_norm(h, self.norm_t, eps=1e-5)
-            h = temporal_self_attention(h, self.q_t, self.k_t, self.v_t)
-            h = dense(h, self.proj_out_t)
-        return x + h
+        with spans.span("cvvae.net.attn"):
+            h = group_norm_per_frame(x, self.norm, num_groups=self.groups,
+                                     eps=NORM_EPS)
+            h = spatial_self_attention(h, self.q, self.k, self.v)
+            h = dense(h, self.proj_out)
+            if self.kind == "spatial-temporal":
+                h = layer_norm(h, self.norm_t, eps=1e-5)
+                h = temporal_self_attention(h, self.q_t, self.k_t, self.v_t)
+                h = dense(h, self.proj_out_t)
+            return x + h
 
 
 def _upsample_spec(causal: bool) -> Conv3DSpec:
@@ -184,9 +187,10 @@ class Upsample(nn.Module):
         self.weight, self.bias = conv.weight, conv.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2x_conv3x3_interleave(
-            x, self, n=self.n, t_pad=(2, 0) if self.causal else (1, 1),
-            t_mode="edge", hw_mode="zero")
+        with spans.span("cvvae.net.up"):
+            return upsample2x_conv3x3_interleave(
+                x, self, n=self.n, t_pad=(2, 0) if self.causal else (1, 1),
+                t_mode="edge", hw_mode="zero")
 
 
 class Level(nn.Module):
@@ -206,7 +210,8 @@ class Level(nn.Module):
             if self.attn is not None:
                 h = self.attn[i](h)
         if self.downsample is not None:
-            h = self.downsample(h)
+            with spans.span("cvvae.net.down"):
+                h = self.downsample(h)
         if self.upsample is not None:
             h = self.upsample(h)
         return h
@@ -280,13 +285,15 @@ class Encoder(nn.Module):
         """``remat``: each resblock under ``torch.utils.checkpoint``;
         ``generator``: dropout where the config has it (training)."""
         run = dict(remat=remat, generator=generator)
-        h = self.conv_in(x)
+        with spans.span("cvvae.net.conv_in"):
+            h = self.conv_in(x)
         for level in self.down:
             h = level(h, **run)
         h = self.mid(h, **run)
-        h = group_norm(h, self.norm_out, num_groups=self.groups, eps=NORM_EPS,
-                       silu=True)
-        return self.conv_out(h)
+        with spans.span("cvvae.net.out"):
+            h = group_norm(h, self.norm_out, num_groups=self.groups,
+                           eps=NORM_EPS, silu=True)
+            return self.conv_out(h)
 
 
 class Decoder(nn.Module):
@@ -326,14 +333,17 @@ class Decoder(nn.Module):
         """As the encoder's; ``features_only`` stops before ``conv_out``
         (``apply_decoder_head`` runs it)."""
         run = dict(remat=remat, generator=generator)
-        h = self.mid(self.conv_in(z), **run)
+        with spans.span("cvvae.net.conv_in"):
+            h = self.conv_in(z)
+        h = self.mid(h, **run)
         for level in reversed(self.up):
             h = level(h, **run)
-        h = group_norm(h, self.norm_out, num_groups=self.groups, eps=NORM_EPS,
-                       silu=True)
-        if features_only:
-            return h
-        return self.conv_out(h)
+        with spans.span("cvvae.net.out"):
+            h = group_norm(h, self.norm_out, num_groups=self.groups,
+                           eps=NORM_EPS, silu=True)
+            if features_only:
+                return h
+            return self.conv_out(h)
 
 
 def apply_decoder_head(conv_out, h: torch.Tensor, cfg) -> torch.Tensor:

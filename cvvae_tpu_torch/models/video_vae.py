@@ -20,6 +20,7 @@ another, so peak device memory is one tile's working set.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import math
@@ -32,6 +33,7 @@ from torch import nn
 from cvvae_tpu_torch.models import vae_sd3, vae_v1
 from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.distributions import DiagonalGaussian
+from cvvae_tpu_torch.utils import spans
 
 #: family -> the module holding its Encoder and Decoder
 _FAMILIES = {"v1": vae_v1, "sd3": vae_sd3}
@@ -139,10 +141,22 @@ def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+def _positions(v: torch.Tensor) -> int:
+    """B·T·H·W of a (B, T, H, W, C) tensor."""
+    return math.prod(v.shape[:4])
+
+
 class VideoVAE(nn.Module):
     """The video VAE: its family's ``encoder`` and ``decoder`` modules plus
     the tiling/chunking config.  ``config`` may be replaced (e.g. with the
-    serving tile preset) without touching the weights."""
+    serving tile preset) without touching the weights.
+
+    ``tile_counts`` counts, for each net ("encoder", "decoder"), its calls
+    (``<net>.calls``), the positions (B·T·H·W) they ran on
+    (``<net>.positions``) and the positions of the inputs the tiling was
+    asked to cover (``<net>.input_positions``): positions over input
+    positions, less one, is the share of the net's work the tile and chunk
+    overlaps do twice."""
 
     def __init__(self, config: VideoVAEConfig,
                  generator: Optional[torch.Generator] = None):
@@ -151,6 +165,7 @@ class VideoVAE(nn.Module):
         nets = _FAMILIES[config.family]
         self.encoder = nets.Encoder(config.net, generator)
         self.decoder = nets.Decoder(config.net, generator)
+        self.tile_counts: collections.Counter = collections.Counter()
 
     @classmethod
     def from_config(cls, config: VideoVAEConfig, seed: int = 0,
@@ -264,13 +279,18 @@ class VideoVAE(nn.Module):
 
     # ---- spatial tiling ----
 
-    def _spatial_tiled(self, x: torch.Tensor, net, tile,
+    def _run_net(self, name: str, net, x: torch.Tensor) -> torch.Tensor:
+        self.tile_counts[f"{name}.calls"] += 1
+        self.tile_counts[f"{name}.positions"] += _positions(x)
+        return net(x)
+
+    def _spatial_tiled(self, x: torch.Tensor, name: str, net, tile,
                        out_tile) -> torch.Tensor:
         if tile is None:
-            return net(x)
+            return self._run_net(name, net, x)
         tile_h, tile_w = _pair(tile)
         if x.shape[2] <= tile_h and x.shape[3] <= tile_w:
-            return net(x)
+            return self._run_net(name, net, x)
         out_h, out_w = _pair(out_tile)
         ratio_h, ratio_w = _pair(self.config.tile_overlap_ratio)
         in_stride_h = round(tile_h * (1 - ratio_h))
@@ -284,14 +304,23 @@ class VideoVAE(nn.Module):
         for i in range(0, x.shape[2], in_stride_h):
             row = []
             for j in range(0, x.shape[3], in_stride_w):
-                row.append(net(x[:, :, i:i + tile_h, j:j + tile_w, :]
-                               .contiguous()))
+                with spans.span("cvvae.vae.tile", len(rows), len(row)):
+                    row.append(self._run_net(
+                        name, net,
+                        x[:, :, i:i + tile_h, j:j + tile_w, :].contiguous()))
                 if j + tile_w >= x.shape[3]:
                     break
             rows.append(row)
             if i + tile_h >= x.shape[2]:
                 break
 
+        with spans.span("cvvae.vae.blend"):
+            return self._blend(rows, out_overlap_h, out_overlap_w,
+                               out_stride_h, out_stride_w)
+
+    @staticmethod
+    def _blend(rows, out_overlap_h, out_overlap_w, out_stride_h,
+               out_stride_w) -> torch.Tensor:
         # the reference blends tiles in place, so each tile meets
         # already-blended neighbours: keep that cascade
         for i in range(len(rows)):
@@ -317,14 +346,14 @@ class VideoVAE(nn.Module):
 
     def spatial_tiled_encode(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        return self._spatial_tiled(x, self._encoder,
+        return self._spatial_tiled(x, "encoder", self._encoder,
                                    cfg.encode_pixel_tile_size,
                                    cfg.encode_latent_tile_size)
 
     def spatial_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        return self._spatial_tiled(z, self._decoder, cfg.latent_tile_size,
-                                   cfg.pixel_tile_size)
+        return self._spatial_tiled(z, "decoder", self._decoder,
+                                   cfg.latent_tile_size, cfg.pixel_tile_size)
 
     # ---- temporal chunking ----
 
@@ -337,15 +366,18 @@ class VideoVAE(nn.Module):
         n_rounds = max(1, math.ceil((v.shape[1] - 1) / stride))
         outs = []
         for n in range(n_rounds):
-            out = fn(v[:, n * stride:(n + 1) * stride + 1].contiguous())
+            with spans.span("cvvae.vae.chunk", n):
+                out = fn(v[:, n * stride:(n + 1) * stride + 1].contiguous())
             outs.append(out if n == 0 else out[:, 1:])
         return torch.cat(outs, dim=1)
 
     def tiled_encode(self, x: torch.Tensor) -> torch.Tensor:
+        self.tile_counts["encoder.input_positions"] += _positions(x)
         return self._chunked(x, self.config.en_de_n_frames_a_time,
                              self.spatial_tiled_encode)
 
     def tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
+        self.tile_counts["decoder.input_positions"] += _positions(z)
         return self._chunked(z, self.config.decode_n_frames_a_time,
                              self.spatial_tiled_decode)
 
@@ -374,8 +406,9 @@ class VideoVAE(nn.Module):
             x = x.permute(0, 2, 3, 4, 1)
         elif x.ndim == 4:
             x = x[:, None]
-        moments = self.tiled_encode(x.contiguous())
-        return DiagonalGaussian.from_moments(moments)
+        with spans.span("cvvae.vae.encode"):
+            moments = self.tiled_encode(x.contiguous())
+            return DiagonalGaussian.from_moments(moments)
 
     @torch.inference_mode()
     def decode(self, z: torch.Tensor, *, num_frames: Optional[int] = None,
@@ -399,7 +432,8 @@ class VideoVAE(nn.Module):
             z = z.permute(0, 2, 3, 4, 1)
         elif z.ndim == 4:
             z = z[:, None]
-        x = self.tiled_decode(z.contiguous())
+        with spans.span("cvvae.vae.decode"):
+            x = self.tiled_decode(z.contiguous())
         if channels_first:
             x = x.permute(0, 4, 1, 2, 3)
         return x
@@ -426,6 +460,7 @@ class _MeshVideoVAE(VideoVAE):
         nn.Module.__init__(self)
         self.config = base.config
         self.encoder, self.decoder = base.encoder, base.decoder
+        self.tile_counts = collections.Counter()
         #: the split axis of (B, T, H, W, C): 1 time, 2 height
         self.mesh, self.dim, self.model_id = mesh, dim, model_id
 

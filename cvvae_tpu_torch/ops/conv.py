@@ -52,6 +52,7 @@ from torch import nn
 from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.kernels import stem
 from cvvae_tpu_torch.parallel import shard
+from cvvae_tpu_torch.utils import spans
 
 Pad = Tuple[int, int]
 
@@ -157,19 +158,20 @@ def conv3d(x: torch.Tensor, params, spec: Conv3DSpec) -> torch.Tensor:
     windows read from the neighbours' runs, and convolves that slab with
     the global pads only where it holds a global end (0 on interior
     sides); the dispatch above takes the global extents."""
-    ctx = shard.current()
-    if ctx is None:
-        return _conv3d(x, params, spec, x.shape[1:4])
-    extents = ctx.extents(x)
-    a = ctx.dim - 1
-    slab, pad, out_sizes = ctx.window(x, spec.kernel[a], spec.stride[a],
-                                      *spec.pads[a])
-    pads = list(spec.pads)
-    pads[a] = pad
-    y = _conv3d(slab, params, dataclasses.replace(spec, pads=tuple(pads)),
-                extents)
-    ctx.register(y, out_sizes)
-    return y
+    with spans.span("cvvae.op.conv3d"):
+        ctx = shard.current()
+        if ctx is None:
+            return _conv3d(x, params, spec, x.shape[1:4])
+        extents = ctx.extents(x)
+        a = ctx.dim - 1
+        slab, pad, out_sizes = ctx.window(x, spec.kernel[a], spec.stride[a],
+                                          *spec.pads[a])
+        pads = list(spec.pads)
+        pads[a] = pad
+        y = _conv3d(slab, params,
+                    dataclasses.replace(spec, pads=tuple(pads)), extents)
+        ctx.register(y, out_sizes)
+        return y
 
 
 def _conv3d(x: torch.Tensor, params, spec: Conv3DSpec,

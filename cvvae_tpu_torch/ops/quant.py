@@ -46,6 +46,7 @@ from torch import nn
 
 from cvvae_tpu_torch.ops.kernels import conv_int8 as k5
 from cvvae_tpu_torch.parallel import shard
+from cvvae_tpu_torch.utils import spans
 
 #: T*H*W below which a quantized conv runs in float on the dequantized
 #: kernel (the reference's threshold, ``cvvae_tpu/ops/quant.py:50``; the
@@ -239,9 +240,10 @@ def conv3d_int8(x: torch.Tensor, params, spec) -> torch.Tensor:
     """The quantized conv with the padding of ``spec``: x (B,T,H,W,C) ->
     (B,T',H',W',O) in x's dtype.  The activation scale is the calibrated
     ``scale_x`` where the conv has one, else the dynamic one."""
-    scale_x = getattr(params, "scale_x", None)
-    if scale_x is None:
-        scale_x = act_scale(x)
-    return k5.conv3d_int8(x, params.weight_q, params.scale_w, scale_x,
-                          params.bias, spec.stride, spec.pads, spec.modes,
-                          packed_weight(params))
+    with spans.span("cvvae.op.conv3d_int8"):
+        scale_x = getattr(params, "scale_x", None)
+        if scale_x is None:
+            scale_x = act_scale(x)
+        return k5.conv3d_int8(x, params.weight_q, params.scale_w, scale_x,
+                              params.bias, spec.stride, spec.pads,
+                              spec.modes, packed_weight(params))

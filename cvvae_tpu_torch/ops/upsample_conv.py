@@ -32,6 +32,7 @@ from cvvae_tpu_torch.ops import quant
 from cvvae_tpu_torch.ops.kernels import conv_int8 as k5
 from cvvae_tpu_torch.ops.kernels.shuffle import subpixel_interleave
 from cvvae_tpu_torch.parallel import shard
+from cvvae_tpu_torch.utils import spans
 
 _CORNERS = (("even", "even"), ("even", "odd"), ("odd", "even"), ("odd", "odd"))
 
@@ -66,27 +67,28 @@ def upsample2x_conv3x3_interleave(x: torch.Tensor, params, *, n: int,
     that holds frame 0 drops the first output frame, so v1's decode keeps
     its 4T'-3 frames.  K2 stays local: each input row and frame maps to
     its own output rows and frames."""
-    ctx = shard.current()
-    kt = (params.weight_q if quant.is_quantized(params)
-          else params.weight).shape[2]
-    extents = x.shape[1:4]
-    h_ends = None      # the H rows to pad at the global ends, when split
-    if ctx is not None:
-        extents, sizes = ctx.extents(x), ctx.sizes(x)
-        if ctx.dim == 1:
-            first = ctx.first(x)
-            x, t_pad, out = ctx.window(x, kt, 1, *t_pad)
-            out_sizes = [n * o - (n > 1 and drop_first and r == 0)
-                         for r, o in enumerate(out)]
-            drop_first = drop_first and first
-        else:
-            x, h_ends, _ = ctx.window(x, 3, 1, 1, 1)
-            out_sizes = [2 * o for o in sizes]
-    y = _upsample(x, params, n, tuple(t_pad), t_mode, hw_mode, drop_first,
-                  extents, h_ends)
-    if ctx is not None:
-        ctx.register(y, out_sizes)
-    return y
+    with spans.span("cvvae.op.upsample_conv"):
+        ctx = shard.current()
+        kt = (params.weight_q if quant.is_quantized(params)
+              else params.weight).shape[2]
+        extents = x.shape[1:4]
+        h_ends = None      # the H rows to pad at the global ends, when split
+        if ctx is not None:
+            extents, sizes = ctx.extents(x), ctx.sizes(x)
+            if ctx.dim == 1:
+                first = ctx.first(x)
+                x, t_pad, out = ctx.window(x, kt, 1, *t_pad)
+                out_sizes = [n * o - (n > 1 and drop_first and r == 0)
+                             for r, o in enumerate(out)]
+                drop_first = drop_first and first
+            else:
+                x, h_ends, _ = ctx.window(x, 3, 1, 1, 1)
+                out_sizes = [2 * o for o in sizes]
+        y = _upsample(x, params, n, tuple(t_pad), t_mode, hw_mode,
+                      drop_first, extents, h_ends)
+        if ctx is not None:
+            ctx.register(y, out_sizes)
+        return y
 
 
 def _upsample(x, params, n, t_pad, t_mode, hw_mode, drop_first, extents,

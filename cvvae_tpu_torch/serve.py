@@ -42,8 +42,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import collections
+import contextlib
 import io
+import itertools
 import json
 import os
 import queue
@@ -57,6 +58,7 @@ import torch
 
 from cvvae_tpu_torch.data.video_io import (to_uint8, to_unit,
                                            truncate_to_4k1)
+from cvvae_tpu_torch.utils import spans
 
 
 def _npy_bytes(arr: np.ndarray) -> bytes:
@@ -87,57 +89,106 @@ class VAEWorker:
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self.stats = {"encode": 0, "decode": 0, "reconstruct": 0,
                       "errors": 0, "frames": 0, "busy_s": 0.0}
-        #: wall latency (queue wait + device time) of the most recent 512
-        #: successful requests
-        self.latencies_ms = collections.deque(maxlen=512)
+        #: the most recent requests' records (queue wait, transfers,
+        #: latency, tile counters); /stats summarises them
+        self.records = spans.RequestLog()
+        self._ids = itertools.count(1)
+        #: the record of the request the worker runs (worker thread only)
+        self._record: Optional[spans.RequestRecord] = None
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
+    def new_request_id(self) -> int:
+        return next(self._ids)
+
     # ---- device ops (worker thread only) ----
+    @contextlib.contextmanager
+    def _transfer(self, which: str):
+        """A copy between host and device (``which``: "upload" or
+        "download"): its span, and its host seconds added to the request's
+        record."""
+        t0 = time.perf_counter()
+        try:
+            with spans.span(f"cvvae.serve.{which}"):
+                yield
+        finally:
+            if self._record is not None:
+                key = f"{which}_s"
+                setattr(self._record, key, getattr(self._record, key)
+                        + time.perf_counter() - t0)
+
+    def _download(self, y: torch.Tensor) -> np.ndarray:
+        # the copy starts once the device has made ``y``, so the download
+        # span holds the copy alone; the copy would wait for it anyway
+        if y.is_cuda:
+            torch.cuda.current_stream(y.device).synchronize()
+        with self._transfer("download"):
+            return y.cpu().numpy()
+
     def _encode(self, frames_u8: np.ndarray, sample: bool) -> np.ndarray:
-        x = to_unit(torch.from_numpy(frames_u8).to(self.device)[None],
-                    self.dtype)
+        with self._transfer("upload"):
+            x = to_unit(torch.from_numpy(frames_u8).to(self.device)[None],
+                        self.dtype)
         post = self.vae.encode(x)
         z = post.sample(self._generator) if sample else post.mode()
-        return z.float().cpu().numpy()
+        return self._download(z.float())
 
     def _decode(self, z_np: np.ndarray) -> np.ndarray:
-        z = torch.from_numpy(z_np).to(device=self.device, dtype=self.dtype)
-        return to_uint8(self.vae.decode(z)[0]).cpu().numpy()
+        with self._transfer("upload"):
+            z = torch.from_numpy(z_np).to(device=self.device,
+                                          dtype=self.dtype)
+        return self._download(to_uint8(self.vae.decode(z)[0]))
 
     def _loop(self):
         while True:
             kind, payload, sample, box = self._q.get()
-            t0 = time.perf_counter()
+            rec = box["record"]
+            t0 = rec.t_take = time.perf_counter()
+            rec.profiled = spans.enabled()
+            counts = getattr(self.vae, "tile_counts", None)
+            before = dict(counts) if counts is not None else {}
+            self._record = rec
             try:
-                if kind == "encode":
-                    out = self._encode(payload, sample)
-                elif kind == "decode":
-                    out = self._decode(payload)
-                else:  # reconstruct
-                    out = self._decode(self._encode(payload, sample))
+                with spans.in_request(rec.id), spans.span("cvvae.serve.work"):
+                    if kind == "encode":
+                        out = self._encode(payload, sample)
+                    elif kind == "decode":
+                        out = self._decode(payload)
+                    else:  # reconstruct
+                        out = self._decode(self._encode(payload, sample))
                 self.stats[kind] += 1
                 if kind != "decode":
                     self.stats["frames"] += int(payload.shape[0])
+                rec.frames = int(out.shape[0] if kind == "decode"
+                                 else payload.shape[0])
+                rec.ok = True
                 box["out"] = out
             except Exception as e:  # surfaced as HTTP 500
                 self.stats["errors"] += 1
                 box["err"] = e
             finally:
-                self.stats["busy_s"] += time.perf_counter() - t0
+                self._record = None
+                rec.t_done = time.perf_counter()
+                self.stats["busy_s"] += rec.t_done - t0
+                if counts is not None:
+                    rec.tiles = {k: v - before.get(k, 0)
+                                 for k, v in counts.items()}
+                self.records.add(rec)
                 box["done"].set()
 
     # ---- caller side ----
     def submit(self, kind: str, payload: np.ndarray, sample: bool,
-               timeout: float = 600.0) -> np.ndarray:
-        t0 = time.perf_counter()
-        box = {"done": threading.Event()}
+               timeout: float = 600.0,
+               request_id: Optional[int] = None) -> np.ndarray:
+        rid = self.new_request_id() if request_id is None else request_id
+        box = {"done": threading.Event(),
+               "record": spans.RequestRecord(rid, kind, 0,
+                                             time.perf_counter())}
         self._q.put((kind, payload, sample, box), timeout=self.put_timeout)
         if not box["done"].wait(timeout):
             raise TimeoutError(f"{kind} timed out after {timeout}s")
         if "err" in box:
             raise box["err"]
-        self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
         return box["out"]
 
     @property
@@ -183,11 +234,7 @@ def _make_handler(worker: VAEWorker, started: float,
                 busy = s["busy_s"] or 1e-9
                 s["frames_per_busy_s"] = round(s["frames"] / busy, 2)
                 s["busy_s"] = round(s["busy_s"], 2)
-                lats = sorted(list(worker.latencies_ms))  # snapshot first
-                if lats:
-                    s["latency_ms_p50"] = round(lats[len(lats) // 2], 1)
-                    s["latency_ms_p95"] = round(
-                        lats[min(len(lats) - 1, int(len(lats) * 0.95))], 1)
+                s.update(spans.summary(worker.records.records()))
                 return self._send_json(200, s)
             return self._send_json(404, {"error": "unknown path"})
 
@@ -197,6 +244,11 @@ def _make_handler(worker: VAEWorker, started: float,
             kind = path.lstrip("/")
             if kind not in ("encode", "decode", "reconstruct"):
                 return self._send_json(404, {"error": "unknown path"})
+            rid = worker.new_request_id()
+            with spans.in_request(rid):
+                self._answer(kind, sample, rid)
+
+        def _answer(self, kind: str, sample: bool, rid: int):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 if n > max_body_bytes:
@@ -204,7 +256,9 @@ def _make_handler(worker: VAEWorker, started: float,
                     return self._send_json(413, {
                         "error": f"body {n} B exceeds cap "
                                  f"{max_body_bytes} B"})
-                arr = _npy_load(self.rfile.read(n))
+                data = self.rfile.read(n)
+                with spans.span("cvvae.serve.parse"):
+                    arr = _npy_load(data)
                 if kind in ("encode", "reconstruct"):
                     if arr.ndim != 4 or arr.shape[-1] != 3 \
                             or arr.dtype != np.uint8:
@@ -216,13 +270,16 @@ def _make_handler(worker: VAEWorker, started: float,
                     raise ValueError(f"expected 5-D latent, got {arr.shape}")
             except Exception as e:
                 return self._send_json(400, {"error": str(e)})
-            try:
-                out = worker.submit(kind, arr, sample)
-            except queue.Full:
-                return self._send_json(503, {"error": "queue full"})
-            except Exception as e:
-                return self._send_json(500, {"error": str(e)})
-            return self._send(200, _npy_bytes(out))
+            with spans.span("cvvae.serve.request"):
+                try:
+                    out = worker.submit(kind, arr, sample, request_id=rid)
+                except queue.Full:
+                    return self._send_json(503, {"error": "queue full"})
+                except Exception as e:
+                    return self._send_json(500, {"error": str(e)})
+                with spans.span("cvvae.serve.serialize"):
+                    body = _npy_bytes(out)
+                return self._send(200, body)
 
     return Handler
 
@@ -389,7 +446,7 @@ def prepare(args: argparse.Namespace) -> DrainingHTTPServer:
     t0 = time.perf_counter()
     server.worker.submit("reconstruct", warm, False, timeout=3600.0)
     # /stats reports steady-state requests only
-    server.worker.latencies_ms.clear()
+    server.worker.records.clear()
     server.worker.stats.update(reconstruct=0, frames=0, busy_s=0.0)
     server.mesh = mesh
     print(f"[serve] warm in {time.perf_counter() - t0:.1f}s; "

@@ -136,8 +136,7 @@ def profile_step(engine, st, batch, gen, counts: Callable[[], dict],
         "timeline": profiling.device_timeline(events),
         "sources": profiling.launch_sources(prof),
         "top": [(e.key, e.self_device_time_total, e.count) for e in sorted(
-            (e for e in prof.key_averages()
-             if e.device_type == profiling.DeviceType.CUDA),
+            profiling.device_averages(prof),
             key=lambda e: -e.self_device_time_total)[:10]],
         "counts": {k: after[k] - before[k] for k in after},
         "kernels": sorted({e.name for e in events})}

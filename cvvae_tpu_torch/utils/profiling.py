@@ -224,10 +224,25 @@ def csrc_kernels(csrc: str = CSRC) -> Dict[str, str]:
     return out
 
 
+def annotation(e) -> bool:
+    """Whether a profiler event is a host range (``record_function``,
+    the port's spans) or its projection onto a stream, which is no device
+    work."""
+    return bool(getattr(e, "is_user_annotation", False))
+
+
 def kernel_events(prof):
     """The device-side events of a ``torch.profiler`` run (kernels,
     copies, memsets); a CPU op's own device time repeats its kernels'."""
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not annotation(e)]
+
+
+def device_averages(prof):
+    """``prof.key_averages()``'s device-side rows, the host ranges'
+    projections left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not annotation(e)]
 
 
 def group_kernels(events) -> Dict[str, dict]:
@@ -288,7 +303,7 @@ def launch_sources(prof, root: str = "cvvae_tpu_torch",
     out = collections.defaultdict(lambda: collections.defaultdict(
         lambda: [0, 0.0]))
     for e in prof.events():
-        if e.device_type != DeviceType.CPU or not e.kernels:
+        if e.device_type != DeviceType.CPU or not e.kernels or annotation(e):
             continue
         node, top, src = e, e, None
         while node is not None and src is None:
@@ -497,8 +512,7 @@ def profile_edge_conv(frames: int, dtype: str = "fp32", tf32: bool = False,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         del y
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        kernels = device_averages(prof)
         total = sum(e.self_device_time_total for e in kernels)
         print(f"[edge_conv] {name}: profiled wall {wall!r} s, kernel time "
               f"{total / 1e6!r} s")
@@ -532,8 +546,7 @@ def _profile(run, label: str, out=None) -> None:
 
     # device-side events only: a CPU op's own device time repeats its
     # kernels' time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_averages(prof)
     total = sum(e.self_device_time_total for e in kernels)
     print(f"[profile] {label}: unprofiled wall {steady!r} s, "
           f"profiled wall {wall!r} s, kernel time {total / 1e6!r} s "
@@ -546,6 +559,8 @@ def _profile(run, label: str, out=None) -> None:
     # each kernel is attached to the op that launched it
     by_op = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
+        if annotation(e):
+            continue
         for k in e.kernels:
             row = by_op[(k.name, e.name, str(e.input_shapes))]
             row[0] += k.duration
