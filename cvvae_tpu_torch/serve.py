@@ -3,7 +3,9 @@
 Port of ``cvvae_tpu/serve.py``.
 
 * one device, one model, one worker thread: requests queue (bounded) and
-  run strictly in order; a full queue answers 503.
+  run strictly in order; a full queue answers 503.  On the card the next
+  request's upload is staged while the running one computes, and answers
+  come down through pinned memory (``VAEWorker``).
 * binary .npy bodies; uint8 pixels on the wire, normalised and
   denormalised on the device, so host<->device traffic is 1 B/px.
 * endpoints:
@@ -71,8 +73,55 @@ def _npy_load(data: bytes) -> np.ndarray:
     return np.load(io.BytesIO(data), allow_pickle=False)
 
 
+#: how often the worker, waiting for an answer to come down, looks again
+#: (seconds); a request that arrives meanwhile wakes it at once
+POLL_S = 0.001
+
+
+class _Job:
+    """A request inside the worker: its queue entry, its record, and what
+    each of its steps leaves for the next."""
+
+    __slots__ = ("kind", "payload", "sample", "box", "rec", "behind",
+                 "queued", "x", "uploaded", "out", "host", "done",
+                 "t_launch", "t_ready")
+
+    def __init__(self, kind, payload, sample, box, behind=None):
+        self.kind, self.payload, self.sample, self.box = (kind, payload,
+                                                          sample, box)
+        self.rec: spans.RequestRecord = box["record"]
+        #: the request holding the worker when this one was taken
+        self.behind: Optional[_Job] = behind
+        #: counted in ``queue_depth`` until its own work starts
+        self.queued = True
+        #: the staged payload on the device, and its copy's event
+        self.x = self.uploaded = None
+        #: the device result of the last step
+        self.out = None
+        #: the answer on its way down: the host tensor and its copy's
+        #: event (None on the CPU), and when it was seen there
+        self.host = self.done = None
+        self.t_launch = self.t_ready = None
+
+    def ready(self) -> bool:
+        """Whether the answer is on the host (or the request failed)."""
+        if self.t_ready is None and self.done is not None \
+                and self.done.query():
+            self.t_ready = time.perf_counter()
+        return self.t_ready is not None
+
+
 class VAEWorker:
-    """Owns the device model; executes requests strictly in order."""
+    """Owns the device model; executes requests strictly in order.
+
+    One transfer pipeline on the card, with no host synchronise between
+    or inside requests: a request's payload goes up through a reusable
+    pinned buffer on a side stream (staged: while another request runs,
+    at most one ahead), its first work is launched behind the running
+    request's on the compute stream, and the running request's answer
+    comes down on the side stream into a second pinned buffer, copied out
+    once there.  The CPU runs the same steps in the same order with plain
+    tensors."""
 
     def __init__(self, vae, *, max_queue: int = 8,
                  act_dtype: Optional[torch.dtype] = None,
@@ -82,19 +131,29 @@ class VAEWorker:
         self.dtype = act_dtype if act_dtype is not None else vae.dtype
         self.device = torch.device(device if device is not None
                                    else vae.device)
-        self._q: "queue.Queue" = queue.Queue(maxsize=max_queue)
+        self._q: "queue.Queue" = queue.Queue()
+        self.max_queue = max_queue
+        #: requests submitted whose own work has not started (staged
+        #: included), under ``_room``
+        self._waiting = 0
+        self._room = threading.Condition()
         #: how long submit() waits for queue space before the caller sees
         #: queue.Full (-> HTTP 503)
         self.put_timeout = put_timeout
         self._generator = torch.Generator(device=self.device).manual_seed(0)
+        #: the copies' stream, the pinned buffers ("upload", "download")
+        #: and the last upload's event, on the card
+        self._side = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
+        self._pinned_bufs: dict = {}
+        self._up_done = None
         self.stats = {"encode": 0, "decode": 0, "reconstruct": 0,
                       "errors": 0, "frames": 0, "busy_s": 0.0}
+        self._busy_until = 0.0
         #: the most recent requests' records (queue wait, transfers,
         #: latency, tile counters); /stats summarises them
         self.records = spans.RequestLog()
         self._ids = itertools.count(1)
-        #: the record of the request the worker runs (worker thread only)
-        self._record: Optional[spans.RequestRecord] = None
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -103,80 +162,244 @@ class VAEWorker:
 
     # ---- device ops (worker thread only) ----
     @contextlib.contextmanager
-    def _transfer(self, which: str):
+    def _transfer(self, rec: spans.RequestRecord, which: str):
         """A copy between host and device (``which``: "upload" or
-        "download"): its span, and its host seconds added to the request's
-        record."""
+        "download"): its span, and its host seconds added to ``rec``."""
         t0 = time.perf_counter()
         try:
             with spans.span(f"cvvae.serve.{which}"):
                 yield
         finally:
-            if self._record is not None:
-                key = f"{which}_s"
-                setattr(self._record, key, getattr(self._record, key)
-                        + time.perf_counter() - t0)
+            key = f"{which}_s"
+            setattr(rec, key, getattr(rec, key) + time.perf_counter() - t0)
 
-    def _download(self, y: torch.Tensor) -> np.ndarray:
-        # the copy starts once the device has made ``y``, so the download
-        # span holds the copy alone; the copy would wait for it anyway
-        if y.is_cuda:
-            torch.cuda.current_stream(y.device).synchronize()
-        with self._transfer("download"):
-            return y.cpu().numpy()
+    def _pinned(self, which: str, like: torch.Tensor) -> torch.Tensor:
+        """The pinned buffer ``which``, grown to fit, viewed as ``like``."""
+        n = like.numel() * like.element_size()
+        buf = self._pinned_bufs.get(which)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            self._pinned_bufs[which] = buf
+        return buf[:n].view(like.dtype).view(like.shape)
 
-    def _encode(self, frames_u8: np.ndarray, sample: bool) -> np.ndarray:
-        with self._transfer("upload"):
-            x = to_unit(torch.from_numpy(frames_u8).to(self.device)[None],
-                        self.dtype)
+    def _upload(self, job: _Job) -> None:
+        """Stage the payload on the device: on the card through the pinned
+        buffer and a copy on the side stream (the tensor allocated there,
+        its use recorded on the compute stream)."""
+        with self._transfer(job.rec, "upload"):
+            host = torch.from_numpy(job.payload)
+            if self._side is None:
+                job.x = host.to(self.device)
+                return
+            if self._up_done is not None:
+                self._up_done.synchronize()     # the buffer's last copy
+            buf = self._pinned("upload", host)
+            buf.copy_(host)
+            with torch.cuda.stream(self._side):
+                job.x = torch.empty(host.shape, dtype=host.dtype,
+                                    device=self.device)
+                job.x.copy_(buf, non_blocking=True)
+                job.uploaded = self._up_done = torch.cuda.Event()
+                job.uploaded.record()
+            job.x.record_stream(torch.cuda.current_stream(self.device))
+
+    def _staged(self, job: _Job) -> torch.Tensor:
+        """The staged payload, once the compute stream waits for its
+        copy."""
+        x, job.x = job.x, None
+        if job.uploaded is not None:
+            torch.cuda.current_stream(self.device).wait_event(job.uploaded)
+        return x
+
+    def _encode(self, x: torch.Tensor, sample: bool) -> torch.Tensor:
+        """The latent of the model's input ``x``: the posterior's mode, or
+        a draw from it."""
         post = self.vae.encode(x)
-        z = post.sample(self._generator) if sample else post.mode()
-        return self._download(z.float())
+        return post.sample(self._generator) if sample else post.mode()
 
-    def _decode(self, z_np: np.ndarray) -> np.ndarray:
-        with self._transfer("upload"):
-            z = torch.from_numpy(z_np).to(device=self.device,
-                                          dtype=self.dtype)
-        return self._download(to_uint8(self.vae.decode(z)[0]))
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """The uint8 frames (T, H, W, 3) of latent ``z``."""
+        return to_uint8(self.vae.decode(z.to(self.dtype))[0])
+
+    def _start(self, job: _Job) -> None:
+        """The request's first work: the encode (or a /decode's decode)."""
+        if job.behind is not None:
+            # the work ahead seen done before this launch, which can hold
+            # the thread, starts this request's own work
+            job.behind.ready()
+            job.behind = None
+        job.t_launch = time.perf_counter()
+        if job.kind == "decode":
+            job.out = self._decode(self._staged(job))
+        else:
+            x = to_unit(self._staged(job)[None], self.dtype)
+            job.out = self._encode(x, job.sample)
+
+    def _finish(self, job: _Job) -> None:
+        """The rest of the request's work, then its answer's copy down: on
+        the card on the side stream into the pinned buffer, after the
+        compute stream has made it."""
+        if job.kind == "reconstruct":
+            job.out = self._decode(job.out)
+        elif job.kind == "encode":
+            job.out = job.out.float()
+        y, job.out = job.out, None
+        if self._side is None:
+            job.host, job.t_ready = y, time.perf_counter()
+            return
+        made = torch.cuda.Event()
+        made.record(torch.cuda.current_stream(self.device))
+        job.host = self._pinned("download", y)
+        with torch.cuda.stream(self._side):
+            self._side.wait_event(made)
+            job.host.copy_(y, non_blocking=True)
+            job.done = torch.cuda.Event()
+            job.done.record()
+        y.record_stream(self._side)
+
+    def _copy_out(self, job: _Job) -> np.ndarray:
+        """The answer, down, as the response's own array."""
+        if job.done is None:
+            return job.host.numpy()
+        return torch.empty(job.host.shape,
+                           dtype=job.host.dtype).copy_(job.host).numpy()
+
+    # ---- the pipeline (worker thread) ----
+    def _run(self, job: _Job, *steps) -> bool:
+        """``steps`` of ``job`` inside its work span, the model's tile
+        counters' change added to its record; a step that raises answers
+        the request with the error.  Whether all ran."""
+        counts = getattr(self.vae, "tile_counts", None)
+        before = dict(counts) if counts is not None else {}
+        try:
+            with spans.in_request(job.rec.id), spans.span("cvvae.serve.work"):
+                for step in steps:
+                    step(job)
+            return True
+        except Exception as e:  # surfaced as HTTP 500
+            self._fail(job, e)
+            return False
+        finally:
+            for k, v in (counts or {}).items():
+                job.rec.tiles[k] = (job.rec.tiles.get(k, 0) + v
+                                    - before.get(k, 0))
+
+    def _begin(self, item, behind: Optional[_Job]) -> Optional[_Job]:
+        """Take a request from the queue: stage its payload and launch its
+        first work, behind ``behind``'s where another request holds the
+        worker.  None if it failed (and was answered)."""
+        job = _Job(*item, behind=behind)
+        job.rec.staged = behind is not None
+        job.rec.t_staged = time.perf_counter()
+        job.rec.profiled = spans.enabled()
+        if behind is None:
+            self._took(job, job.rec.t_staged)
+        if not self._run(job, self._upload, self._start):
+            return None
+        return job
+
+    def _await(self, job: _Job) -> Optional[_Job]:
+        """Wait for ``job``'s answer to be down, taking the next request
+        meanwhile if one comes (at most one); it, or None."""
+        nxt = None
+        while True:
+            try:
+                ready = job.ready()
+            except RuntimeError as e:           # the copy failed
+                self._fail(job, e)
+                ready = True
+            if nxt is None:
+                try:
+                    item = self._q.get(block=not ready, timeout=POLL_S)
+                except queue.Empty:
+                    pass
+                else:
+                    nxt = self._begin(item, behind=job)
+                    continue
+            if ready:
+                return nxt
+            if nxt is not None:
+                time.sleep(POLL_S)
+
+    def _deliver(self, job: _Job) -> None:
+        """Copy the answer out and hand it to the caller."""
+        if "err" in job.box:
+            return
+        rec = job.rec
+        try:
+            with spans.in_request(rec.id), spans.span("cvvae.serve.work"), \
+                    self._transfer(rec, "download"):
+                out = self._copy_out(job)
+        except Exception as e:  # surfaced as HTTP 500
+            self._fail(job, e)
+            return
+        self.stats[job.kind] += 1
+        if job.kind != "decode":
+            self.stats["frames"] += int(job.payload.shape[0])
+        rec.frames = int(out.shape[0] if job.kind == "decode"
+                         else job.payload.shape[0])
+        rec.ok = True
+        job.box["out"] = out
+        self._done(job)
+
+    def _took(self, job: _Job, t: float) -> None:
+        """The request's own work starts at ``t``: it leaves the queue."""
+        if not job.queued:
+            return
+        job.queued = False
+        job.rec.t_take = t
+        with self._room:
+            self._waiting -= 1
+            self._room.notify()
+
+    def _fail(self, job: _Job, e: Exception) -> None:
+        self.stats["errors"] += 1
+        job.box["err"] = e
+        job.x = job.out = job.host = None
+        job.t_ready = time.perf_counter()
+        self._took(job, job.t_ready)
+        self._done(job)
+
+    def _done(self, job: _Job) -> None:
+        rec = job.rec
+        rec.t_done = time.perf_counter()
+        # requests overlap: the busy seconds are their union
+        self.stats["busy_s"] += max(0.0, rec.t_done - max(rec.t_take,
+                                                          self._busy_until))
+        self._busy_until = rec.t_done
+        self.records.add(rec)
+        job.box["done"].set()
 
     def _loop(self):
+        job = None          # the request whose work is launched
         while True:
-            kind, payload, sample, box = self._q.get()
-            rec = box["record"]
-            t0 = rec.t_take = time.perf_counter()
-            rec.profiled = spans.enabled()
-            counts = getattr(self.vae, "tile_counts", None)
-            before = dict(counts) if counts is not None else {}
-            self._record = rec
-            try:
-                with spans.in_request(rec.id), spans.span("cvvae.serve.work"):
-                    if kind == "encode":
-                        out = self._encode(payload, sample)
-                    elif kind == "decode":
-                        out = self._decode(payload)
-                    else:  # reconstruct
-                        out = self._decode(self._encode(payload, sample))
-                self.stats[kind] += 1
-                if kind != "decode":
-                    self.stats["frames"] += int(payload.shape[0])
-                rec.frames = int(out.shape[0] if kind == "decode"
-                                 else payload.shape[0])
-                rec.ok = True
-                box["out"] = out
-            except Exception as e:  # surfaced as HTTP 500
-                self.stats["errors"] += 1
-                box["err"] = e
-            finally:
-                self._record = None
-                rec.t_done = time.perf_counter()
-                self.stats["busy_s"] += rec.t_done - t0
-                if counts is not None:
-                    rec.tiles = {k: v - before.get(k, 0)
-                                 for k, v in counts.items()}
-                self.records.add(rec)
-                box["done"].set()
+            if job is None:
+                job = self._begin(self._q.get(), behind=None)
+                continue
+            self._run(job, self._finish)
+            nxt = self._await(job)
+            self._deliver(job)
+            if nxt is not None:
+                self._took(nxt, max(nxt.t_launch, job.t_ready))
+            job = nxt
+
+    def run(self, kind: str, payload: np.ndarray,
+            sample: bool = False) -> np.ndarray:
+        """One request through the worker's steps on the calling thread,
+        outside the queue and the records, with the worker idle: for tools
+        that profile or time the work alone."""
+        job = _Job(kind, payload, sample, {"record": spans.RequestRecord(
+            0, kind, 0, time.perf_counter())})
+        for step in (self._upload, self._start, self._finish):
+            step(job)
+        if job.done is not None:
+            job.done.synchronize()
+        return self._copy_out(job)
 
     # ---- caller side ----
+    def _has_room(self) -> bool:
+        return self.max_queue <= 0 or self._waiting < self.max_queue
+
     def submit(self, kind: str, payload: np.ndarray, sample: bool,
                timeout: float = 600.0,
                request_id: Optional[int] = None) -> np.ndarray:
@@ -184,7 +407,11 @@ class VAEWorker:
         box = {"done": threading.Event(),
                "record": spans.RequestRecord(rid, kind, 0,
                                              time.perf_counter())}
-        self._q.put((kind, payload, sample, box), timeout=self.put_timeout)
+        with self._room:
+            if not self._room.wait_for(self._has_room, self.put_timeout):
+                raise queue.Full
+            self._waiting += 1
+        self._q.put((kind, payload, sample, box))
         if not box["done"].wait(timeout):
             raise TimeoutError(f"{kind} timed out after {timeout}s")
         if "err" in box:
@@ -193,7 +420,9 @@ class VAEWorker:
 
     @property
     def queue_depth(self) -> int:
-        return self._q.qsize()
+        """Requests submitted whose own work has not started, the staged
+        one included."""
+        return self._waiting
 
 
 def _make_handler(worker: VAEWorker, started: float,

@@ -272,7 +272,7 @@ def serve_variants(family: str, turns: int, smi: str):
     for name, (on, flash) in VARIANTS.items():
         def request(on=on, flash=flash):
             with setting(on, flash):
-                out = worker._decode(worker._encode(clip, False))
+                out = worker.run("reconstruct", clip)
             torch.cuda.synchronize()
             return out
         fns[name] = request

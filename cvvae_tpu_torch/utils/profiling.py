@@ -421,7 +421,7 @@ def profile_reconstruct(variant: str, dtype: str = "int8", out=None) -> None:
                                             dtype=np.uint8)
 
     def request():
-        out = worker._decode(worker._encode(clip, False))
+        out = worker.run("reconstruct", clip)
         torch.cuda.synchronize()
         return out
 

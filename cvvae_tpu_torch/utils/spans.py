@@ -23,11 +23,11 @@ Span names begin with ``cvvae.``: ``serve.*`` the HTTP front,
 public entries.
 
 A ``RequestLog`` keeps the served requests' ``RequestRecord``s (queue,
-transfer and done times on ``time.perf_counter``'s clock, and the tile
-counters' deltas) in a bounded ring; ``VAEWorker`` owns one and ``/stats``
-summarises it (``summary``).  The log last made in this process stays
-reachable through ``last_log()`` after its server has closed, for a
-reader in the same process.
+staging, transfer and done times on ``time.perf_counter``'s clock, and
+the tile counters' deltas) in a bounded ring; ``VAEWorker`` owns one and
+``/stats`` summarises it (``summary``).  The log last made in this
+process stays reachable through ``last_log()`` after its server has
+closed, for a reader in the same process.
 """
 
 from __future__ import annotations
@@ -102,8 +102,15 @@ class RequestRecord:
     #: frames of the clip sent (encode, reconstruct) or answered (decode)
     frames: int
     t_submit: float
+    #: the start of the request's own work: when the worker took it, or,
+    #: for one staged behind another, when that one's work was seen done
+    #: (or its own first launch, if later)
     t_take: float = float("nan")
     t_done: float = float("nan")
+    #: its upload began (the worker took it from the queue), while another
+    #: request held the worker (``staged``) or not
+    t_staged: float = float("nan")
+    staged: bool = False
     #: host seconds in the worker's upload and download spans
     upload_s: float = 0.0
     download_s: float = 0.0
@@ -161,8 +168,8 @@ def _rank(values: List[float], q: float) -> float:
 def summary(records: List[RequestRecord]) -> dict:
     """``/stats``' request keys over the successful records: latency
     (submit to done) and queue wait (submit to take) p50 / p95 in ms, the
-    mean upload and download ms, and each net's mean calls a request (its
-    tiles times its chunks); {} without one."""
+    mean upload and download ms, each net's mean calls a request (its
+    tiles times its chunks) and the share staged; {} without one."""
     done = [r for r in records if r.ok]
     if not done:
         return {}
@@ -178,4 +185,5 @@ def summary(records: List[RequestRecord]) -> dict:
     for net in ("encoder", "decoder"):
         out[f"{net}_calls_mean"] = round(sum(
             r.tiles.get(f"{net}.calls", 0) for r in done) / len(done), 2)
+    out["staged_share"] = round(sum(r.staged for r in done) / len(done), 3)
     return out

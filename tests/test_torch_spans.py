@@ -131,9 +131,10 @@ def test_a_span_off_is_one_shared_null_context(served, monkeypatch):
 def test_a_traced_request(served):
     """Under the profiler, on every thread: the handler's request span and
     the worker's spans carry one request id; the worker's nest inside its
-    work span (upload, then encode, decode with its tiles, then
-    download, blocks and ops inside); one record with queue, transfer and
-    tile numbers, marked as profiled."""
+    three work spans (the upload and the encode, the decode with its tiles,
+    the download; blocks and ops inside), the latent never leaving the
+    device; one record with queue, transfer and tile numbers, marked as
+    profiled."""
     server, port = served
     n0 = len(server.worker.records.records())
     with _profile() as prof:
@@ -151,27 +152,28 @@ def test_a_traced_request(served):
     byname = {}
     for e in sorted(ev, key=lambda e: e.time_range.start):
         byname.setdefault(e.name, []).append(e)
-    (req,), (work,) = byname["cvvae.serve.request"], byname["cvvae.serve.work"]
-    assert req.thread != work.thread
-    assert req.concrete_inputs[0] == work.concrete_inputs[0] == rec.id
+    (req,), works = byname["cvvae.serve.request"], byname["cvvae.serve.work"]
+    assert len(works) == 3
+    worker = works[0].thread
+    assert req.thread != worker and all(w.thread == worker for w in works)
+    assert req.concrete_inputs[0] == rec.id
     (parse,), (ser,) = byname["cvvae.serve.parse"], byname["cvvae.serve.serialize"]
     assert parse.thread == ser.thread == req.thread
     assert parse.concrete_inputs[0] == ser.concrete_inputs[0] == rec.id
 
-    mine = [e for e in ev if e.thread == work.thread]
-    a, b = work.time_range.start, work.time_range.end
+    mine = [e for e in ev if e.thread == worker]
     for e in mine:
-        assert a <= e.time_range.start <= e.time_range.end <= b, e.name
+        assert any(w.time_range.start <= e.time_range.start
+                   <= e.time_range.end <= w.time_range.end
+                   for w in works), e.name
         assert e.concrete_inputs[0] == rec.id, e.name
     (enc,), (dec,) = byname["cvvae.vae.encode"], byname["cvvae.vae.decode"]
-    ups, downs = byname["cvvae.serve.upload"], byname["cvvae.serve.download"]
-    assert len(ups) == len(downs) == 2      # the clip and the latent
-    assert ups[0].time_range.end <= enc.time_range.start
-    assert enc.time_range.end <= downs[0].time_range.start
-    assert downs[0].time_range.end <= ups[1].time_range.start
-    assert ups[1].time_range.end <= dec.time_range.start
-    assert dec.time_range.end <= downs[1].time_range.start
-    assert sum(e.time_range.elapsed_us() for e in ups + downs) <= \
+    # the clip up and the frames down: the latent stays on the device
+    (up,), (down,) = byname["cvvae.serve.upload"], byname["cvvae.serve.download"]
+    assert up.time_range.end <= enc.time_range.start
+    assert enc.time_range.end <= dec.time_range.start
+    assert dec.time_range.end <= down.time_range.start
+    assert up.time_range.elapsed_us() + down.time_range.elapsed_us() <= \
         1e6 * (rec.upload_s + rec.download_s)
 
     tiles = byname["cvvae.vae.tile"]
